@@ -1,0 +1,186 @@
+"""Device and dtype helpers, and the registry of the hand-written kernels.
+
+Every hand-written kernel of the port is described by a :class:`Kernel`
+record: its name, its route (CUDA C++ built with ``nvcc``, or Triton),
+its source file, the JAX program it replaces, and a plain-integer count
+of its launches.  The count rises only where a wrapper launches the
+kernel on a CUDA tensor, so a run can show that its main path went
+through the kernel.
+
+CUDA C++ kernels expose a plain C interface and are compiled at first
+use into ``driftscan_tpu_torch/_build/``, keyed on a hash of the source
+and the compiler flags, then loaded with :mod:`ctypes`.  Triton kernels
+are compiled by Triton itself at their first launch.
+
+Every wrapper takes the kernel's plain PyTorch version only for tensors
+that lie on the CPU; for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from dataclasses import dataclass, field
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def complex_dtype(real_dtype: torch.dtype) -> torch.dtype:
+    """The complex dtype whose parts are ``real_dtype``."""
+    if real_dtype == torch.float32:
+        return torch.complex64
+    if real_dtype == torch.float64:
+        return torch.complex128
+    raise TypeError(f"no complex counterpart for {real_dtype}")
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The real part dtype of a real or complex dtype."""
+    if dtype in (torch.complex64, torch.float32):
+        return torch.float32
+    if dtype in (torch.complex128, torch.float64):
+        return torch.float64
+    raise TypeError(f"unsupported dtype {dtype}")
+
+
+def on_cuda(*tensors) -> bool:
+    """True if every tensor lies on a CUDA device, False if every one
+    lies on the CPU; raises on a mix or any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")
+
+
+def require(t: torch.Tensor, name: str, dtype=None, shape=None, ndim=None):
+    """Validate a kernel argument before its pointer is passed on."""
+    if dtype is not None and t.dtype not in (
+        dtype if isinstance(dtype, tuple) else (dtype,)
+    ):
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{name}: lazy conjugate/negative view; resolve it first")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@dataclass
+class Kernel:
+    """One hand-written kernel: identity, provenance and launch count."""
+
+    name: str
+    route: str  # "cuda" or "triton"
+    source: str  # path relative to the repository root
+    replaces: str  # file:line of the JAX program it replaces
+    launches: int = 0
+    _lib: object = field(default=None, repr=False)
+
+    def lib(self) -> ctypes.CDLL:
+        """The built shared library of a CUDA kernel (built at first use)."""
+        if self.route != "cuda":
+            raise RuntimeError(f"{self.name} is a {self.route} kernel")
+        if self._lib is None:
+            self._lib = ctypes.CDLL(build(self.source))
+        return self._lib
+
+
+KERNELS: dict[str, Kernel] = {}
+
+
+def register(name, route, source, replaces) -> Kernel:
+    k = Kernel(name, route, source, replaces)
+    KERNELS[name] = k
+    return k
+
+
+def reset_launch_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def check(status: int, what: str):
+    """Raise if a C entry point returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build(source: str) -> str:
+    """Compile one ``csrc/*.cu`` file into a shared library; return its path.
+
+    The output name carries a hash of the source, the shared ``csrc/*.cuh``
+    headers and the flags, so an edited source rebuilds and an unchanged
+    one is reused.
+    """
+    repo_root = os.path.dirname(_PKG_DIR)
+    src = os.path.join(repo_root, source)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {source} ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        )
+    with open(out + ".log", "w") as f:
+        f.write(res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> dict:
+    """Build every registered CUDA kernel; returns {name: ptxas report}."""
+    # importing the kernel modules registers every kernel
+    from .ops import fpencil, kernels, sht  # noqa: F401
+    from .parallel import mstep  # noqa: F401
+
+    reports = {}
+    for k in KERNELS.values():
+        if k.route == "cuda":
+            path = build(k.source)
+            k.lib()
+            with open(path + ".log") as f:
+                reports[k.name] = f.read()
+    return reports

@@ -1,0 +1,639 @@
+"""Abstract transit-telescope model and the batched transfer-matrix driver.
+
+Port of ``driftscan_tpu/core/telescope.py`` (unpolarised part).  Feed
+layout, unique-baseline discovery, frequency binning and the noise model
+are host numpy, unchanged; the pixel grid, the beams and the visibility
+maps live on the telescope's ``device`` as torch tensors.
+
+A telescope is built with an explicit device, e.g.
+``UnpolarisedCylinderTelescope.from_config(params, device="cuda")``.
+"""
+
+from __future__ import annotations
+
+import abc
+import os
+
+import numpy as np
+import torch
+
+from .. import config
+from ..ops import healpix, kernels, sht
+
+# Speed of light (m/s) — for wavelength conversion from MHz channels.
+C_LIGHT = 299792458.0
+# Sidereal day in seconds (used in the radiometer noise model).
+T_SIDEREAL = 23.9344696 * 3600.0
+
+
+def in_range(arr, min, max):
+    """True if all entries lie in [min, max)."""
+    arr = np.asarray(arr)
+    return bool(((arr >= min) & (arr < max)).all())
+
+
+def out_of_range(arr, min, max):
+    return not in_range(arr, min, max)
+
+
+def _label_classes(mask, *keys):
+    """Dense labels for equal key tuples inside ``mask``; -1 elsewhere.
+
+    Labels are assigned in lexicographic key order (complex keys sort by
+    real part, then imaginary).
+    """
+    mask = np.asarray(mask, dtype=bool)
+    sel = np.nonzero(mask.ravel())[0]
+
+    cols = []
+    for k in keys:
+        k = np.asarray(k).ravel()[sel]
+        if np.iscomplexobj(k):
+            cols.extend([k.real, k.imag])
+        else:
+            cols.append(k)
+
+    # np.lexsort keys run last-to-first; we want keys[0] most significant.
+    order = np.lexsort(tuple(cols[::-1]))
+    boundary = np.zeros(sel.size, dtype=bool)
+    for c in cols:
+        cs = c[order]
+        boundary[1:] |= cs[1:] != cs[:-1]
+
+    labels = np.full(mask.size, -1, dtype=np.int64)
+    labels[sel[order]] = np.cumsum(boundary)
+    return labels.reshape(mask.shape)
+
+
+def _class_representatives(labels, mask):
+    """First (row-major) (i, j) index inside ``mask`` for every class."""
+    flat = labels.ravel()
+    sel = np.nonzero(np.asarray(mask, dtype=bool).ravel())[0]
+    labs = flat[sel]
+    if labs.size == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    first = np.full(labs.max() + 1, -1, dtype=np.int64)
+    first[labs[::-1]] = sel[::-1]  # reversed fill leaves the earliest index
+    return np.column_stack(np.unravel_index(first, labels.shape))
+
+
+def _remap_keyarray(keyarray, mask=None):
+    """Assign dense integer labels to the equivalence classes of keys."""
+    if mask is None:
+        mask = np.ones(keyarray.shape, bool)
+    return _label_classes(mask, keyarray)
+
+
+def sht_unit_chunks(n_units: int, npix: int, npol: int = 1):
+    """Split a unit batch into SHT-call chunks bounded by a memory budget.
+
+    The beam-map + SHT stage holds several pixel-grid temporaries per
+    unit; the budget is ``DRIFTSCAN_TPU_SHT_BUDGET_GB`` (default 2.0).
+    Returns a list of slice lengths (each a power of two, covering
+    ``n_units``).
+    """
+    budget = float(os.environ.get("DRIFTSCAN_TPU_SHT_BUDGET_GB", "2.0")) * 2**30
+    per_unit = npix * 4.0 * 8.0 * max(npol, 1)  # ~8 f32 pixel temporaries
+    cap = max(1, int(budget / max(per_unit, 1.0)))
+    cap = 1 << (cap.bit_length() - 1)  # round down to a power of two
+
+    chunks = []
+    left = n_units
+    while left > 0:
+        take = min(cap, left)
+        chunks.append(take)
+        left -= take
+    return chunks
+
+
+def max_lm(baselines, wavelengths, uwidth, vwidth=0.0):
+    """Maximum (l, m) a baseline is sensitive to.
+
+    ``mmax = ceil(2 pi u_max)``, ``lmax = ceil(hypot(mmax, 2 pi v_max))``.
+    """
+    umax = (np.abs(baselines[..., 0]) + uwidth) / wavelengths
+    vmax = (np.abs(baselines[..., 1]) + vwidth) / wavelengths
+
+    mmax = np.ceil(2 * np.pi * umax).astype(np.int64)
+    lmax = np.ceil((mmax**2 + (2 * np.pi * vmax) ** 2) ** 0.5).astype(np.int64)
+    return lmax, mmax
+
+
+def nside_cap():
+    """The ``DRIFTSCAN_TPU_NSIDE_CAP`` value (0 = off), validated at read.
+
+    A cap must be a positive power of two: a negative value or any other
+    integer is an error, not a silent clamp.
+    """
+    raw = os.environ.get("DRIFTSCAN_TPU_NSIDE_CAP", "0") or "0"
+    try:
+        cap = int(raw)
+    except ValueError as exc:
+        raise ValueError(f"DRIFTSCAN_TPU_NSIDE_CAP={raw!r} is not an integer") from exc
+    if cap != 0 and (cap < 0 or cap & (cap - 1)):
+        raise ValueError(
+            f"DRIFTSCAN_TPU_NSIDE_CAP={cap} must be 0 (off) or a positive "
+            "power of two"
+        )
+    return cap
+
+
+class Observer(config.Reader):
+    """Minimal observer location."""
+
+    latitude = config.Property(proptype=float, default=45.0)
+    longitude = config.Property(proptype=float, default=0.0)
+    altitude = config.Property(proptype=float, default=0.0)
+
+    def __init__(self, longitude=0.0, latitude=45.0, altitude=0.0, **kwargs):
+        self.longitude = longitude
+        self.latitude = latitude
+        self.altitude = altitude
+
+
+class TransitTelescope(Observer, metaclass=abc.ABCMeta):
+    """Base class for a transit interferometer.
+
+    Subclasses implement ``feedpositions``, ``beamclass``, ``u_width``,
+    ``v_width`` and the beam bank (:meth:`_beam_bank_rows`); everything
+    else lives here.  ``device`` holds the pixel grid and the beams.
+    """
+
+    freq_lower = config.Property(proptype=config.float_or_none, default=None)
+    freq_upper = config.Property(proptype=config.float_or_none, default=None)
+
+    freq_start = config.Property(proptype=float, default=800.0)
+    freq_end = config.Property(proptype=float, default=400.0)
+    num_freq = config.Property(proptype=int, default=1024)
+
+    freq_mode = config.enum(["centre", "centre_nyquist", "edge"], default="centre")
+
+    channel_bin = config.Property(proptype=int, default=1)
+    channel_range = config.Property(proptype=list)
+    channel_list = config.Property(proptype=list)
+
+    tsys_flat = config.Property(proptype=float, default=50.0, key="tsys")
+    ndays = config.Property(proptype=int, default=733)
+
+    accuracy_boost = config.Property(proptype=float, default=1.0)
+    l_boost = config.Property(proptype=float, default=1.0)
+    force_lmax = config.Property(proptype=int, default=None)
+    force_mmax = config.Property(proptype=int, default=None)
+
+    minlength = config.Property(proptype=float, default=0.0)
+    maxlength = config.Property(proptype=float, default=1.0e7)
+
+    auto_correlations = config.Property(proptype=bool, default=False)
+
+    local_origin = config.Property(proptype=bool, default=True)
+
+    # Run the beam-map + SHT path in complex64 (float32 pixel grid).
+    single_precision = config.Property(proptype=bool, default=False)
+
+    # Tolerance (decimal places) when comparing baselines for equivalence.
+    _bl_tol = 6
+
+    def __init__(self, latitude=45, longitude=0, device="cpu", **kwargs):
+        Observer.__init__(self, longitude, latitude, **kwargs)
+        self.device = torch.device(device)
+
+    # ======================= location =========================
+
+    @property
+    def zenith(self):
+        """Zenith direction in spherical polars [theta, phi]."""
+        theta = np.pi / 2.0 - np.radians(self.latitude)
+        phi = np.remainder(np.radians(self.longitude), 2 * np.pi)
+        phi = 0.0 if self.local_origin else phi
+        return np.array([theta, phi])
+
+    @property
+    def real_dtype(self) -> torch.dtype:
+        return torch.float32 if self.single_precision else torch.float64
+
+    # ======================= baselines ========================
+
+    _baselines = None
+    _redundancy = None
+    _uniquepairs = None
+
+    @property
+    def baselines(self):
+        """The unique baselines (nbase, 2) in metres."""
+        if self._baselines is None:
+            self.calculate_feedpairs()
+        return self._baselines
+
+    @property
+    def redundancy(self):
+        if self._redundancy is None:
+            self.calculate_feedpairs()
+        return self._redundancy
+
+    @property
+    def npairs(self):
+        return self.uniquepairs.shape[0]
+
+    @property
+    def uniquepairs(self):
+        if self._uniquepairs is None:
+            self.calculate_feedpairs()
+        return self._uniquepairs
+
+    def calculate_feedpairs(self):
+        """Unique feed pairs, their redundancy and (east-pointing) baselines.
+
+        Feed pairs are labelled by joint (baseline, beam) equivalence and
+        joined with their reversed pairs; each class representative is
+        oriented east, and classes are relabelled in (u, v, beamclass_j,
+        beamclass_i) order.
+        """
+        fmap, mask, conj = self._get_unique()
+
+        conj = self._orient_east(fmap, mask, conj)
+        fmap = self._rank_pairs(fmap, mask, conj)
+
+        tmask = mask & ~conj
+        self._uniquepairs = _class_representatives(fmap, tmask)
+        if self._uniquepairs.shape[0] == 0:
+            raise ValueError(
+                "telescope has no included feed pairs — check "
+                "auto_correlations and the min/max baseline-length cuts"
+            )
+        self._redundancy = np.bincount(fmap[tmask])
+        self._baselines = (
+            self.feedpositions[self._uniquepairs[:, 0]]
+            - self.feedpositions[self._uniquepairs[:, 1]]
+        )
+
+    def _pair_separations(self, pairs):
+        return self.feedpositions[pairs[:, 0]] - self.feedpositions[pairs[:, 1]]
+
+    def _orient_east(self, fmap, mask, conj):
+        """Flip the conjugation flag of classes whose representative
+        separation points west, so every effective baseline has u >= 0."""
+        reps = _class_representatives(fmap, mask & ~conj)
+        sep = self._pair_separations(reps)
+        west = (sep[:, 0] < 0.0) | ((sep[:, 0] == 0.0) & (sep[:, 1] < 0.0))
+        flip = np.zeros_like(conj)
+        flip[mask] = west[fmap[mask]]
+        return conj ^ flip
+
+    def _rank_pairs(self, fmap, mask, conj):
+        """Relabel classes in lexicographic (u, v, bc_j, bc_i) order."""
+        reps = _class_representatives(fmap, mask & ~conj)
+        sep = self._pair_separations(reps)
+        ci = self.beamclass[reps[:, 0]].astype(np.int32)
+        cj = self.beamclass[reps[:, 1]].astype(np.int32)
+
+        order = np.lexsort((ci, cj, sep[:, 1], sep[:, 0]))
+        rank = np.empty(order.size, dtype=np.int64)
+        rank[order] = np.arange(order.size)
+
+        out = np.full_like(fmap, -1)
+        out[mask] = rank[fmap[mask]]
+        return out
+
+    def _unique_baselines(self):
+        """Key map of equivalent baseline separations + inclusion mask."""
+        sep = self.feedpositions[:, np.newaxis] - self.feedpositions[np.newaxis, :]
+        key = np.around(sep[..., 0] + 1.0j * sep[..., 1], self._bl_tol)
+
+        blen = np.hypot(sep[..., 0], sep[..., 1])
+        mask = (blen >= self.minlength) & (blen <= self.maxlength)
+        if not self.auto_correlations:
+            mask &= blen > 0.0
+
+        return _label_classes(mask, key), mask
+
+    def _unique_beams(self):
+        """Key map of equivalent beam pairs + inclusion mask."""
+        bc = self.beamclass
+        beam_map = _label_classes(
+            np.ones((self.nfeed, self.nfeed), dtype=bool),
+            np.broadcast_to(bc[:, np.newaxis], (self.nfeed, self.nfeed)),
+            np.broadcast_to(bc[np.newaxis, :], (self.nfeed, self.nfeed)),
+        )
+
+        if self.auto_correlations:
+            beam_mask = np.ones((self.nfeed, self.nfeed), dtype=bool)
+        else:
+            beam_mask = ~np.identity(self.nfeed, dtype=bool)
+
+        return beam_map, beam_mask
+
+    def _get_unique(self):
+        """Label ordered feed pairs by joint (baseline, beam) equivalence
+        and join every class with its reversed-pair class."""
+        base_map, base_mask = self._unique_baselines()
+        beam_map, beam_mask = self._unique_beams()
+
+        mask = base_mask & beam_mask
+        pair_lab = _label_classes(mask, base_map, beam_map)
+
+        conj = pair_lab > pair_lab.T
+        joined = np.minimum(pair_lab, pair_lab.T)
+        return _label_classes(mask, joined), mask, conj
+
+    # ======================= frequencies ======================
+
+    _frequencies = None
+
+    @property
+    def frequencies(self):
+        """Band-centre frequencies in MHz."""
+        if self._frequencies is None:
+            self.calculate_frequencies()
+        return self._frequencies
+
+    def calculate_frequencies(self):
+        if self.freq_lower or self.freq_upper:
+            self.freq_start = self.freq_lower
+            self.freq_end = self.freq_upper
+
+        if self.freq_mode == "centre":
+            frequencies = np.linspace(
+                self.freq_start, self.freq_end, self.num_freq, endpoint=False
+            )
+        elif self.freq_mode == "centre_nyquist":
+            frequencies = np.linspace(
+                self.freq_start, self.freq_end, self.num_freq, endpoint=True
+            )
+        else:  # edge
+            df = abs(self.freq_end - self.freq_start) / self.num_freq
+            frequencies = self.freq_start + df * (np.arange(self.num_freq) + 0.5)
+
+        if self.channel_bin > 1:
+            if self.num_freq % self.channel_bin != 0:
+                raise ValueError(
+                    "Channel binning must exactly divide the total number of channels"
+                )
+            frequencies = frequencies.reshape(-1, self.channel_bin).mean(axis=1)
+
+        if self.channel_list is not None and len(self.channel_list):
+            chans = np.asarray(self.channel_list, dtype=int)
+            if chans.min() < 0 or chans.max() >= len(frequencies):
+                raise ValueError(
+                    f"channel_list entries must be in [0, {len(frequencies)}); "
+                    f"got {self.channel_list}"
+                )
+            frequencies = frequencies[chans]
+        elif self.channel_range is not None and len(self.channel_range):
+            frequencies = frequencies[slice(*self.channel_range)]
+
+        self._frequencies = frequencies
+
+    @property
+    def wavelengths(self):
+        """Band-centre wavelengths in metres."""
+        return C_LIGHT / (1e6 * self.frequencies)
+
+    @property
+    def nfreq(self):
+        return self.frequencies.shape[0]
+
+    @property
+    def nfeed(self):
+        return self.feedpositions.shape[0]
+
+    @property
+    def num_pol_sky(self):
+        """Sky polarisation components handled (1 = T)."""
+        return self._npol_sky_
+
+    # ==================== harmonic spread =====================
+
+    @property
+    def lmax(self):
+        """Maximum l the telescope is sensitive to."""
+        if self.force_lmax is not None:
+            return self.force_lmax
+        lmax, _ = max_lm(
+            self.baselines, self.wavelengths.min(), self.u_width, self.v_width
+        )
+        return int(np.ceil(lmax.max() * self.l_boost))
+
+    @property
+    def mmax(self):
+        """Maximum m the telescope is sensitive to."""
+        if self.force_mmax is not None:
+            return self.force_mmax
+        _, mmax = max_lm(
+            self.baselines, self.wavelengths.min(), self.u_width, self.v_width
+        )
+        return int(np.ceil(mmax.max() * self.l_boost))
+
+    def unit_lmax(self, bl_indices, f_indices):
+        """Per-unit band limits, boosted like :attr:`lmax`."""
+        lmax, _ = max_lm(
+            self.baselines[bl_indices],
+            self.wavelengths[f_indices],
+            self.u_width,
+            self.v_width,
+        )
+        return np.ceil(lmax * self.l_boost).astype(np.int64)
+
+    # ================== transfer matrices =====================
+
+    def transfer_matrices(self, bl_indices, f_indices):
+        """Batched transfer matrices for (baseline, frequency) pairs.
+
+        Returns a complex128 numpy array of shape
+        ``bl.shape + (npol, lside+1, 2*lside+1)`` in the FFT-like m
+        packing (positive m at [l, m], negative at [l, 2*lside+1+m]).
+        """
+        bl_indices, f_indices = np.broadcast_arrays(bl_indices, f_indices)
+        if out_of_range(bl_indices, 0, self.npairs):
+            raise ValueError("Baseline indices aren't valid")
+        if out_of_range(f_indices, 0, self.nfreq):
+            raise ValueError("Frequency indices aren't valid")
+
+        lmax = self.unit_lmax(bl_indices, f_indices)
+        lside = self.lmax
+        tshape = bl_indices.shape + (self.num_pol_sky, lside + 1, 2 * lside + 1)
+
+        flat_bl = bl_indices.ravel()
+        flat_f = f_indices.ravel()
+        flat_lmax = lmax.ravel()
+        nsides = np.array([self._nside_for(lm) for lm in flat_lmax], dtype=np.int64)
+        tarray = np.zeros((flat_bl.size,) + tshape[len(bl_indices.shape):], np.complex128)
+
+        for ns in np.unique(nsides):
+            bucket = np.nonzero(nsides == ns)[0]
+            sub_lmax = int(flat_lmax[bucket].max())
+            off = 0
+            for take in sht_unit_chunks(len(bucket), 12 * int(ns) ** 2, self.num_pol_sky):
+                sel = bucket[off : off + take]
+                off += take
+                pos, neg = self.btm_chunk(flat_bl[sel], flat_f[sel], int(ns), sub_lmax)
+                packed = sht.pack_fftlike(
+                    pos.cpu().numpy(), neg.cpu().numpy(), lside
+                )
+                # zero each unit above its own band limit
+                lmask = np.arange(lside + 1)[None, :] <= flat_lmax[sel][:, None]
+                tarray[sel, 0] = packed * lmask[:, :, None]
+
+        return tarray.reshape(tshape)
+
+    def btm_chunk(self, bl_ind, f_ind, nside, lmax):
+        """BTM coefficients of a unit batch at one nside.
+
+        Returns (pos (nu, lmax+1, lmax+1), neg (nu, lmax+1, lmax)) complex
+        tensors on the device: btrans = conj(SHT(conj(visibility map))),
+        negative-m column j <-> m = -(j + 1).
+        """
+        self._init_trans(nside)
+        cvis = self._beam_map_batch(bl_ind, f_ind)
+        pos, neg = sht.analysis(cvis.conj(), lmax=lmax, nside=nside)
+        return pos.conj().resolve_conj(), neg.conj().resolve_conj()
+
+    def _nside_for(self, lmax: int) -> int:
+        """Pixelisation for a unit's band limit (``accuracy_boost`` doublings).
+
+        ``DRIFTSCAN_TPU_NSIDE_CAP`` (a power of two; 0/unset = off) clamps
+        the boosted nside from above, but never below the un-boosted
+        adequacy criterion ``2*nside >= lmax``.  The cap is validated at
+        read (:func:`nside_cap`).
+        """
+        ns = healpix.nside_for_lmax(int(lmax), accuracy_boost=self.accuracy_boost)
+        cap = nside_cap()
+        if cap:
+            floor = healpix.nside_for_lmax(int(lmax), accuracy_boost=0.0)
+            ns = max(min(ns, cap), floor)
+        return ns
+
+    @abc.abstractmethod
+    def _beam_map_batch(self, bl_ind, f_ind):
+        """Visibility maps (nunit, nring*maxlen) of a batch of units at the
+        current nside, on the ring-padded device grid."""
+
+    # ========================= noise ==========================
+
+    def tsys(self, f_indices=None):
+        """System temperature (K) at the given frequency indices."""
+        freq = self.frequencies if f_indices is None else self.frequencies[f_indices]
+        return np.ones_like(freq) * self.tsys_flat
+
+    def noisepower(self, bl_indices, f_indices, ndays=None):
+        """Radiometer noise power spectrum, white in m."""
+        ndays = self.ndays if not ndays else ndays
+        bl_indices, f_indices = np.broadcast_arrays(bl_indices, f_indices)
+        bw = np.abs(self.frequencies[1] - self.frequencies[0]) * 1e6
+        delnu = T_SIDEREAL * bw / (2 * np.pi)
+        noisepower = self.tsys(f_indices) ** 2 / (2 * np.pi * delnu * ndays)
+        return noisepower / self.redundancy[bl_indices]
+
+    # ================== pixel grid and beams ==================
+
+    _nside = None
+
+    def _init_trans(self, nside):
+        """(Re)generate the device pixel grid for ``nside``.
+
+        The grid is the ring-padded (ring, slot) layout, flat
+        (nring*maxlen,); padding slots have horizon 0, so every pixel op
+        is elementwise and the SHT consumes the maps with a reshape.
+        Positions and horizon are formed in float64 on the host, then
+        cast to the telescope's precision on the device.
+        """
+        if self._nside == nside:
+            return
+        self._nside = nside
+        geom = healpix.ring_geometry(nside)
+        pix = np.asarray(geom.pix_index).ravel()
+        padmask = torch.as_tensor(np.asarray(geom.mask).ravel())
+        angpos = torch.as_tensor(healpix.ang_positions(nside)[pix])
+        cart = kernels.sph_to_cart(angpos)
+        horizon = kernels.horizon_mask(cart, torch.as_tensor(self.zenith)) * padmask
+        dt = self.real_dtype
+        self._angpos_cart = cart.to(device=self.device, dtype=dt).contiguous()
+        self._horizon = horizon.to(device=self.device, dtype=dt).contiguous()
+
+    def _beam_bank_rows(self, freq):
+        """(params (C, 12), tables (C, nfx)) device bank rows of one
+        frequency, and the map beamclass -> row C; see cylbeam."""
+        raise NotImplementedError(
+            "beams outside a bank (host-evaluated beam maps) are not ported "
+            "yet: ROADMAP.md, modules to port, item 9"
+        )
+
+    def _gather_beams(self, bl_ind, f_ind):
+        """Bank rows of the batch's unique beams and the per-unit pairing.
+
+        Only the unique (freq, beamclass) beams are gathered; returns
+        (fx (nb, nfx), par (nb, 12), idx_i (nu,), idx_j (nu,), uv3 (nu, 3)
+        float64 baselines in wavelengths).
+        """
+        slot = {}
+        rows_f, rows_c = [], []
+        idx_i, idx_j, uvs = [], [], []
+        for bi, fi in zip(bl_ind, f_ind):
+            feedi, feedj = self.uniquepairs[bi]
+            for feed, idx in ((feedi, idx_i), (feedj, idx_j)):
+                key = (int(fi), int(self.beamclass[feed]))
+                if key not in slot:
+                    slot[key] = len(rows_f)
+                    rows_f.append(key[0])
+                    rows_c.append(key[1])
+                idx.append(slot[key])
+            uvs.append(self.baselines[bi] / self.wavelengths[fi])
+
+        uv = np.array(uvs)
+        if self.single_precision:
+            uv = uv.astype(np.float32)
+        par, fx = [], []
+        for f, c in zip(rows_f, rows_c):
+            p, t, row_of = self._beam_bank_rows(f)
+            par.append(p[row_of[c]])
+            fx.append(t[row_of[c]])
+        dev = self.device
+        uv3 = kernels.uv_cart(torch.as_tensor(self.zenith), torch.as_tensor(uv))
+        return (
+            torch.stack(fx).contiguous(),
+            torch.stack(par).contiguous(),
+            torch.as_tensor(idx_i, dtype=torch.int64, device=dev),
+            torch.as_tensor(idx_j, dtype=torch.int64, device=dev),
+            uv3.to(dev).contiguous(),
+        )
+
+
+class UnpolarisedTelescope(TransitTelescope, metaclass=abc.ABCMeta):
+    """Telescope with a scalar (total-intensity) beam."""
+
+    _npol_sky_ = 1
+
+    def _beam_map_batch(self, bl_ind, f_ind):
+        """Stacked normalised visibility maps for a batch of units."""
+        fx, par, idx_i, idx_j, uv3 = self._gather_beams(bl_ind, f_ind)
+        return kernels.bank_visibility_maps(
+            self._angpos_cart,
+            self._horizon,
+            fx,
+            par,
+            idx_i,
+            idx_j,
+            uv3,
+            pxarea=4.0 * np.pi / (12 * self._nside**2),
+        )
+
+    def noisepower(self, bl_indices, f_indices, ndays=None):
+        """Noise power with the factor-1/2 unpolarised correction."""
+        bnoise = TransitTelescope.noisepower(self, bl_indices, f_indices, ndays)
+        return bnoise[..., np.newaxis] * 0.5
+
+
+class SimpleUnpolarisedTelescope(UnpolarisedTelescope, metaclass=abc.ABCMeta):
+    """Single-beamclass unpolarised telescope (implement `_single_feedpositions`)."""
+
+    @property
+    def beamclass(self):
+        return np.zeros(self._single_feedpositions.shape[0], dtype=np.int64)
+
+    @property
+    @abc.abstractmethod
+    def _single_feedpositions(self):
+        """(nfeed, 2) positions of the (single polarisation) feeds."""
+
+    @property
+    def feedpositions(self):
+        return self._single_feedpositions

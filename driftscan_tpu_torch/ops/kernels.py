@@ -1,0 +1,209 @@
+"""Beam and fringe pixel kernels, and the fused beam/visibility-map kernel.
+
+Port of ``driftscan_tpu/ops/kernels.py`` (the unpolarised part) plus the
+per-pixel cylinder beam of ``driftscan_tpu/telescope/cylbeam.py``.  The
+hot program of the BTM phase evaluates, for every (baseline, frequency)
+unit, the visibility transfer map
+
+    V(n) = h(n) B_i(n) conj(B_j(n)) exp(2 pi i u.n) / sqrt(Omega_i Omega_j)
+
+over the ring-padded pixel grid, with the beams B given by bank rows (a
+uniform-grid Fraunhofer table in the E-W direction times an ExpTan
+profile N-S, times the horizon h).  :func:`bank_visibility_maps` runs it
+as one hand-written Triton kernel in two passes (solid angles, then the
+maps); :func:`bank_visibility_maps_ref` is its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import backend
+
+# Fused K1 (beam from bank rows) + K2 (normalised visibility map).
+K1K2 = backend.register(
+    "k1k2_beam_vis",
+    "triton",
+    "driftscan_tpu_torch/csrc/beam_vis.py",
+    "driftscan_tpu/telescope/cylbeam.py:133 + driftscan_tpu/ops/kernels.py:203",
+)
+
+# Bank parameter row layout (see telescope.cylbeam.build_beam_bank).
+PAR_LEN = 12  # kx0, inv_step, fwhm_ns, xhat(3), yhat(3), dipole(3)
+
+
+def sph_to_cart(sph: torch.Tensor) -> torch.Tensor:
+    """(..., 2) spherical polar (theta, phi) -> (..., 3) cartesian units."""
+    theta, phi = sph[..., 0], sph[..., 1]
+    st = torch.sin(theta)
+    return torch.stack(
+        [st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta)], dim=-1
+    )
+
+
+def thetaphi_plane_cart(sph: torch.Tensor):
+    """Unit vectors (theta_hat, phi_hat) at spherical positions (..., 2)."""
+    theta, phi = sph[..., 0], sph[..., 1]
+    ct, st = torch.cos(theta), torch.sin(theta)
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    that = torch.stack([ct * cp, ct * sp, -st], dim=-1)
+    phat = torch.stack([-sp, cp, torch.zeros_like(sp)], dim=-1)
+    return that, phat
+
+
+def horizon_mask(cart: torch.Tensor, zenith: torch.Tensor) -> torch.Tensor:
+    """1.0 above the horizon, 0.0 below."""
+    zc = sph_to_cart(zenith.to(cart.dtype))
+    return ((cart @ zc) > 0.0).to(cart.dtype)
+
+
+def beam_exptan(sintheta: torch.Tensor, fwhm) -> torch.Tensor:
+    """ExpTan beam amplitude model (with the reference's factor of two)."""
+    return torch.exp(-exptan_alpha(fwhm) * exptan_tan2(sintheta))
+
+
+def exptan_alpha(fwhm):
+    """ExpTan exponent scale; a tensor fwhm keeps its dtype."""
+    if isinstance(fwhm, torch.Tensor):
+        return math.log(2.0) / (2 * torch.tan(fwhm / 2.0) ** 2)
+    return math.log(2.0) / (2 * math.tan(fwhm / 2.0) ** 2)
+
+
+def exptan_tan2(sintheta: torch.Tensor) -> torch.Tensor:
+    st2 = sintheta**2
+    return st2 / (1.0 - st2 + 1e-100)
+
+
+def rotate_ypr(rot, xhat, yhat, zhat):
+    """Rotate an orthonormal basis by yaw (z), pitch (new x), roll (new y)."""
+    yaw, pitch, roll = (float(a) for a in rot)
+
+    def _rot(axis, vec, ang):
+        # Rodrigues rotation of `vec` about unit `axis`
+        axis = axis / torch.linalg.norm(axis)
+        c, s = math.cos(ang), math.sin(ang)
+        return (
+            vec * c
+            + torch.linalg.cross(axis, vec) * s
+            + axis * torch.dot(axis, vec) * (1 - c)
+        )
+
+    xh = _rot(zhat, xhat, yaw)
+    yh = _rot(zhat, yhat, yaw)
+    zh = zhat
+    yh2 = _rot(xh, yh, pitch)
+    zh2 = _rot(xh, zh, pitch)
+    xh3 = _rot(yh2, xh, roll)
+    zh3 = _rot(yh2, zh2, roll)
+    return xh3, yh2, zh3
+
+
+def uv_cart(zenith: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """(..., 2) baselines in wavelengths -> (..., 3) float64 vectors u.
+
+    u = u_E phi_hat - u_N theta_hat at the zenith, so that the fringe
+    phase is 2 pi u.n for the sky direction n.
+    """
+    that, phat = thetaphi_plane_cart(zenith.to(torch.float64))
+    uv = uv.to(torch.float64)
+    return uv[..., 0:1] * phat - uv[..., 1:2] * that
+
+
+def fringe(cart: torch.Tensor, uv3: torch.Tensor) -> torch.Tensor:
+    """Fringe exp(2 pi i u.n) at each pixel, (..., npix) complex.
+
+    ``uv3`` (..., 3) float64 from :func:`uv_cart`.  The turns u.n are
+    formed in float64 and reduced to [-1/2, 1/2) before the angle takes
+    the pixel grid's precision, so a float32 fringe is accurate at any
+    baseline length (the integer range reduction of the SHT's phases,
+    applied to the fringe).
+    """
+    turns = torch.einsum("...k,pk->...p", uv3, cart.to(torch.float64))
+    turns = turns - torch.floor(turns + 0.5)
+    phase = turns.to(cart.dtype) * (2.0 * math.pi)
+    return torch.complex(torch.cos(phase), torch.sin(phase))
+
+
+def unpol_visibility_map(beam_i, beam_j, uv3, cart, horizon, pxarea: float):
+    """Normalised unpolarised visibility maps for stacked beam pairs (K2).
+
+    beam_i, beam_j : (nu, npix) real or complex beams on the padded grid;
+    uv3 : (nu, 3) float64 baselines; returns (nu, npix) complex.
+    """
+    om_i = torch.sum(beam_i.abs() ** 2 * horizon, dim=-1) * pxarea
+    om_j = torch.sum(beam_j.abs() ** 2 * horizon, dim=-1) * pxarea
+    inv_om = (1.0 / torch.sqrt(om_i * om_j))[..., None]
+    bb = beam_i * beam_j.conj()
+    return bb * fringe(cart, uv3) * horizon * inv_om
+
+
+def bank_beam(cart, horizon, fx, par):
+    """Beams of bank rows over the pixel grid (K1), (nb, npix) real.
+
+    Per pixel: a linear interpolation of the row's Fraunhofer table on
+    its uniform grid at x = n.xhat, times the ExpTan N-S profile at
+    n.yhat, times the horizon.  fx (nb, nfx), par (nb, 12).
+    """
+    nfx = fx.shape[-1]
+    x = cart @ par[:, 3:6].T  # (npix, nb)
+    y = cart @ par[:, 6:9].T
+    t = (x - par[:, 0]) * par[:, 1]
+    i0 = torch.clamp(torch.floor(t).to(torch.int64), 0, nfx - 2)
+    frac = t - i0.to(t.dtype)
+    rows = torch.arange(fx.shape[0], device=fx.device)
+    ew0 = fx[rows, i0]
+    ew1 = fx[rows, i0 + 1]
+    ew = ew0 * (1.0 - frac) + ew1 * frac
+    ns = torch.exp(-exptan_alpha(par[:, 2]) * exptan_tan2(y))
+    return (ew * ns * horizon[:, None]).T.contiguous()
+
+
+def bank_visibility_maps_ref(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea):
+    """Plain PyTorch version of :func:`bank_visibility_maps`."""
+    beams = bank_beam(cart, horizon, fx, par)
+    return unpol_visibility_map(
+        beams[idx_i], beams[idx_j], uv3, cart, horizon, pxarea
+    )
+
+
+def bank_visibility_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: float):
+    """Visibility maps of a unit batch whose beams are bank rows (K1+K2).
+
+    cart (npix, 3) and horizon (npix,) are the ring-padded pixel grid;
+    fx (nb, nfx) and par (nb, 12) the bank rows of the batch's unique
+    beams; unit u pairs rows idx_i[u], idx_j[u] at baseline uv3[u]
+    ((nu, 3) float64).  Returns (nu, npix) complex.  CPU tensors take the
+    plain version; CUDA tensors launch the Triton kernel, which takes the
+    float32 grid of single-precision telescopes.
+    """
+    if not backend.on_cuda(cart, horizon, fx, par, idx_i, idx_j, uv3):
+        return bank_visibility_maps_ref(
+            cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea
+        )
+    dt = cart.dtype
+    npix = cart.shape[0]
+    nb, nfx = fx.shape
+    nu = idx_i.shape[0]
+    backend.require(cart, "cart", dtype=torch.float32, shape=(npix, 3))
+    backend.require(horizon, "horizon", dtype=dt, shape=(npix,))
+    backend.require(fx, "fx", dtype=dt, ndim=2)
+    backend.require(par, "par", dtype=dt, shape=(nb, PAR_LEN))
+    backend.require(idx_i, "idx_i", dtype=torch.int64, shape=(nu,))
+    backend.require(idx_j, "idx_j", dtype=torch.int64, shape=(nu,))
+    backend.require(uv3, "uv3", dtype=torch.float64, shape=(nu, 3))
+    if nfx < 2:
+        raise ValueError("bank tables need at least two samples")
+
+    from ..csrc import beam_vis
+
+    alpha = exptan_alpha(par[:, 2]).contiguous()
+    omega = torch.zeros(nb, dtype=dt, device=cart.device)
+    out = torch.empty((nu, npix), dtype=backend.complex_dtype(dt), device=cart.device)
+    beam_vis.launch(
+        cart, horizon, fx, par, alpha, idx_i, idx_j, uv3, omega,
+        torch.view_as_real(out), float(pxarea),
+    )
+    K1K2.launches += 1
+    return out

@@ -1,0 +1,289 @@
+"""Forward spherical harmonic transform of ring-padded maps (analysis).
+
+Port of the analysis half of ``driftscan_tpu/ops/sht.py``:
+
+* phase stage (K4) — ``F_m(r) = sum_j f(r, j) e^{-i m phi_rj}`` and its
+  ``+m`` partner ``G_m(r)``, from one ``torch.fft`` per group of rings of
+  equal length: ring r holds N_r pixels at ``phi_rj = phi0_r + 2 pi j / N_r``,
+  so ``F_m(r) = e^{-i m phi0_r} X_r[m mod N_r]`` and
+  ``G_m(r) = e^{+i m phi0_r} X_r[-m mod N_r]`` with X_r the ring's DFT.
+  In the polar caps N_r < m: the bin wraps, the phi0 phase uses the true m;
+* Legendre stage (K3+K5) — ``a[b, l, m] = Omega_pix sum_r lambda_lm(theta_r)
+  F_m(r)`` (and the negative-m block from G with the (-1)^m sign), with
+  lambda generated by the three-term recurrence in l in float64 with
+  log-domain rescaling.  :func:`legendre_contract` runs it as one
+  hand-written CUDA kernel that generates lambda on the fly;
+  :func:`legendre_contract_ref` is the plain version (a lambda table and
+  a batched contraction), the JAX algorithm step for step.
+
+Conventions: Condon-Shortley phase, orthonormal harmonics, so
+``Y_{l,-m} = (-1)^m conj(Y_lm)``.  Quadrature is equal-area pixel
+weighting.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import backend
+from .healpix import ring_geometry
+
+K3K5 = backend.register(
+    "k3k5_legendre_sht",
+    "cuda",
+    "driftscan_tpu_torch/csrc/legendre_sht.cu",
+    "driftscan_tpu/ops/sht.py:80 + driftscan_tpu/ops/sht.py:729",
+)
+
+# Rescaling bounds of the Legendre recurrence (the JAX package's constants).
+_BIG = 1e30
+_SMALL = 1e-30
+_LOG_BIG = float(np.log(_BIG))
+# exp() underflow guard: values below e^-87 are emitted as exact zeros
+_LOG_TINY = -87.0
+
+
+@functools.lru_cache(maxsize=64)
+def _log_lambda_mm_prefactor(mmax: int) -> np.ndarray:
+    """log lambda_mm(theta) = pref[m] + m*log(sin theta); sign is (-1)^m."""
+    m = np.arange(mmax + 1, dtype=np.float64)
+    ratio = np.zeros(mmax + 1)
+    if mmax > 0:
+        k = np.arange(1, mmax + 1, dtype=np.float64)
+        ratio[1:] = np.cumsum(np.log((2 * k - 1) / (2 * k)))
+    return 0.5 * (np.log((2 * m + 1) / (4 * np.pi)) + ratio)
+
+
+def legendre_table(mvals, cos_t, sin_t, lmax: int, logpref):
+    """Normalised associated Legendre table, (lmax+1, nm, nring) float64.
+
+    ``lam[l, i, r] = lambda_{l, mvals[i]}(theta_r)`` (0 for l < m), by the
+    recurrence of ``driftscan_tpu.ops.sht._legendre_chunk``: mantissas
+    (u0, u1) and a log scale s per (m, ring), rescaled by 1e+-30 whenever
+    a mantissa leaves [1e-30, 1e30].
+    """
+    f64 = torch.float64
+    m_f = mvals.to(f64)[:, None]
+    x = cos_t.to(f64)[None, :]
+    log_sin = torch.log(torch.clamp(sin_t.to(f64), min=1e-30))[None, :]
+    safe_m = torch.clamp(mvals, 0, logpref.shape[0] - 1)
+    log_lmm = logpref[safe_m][:, None] + m_f * log_sin
+    sign = torch.where(mvals[:, None] % 2 == 0, 1.0, -1.0).to(f64)
+
+    shape = (mvals.shape[0], cos_t.shape[0])
+    u0 = torch.zeros(shape, dtype=f64, device=cos_t.device)
+    u1 = torch.zeros_like(u0)
+    s = torch.full(shape, -1e6, dtype=f64, device=cos_t.device)
+    out = []
+    for l in range(lmax + 1):
+        l_f = float(l)
+        denom = torch.clamp(l_f * l_f - m_f * m_f, min=1.0)
+        a = torch.sqrt(max(4.0 * l_f * l_f - 1.0, 0.0) / denom)
+        b = torch.sqrt(
+            torch.clamp((l_f - 1.0) ** 2 - m_f * m_f, min=0.0)
+            / max(4.0 * (l_f - 1.0) ** 2 - 1.0, 1.0)
+        )
+        u_rec = a * (x * u1 - b * u0)
+        is_seed = l == mvals[:, None]
+        is_next = l == mvals[:, None] + 1
+        below = l < mvals[:, None]
+        u_new = torch.where(
+            is_seed,
+            sign.expand(shape),
+            torch.where(is_next, x * torch.sqrt(2.0 * m_f + 3.0) * u1, u_rec),
+        )
+        u_new = torch.where(below, 0.0, u_new)
+        s_new = torch.where(is_seed, log_lmm, s)
+
+        mx = torch.maximum(u_new.abs(), u1.abs())
+        up = mx > _BIG
+        down = (mx > 0.0) & (mx < _SMALL)
+        factor = torch.where(up, _SMALL, torch.where(down, _BIG, 1.0))
+        dlog = torch.where(up, _LOG_BIG, torch.where(down, -_LOG_BIG, 0.0))
+        u0 = u1 * factor
+        u1 = u_new * factor
+        s = s_new + dlog
+
+        loglam = s + torch.log(torch.clamp(u1.abs(), min=_SMALL * _SMALL))
+        lam = torch.where(
+            loglam > _LOG_TINY,
+            torch.sign(u1) * torch.exp(torch.clamp(loglam, min=_LOG_TINY)),
+            0.0,
+        )
+        out.append(lam)
+    return torch.stack(out)
+
+
+def _contract_plane(lam, x):
+    """sum_r lam[l, m, r] x[b, m, r] for complex x, lam real."""
+    xr = torch.view_as_real(x)  # (B, nm, nring, 2)
+    out = torch.einsum("lmr,bmrc->blmc", lam, xr)
+    return torch.view_as_complex(out.contiguous())
+
+
+def legendre_contract_ref(F, G, cos_t, sin_t, lmax: int, pixarea: float):
+    """Plain PyTorch version of :func:`legendre_contract`."""
+    nm = F.shape[1]
+    rdtype = backend.real_dtype(F.dtype)
+    mvals = torch.arange(nm, device=F.device)
+    logpref = torch.as_tensor(_log_lambda_mm_prefactor(lmax), device=F.device)
+    lam = legendre_table(mvals, cos_t, sin_t, lmax, logpref).to(rdtype)
+    signm = torch.where(mvals % 2 == 0, 1.0, -1.0).to(rdtype)
+    pos = pixarea * _contract_plane(lam, F)
+    neg = pixarea * _contract_plane(lam, G * signm[None, :, None])
+    return pos, neg
+
+
+def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float):
+    """Legendre stage of the analysis (K3+K5).
+
+    F, G : (B, nm, nring) complex phase-stage outputs for m = 0..nm-1;
+    cos_t, sin_t : (nring,) float64 ring colatitudes.  Returns
+    (pos, neg), each (B, lmax+1, nm) complex:
+    ``pos[b, l, m] = Omega sum_r lambda_lm(theta_r) F[b, m, r]`` and
+    ``neg[b, l, m] = Omega (-1)^m sum_r lambda_lm(theta_r) G[b, m, r]``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if not backend.on_cuda(F, G, cos_t, sin_t):
+        return legendre_contract_ref(F, G, cos_t, sin_t, lmax, pixarea)
+    B, nm, nring = F.shape
+    backend.require(F, "F", dtype=(torch.complex64, torch.complex128), ndim=3)
+    backend.require(G, "G", dtype=F.dtype, shape=F.shape)
+    backend.require(cos_t, "cos_t", dtype=torch.float64, shape=(nring,))
+    backend.require(sin_t, "sin_t", dtype=torch.float64, shape=(nring,))
+    if nm > lmax + 1:
+        raise ValueError(f"nm={nm} exceeds lmax+1={lmax + 1}")
+    dev = F.device
+    logpref = torch.as_tensor(_log_lambda_mm_prefactor(lmax), device=dev)
+    nl = lmax + 1
+    pos = torch.empty((B, nl, nm), dtype=F.dtype, device=dev)
+    neg = torch.empty_like(pos)
+    lib = K3K5.lib()
+    fn = lib.legendre_sht_c64 if F.dtype == torch.complex64 else lib.legendre_sht_c128
+    nblk = int(lib.legendre_sht_state_blocks(ctypes.c_int(B), ctypes.c_int(nm)))
+    state = torch.empty((nblk, nring, 4), dtype=torch.float64, device=dev)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_double, ctypes.c_void_p,
+    ]
+    backend.check(
+        fn(
+            F.data_ptr(), G.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
+            logpref.data_ptr(), state.data_ptr(), pos.data_ptr(), neg.data_ptr(),
+            B, nm, nring, lmax, float(pixarea), backend.stream_ptr(dev),
+        ),
+        K3K5.name,
+    )
+    K3K5.launches += 1
+    return pos, neg
+
+
+_PHASE_CACHE = {}
+
+
+def _phase_tables(nside: int, nm: int, dtype, device):
+    """Device tables of the phase stage, cached per (nside, nm, dtype, device).
+
+    Returns (groups [(N, ring indices)], kpos, kneg flat gather indices
+    (nm*nring,) into the (ring, slot) spectrum, shift (nm, nring) =
+    e^{+i m phi0_r}).
+    """
+    key = (nside, nm, dtype, str(device))
+    if key not in _PHASE_CACHE:
+        g = ring_geometry(nside)
+        groups = [
+            (int(n), torch.as_tensor(np.nonzero(g.nphi == n)[0], device=device))
+            for n in np.unique(g.nphi)
+        ]
+        nphi = g.nphi.astype(np.int64)
+        # phi0_r = pi h_r / N_r exactly, h in {0, 1}:
+        # m phi0 = 2 pi (m h mod 2N) / 2N
+        h = np.rint(g.phi0 * nphi / np.pi).astype(np.int64)
+        m = np.arange(nm, dtype=np.int64)[:, None]
+        base = (np.arange(g.nring, dtype=np.int64) * g.maxlen)[None, :]
+        kpos = torch.as_tensor((base + m % nphi[None, :]).ravel(), device=device)
+        kneg = torch.as_tensor((base + (-m) % nphi[None, :]).ravel(), device=device)
+        turns = ((m * h[None, :]) % (2 * nphi[None, :])) / (2.0 * nphi[None, :])
+        ang = torch.as_tensor(2.0 * np.pi * turns, device=device).to(
+            backend.real_dtype(dtype)
+        )
+        shift = torch.complex(torch.cos(ang), torch.sin(ang))
+        _PHASE_CACHE[key] = (groups, kpos, kneg, shift)
+    return _PHASE_CACHE[key]
+
+
+def phase_stage(padded, nside: int, nm: int):
+    """(F, G), each (B, nm, nring) complex, from (B, nring, maxlen) maps."""
+    g = ring_geometry(nside)
+    B = padded.shape[0]
+    groups, kpos, kneg, shift = _phase_tables(nside, nm, padded.dtype, padded.device)
+    spec = torch.zeros_like(padded)
+    for n, r in groups:
+        spec[:, r, :n] = torch.fft.fft(padded[:, r, :n], dim=-1)
+    flat = spec.reshape(B, -1)
+    F = flat[:, kpos].reshape(B, nm, g.nring) * shift.conj()
+    G = flat[:, kneg].reshape(B, nm, g.nring) * shift
+    return F.contiguous(), G.contiguous()
+
+
+_GEOM_CACHE = {}
+
+
+def _geom_tensors(nside: int, device):
+    key = (nside, str(device))
+    if key not in _GEOM_CACHE:
+        g = ring_geometry(nside)
+        _GEOM_CACHE[key] = (
+            torch.as_tensor(g.cos_theta, dtype=torch.float64, device=device),
+            torch.as_tensor(g.sin_theta, dtype=torch.float64, device=device),
+            torch.as_tensor(g.mask, device=device),
+        )
+    return _GEOM_CACHE[key]
+
+
+def analysis(maps, lmax: int, nside: int):
+    """Forward SHT of ring-padded complex maps, both m signs.
+
+    The JAX package's ``analysis_split(..., neg_m=True, ring_padded=True)``
+    with mmax = lmax.  maps : (..., nring*maxlen) complex in the padded
+    (ring, slot) layout of ``nside``.  Returns (pos (..., lmax+1, lmax+1),
+    neg (..., lmax+1, lmax)), the negative block's column j holding
+    m = -(j + 1).
+    """
+    mmax = lmax
+    g = ring_geometry(nside)
+    npix = maps.shape[-1]
+    if npix != g.nring * g.maxlen:
+        raise ValueError(f"padded npix {npix} != nring*maxlen for nside {nside}")
+    if not maps.is_complex():
+        raise TypeError("analysis takes complex maps")
+    lead = maps.shape[:-1]
+    cos_t, sin_t, mask = _geom_tensors(nside, maps.device)
+    flat = maps.reshape(-1, g.nring, g.maxlen) * mask.to(maps.real.dtype)
+    F, G = phase_stage(flat, nside, mmax + 1)
+    pos, neg = legendre_contract(F, G, cos_t, sin_t, lmax, 4.0 * math.pi / g.npix)
+    pos = pos.reshape(lead + (lmax + 1, mmax + 1))
+    neg = neg[..., 1:].reshape(lead + (lmax + 1, mmax))
+    return pos, neg
+
+
+def pack_fftlike(pos: np.ndarray, neg: Optional[np.ndarray], lside: int) -> np.ndarray:
+    """Pack (l, m>=0) and (l, m<0) blocks into the (lside+1, 2*lside+1)
+    FFT-like layout (positive m at [l, m], negative at [l, 2*lside+1+m])."""
+    lead = pos.shape[:-2]
+    lmax_in = pos.shape[-2] - 1
+    mmax_in = pos.shape[-1] - 1
+    out = np.zeros(lead + (lside + 1, 2 * lside + 1), dtype=np.complex128)
+    lmax_o = min(lmax_in, lside)
+    mmax_o = min(mmax_in, lside)
+    out[..., : lmax_o + 1, : mmax_o + 1] = pos[..., : lmax_o + 1, : mmax_o + 1]
+    if neg is not None:
+        for m in range(1, mmax_o + 1):
+            out[..., : lmax_o + 1, -m] = neg[..., : lmax_o + 1, m - 1]
+    return out

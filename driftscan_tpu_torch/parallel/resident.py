@@ -1,0 +1,237 @@
+"""Device-resident product generation: BTM -> SVD -> KL -> Fisher.
+
+Port of ``driftscan_tpu/parallel/resident.py`` (the full-range path on
+one device):
+
+* :func:`btm_resident` computes the beam transfer matrices bucket by
+  bucket (per nside) and leaves the (l, m) tables on the device, padded to
+  the global band limit;
+* :func:`product_all_resident` builds each m-batch's beam matrices from
+  the tables (a gather along m plus the (-1)^m conjugate negative-m
+  block) and runs the product step, and optionally the fused Fisher
+  step, so only spectra and the summed Fisher matrix reach the host.
+
+m-bucketing, m-windows, the top-band engine and device meshes are not
+ported yet; asking for them raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import telescope as teles
+from . import mstep
+
+_NOT_PORTED = "not ported yet: ROADMAP.md, modules to port, item 6"
+
+
+def btm_resident(tel, bl_indices, f_indices, m_range=None):
+    """Compute BTMs for the given units, leaving them on the device.
+
+    Returns (pos (nu, npol, lside+1, lside+1), neg (nu, npol, lside+1,
+    lside)) complex tensors on ``tel.device``: pos column m holds m >= 0,
+    neg column j holds m = -(j + 1); each unit is masked to its own band
+    limit.  ``tel.single_precision`` selects complex64.
+    """
+    if m_range is not None:
+        raise NotImplementedError(f"m-windowed BTM tables are {_NOT_PORTED}")
+    bl_indices = np.asarray(bl_indices)
+    f_indices = np.asarray(f_indices)
+    lside = tel.lmax
+    npol = tel.num_pol_sky
+    lmax_arr = tel.unit_lmax(bl_indices, f_indices)
+    nsides = np.array([tel._nside_for(int(l)) for l in lmax_arr])
+
+    nu = len(bl_indices)
+    cdt = torch.complex64 if tel.single_precision else torch.complex128
+    pos = torch.zeros((nu, npol, lside + 1, lside + 1), dtype=cdt, device=tel.device)
+    neg = torch.zeros((nu, npol, lside + 1, lside), dtype=cdt, device=tel.device)
+
+    for ns in np.unique(nsides):
+        bucket = np.nonzero(nsides == ns)[0]
+        # frequency-major within the bucket: consecutive chunks share beams
+        bucket = bucket[np.argsort(f_indices[bucket], kind="stable")]
+        boff = 0
+        for take in teles.sht_unit_chunks(len(bucket), 12 * int(ns) ** 2, npol):
+            sel = bucket[boff : boff + take]
+            boff += take
+            sub_lmax = int(lmax_arr[sel].max())
+            p, n = tel.btm_chunk(bl_indices[sel], f_indices[sel], int(ns), sub_lmax)
+            lmask = (
+                torch.arange(sub_lmax + 1, device=tel.device)[None, :]
+                <= torch.as_tensor(lmax_arr[sel], device=tel.device)[:, None]
+            ).to(p.real.dtype)[:, None, :, None]
+            idx = torch.as_tensor(sel, device=tel.device)
+            pos[idx, :, : sub_lmax + 1, : sub_lmax + 1] = (p[:, None] * lmask).to(cdt)
+            neg[idx, :, : sub_lmax + 1, :sub_lmax] = (n[:, None] * lmask).to(cdt)
+    return pos, neg
+
+
+def _build_beam_batch(pos, neg, mv, npairs, nfreq, npol, nl):
+    """(M, F, 2*npairs, npol*nl) beam matrices from the resident tables.
+
+    Units are baseline-major (u = bl * nfreq + f).  The telescope axis is
+    the positive-m pair block, then the conjugate block
+    (-1)^m conj(B(-m)), present for m > 0.  Padding slots (m < 0) are zero.
+    """
+    m = mv.to(pos.device)
+    valid = m >= 0
+    mc = torch.clamp(m, min=0)
+    p = pos[..., mc]  # (nu, npol, nl, M)
+    n = neg[..., torch.clamp(mc - 1, min=0)]
+    sign = torch.where(mc % 2 == 0, 1.0, -1.0).to(p.real.dtype)
+    n = (sign * (m > 0)).to(p.dtype) * n.conj()
+    p = p * valid.to(p.dtype)
+
+    def organise(x):
+        # (nu, npol, nl, M) -> (M, F, npairs, npol*nl)
+        x = x.permute(3, 0, 1, 2).reshape(-1, npairs, nfreq, npol * nl)
+        return x.transpose(1, 2)
+
+    return torch.cat([organise(p), organise(n)], dim=2).contiguous()
+
+
+# One signal Gram level resolves eigenvalues to ~n*eps(f32) of the top;
+# with retained modes cut at ~0.1 a single level is accurate whenever the
+# batch's top whitened eigenvalue stays below this bound — above it the
+# batch is re-solved with the default depth.
+_SIG1_TOP_BOUND = 1.0
+
+
+# Largest m-batch: the JAX package's cap, kept so that the card's m-batches
+# match the CPU check's (the adaptive sig1 depth is chosen per batch).
+_MBATCH_CAP = 8
+
+
+def _auto_mbatch_n(n: int, K: int, budget_bytes: float, K_aug=None):
+    """m-batch size bounding the product step's working set.
+
+    Dominant complex64 per-m buffers: the noise-side CholeskyQR rows
+    ((K_aug + n) x n), the whitened signal factor (n x K, K capped at n
+    when the compact signal path re-factors it) and a few (n, n) Gram and
+    eigh temporaries, with a 3x allowance for temporaries.
+    """
+    if K > 2 * n:
+        K = n
+    ka = K if K_aug is None else K_aug
+    per_m = ((ka + n) * n + n * K + 6 * n * n) * 8.0 * 3.0
+    mb = int(max(1, min(_MBATCH_CAP, budget_bytes // max(per_m, 1.0))))
+    return 1 << (mb.bit_length() - 1)  # power of two
+
+
+def _device_budget(device) -> float:
+    """A quarter of the card's memory for the product step's batch (the
+    JAX package's ratio: 4 GB of a 16 GB chip); 4 GB on the host."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 4.0
+    return 4.0 * 2**30
+
+
+def _analytic_dof_bound(tel, nm, m_lo=0):
+    """Host-side upper profile of the per-m pencil dimension, used only to
+    decide whether m-bucketing would pay."""
+    nl = tel.lmax + 1
+    S = min(nl, 2 * tel.npairs)
+    bl = np.arange(tel.npairs)
+    fi = np.arange(tel.nfreq)
+    blg, fig = [x.ravel() for x in np.meshgrid(bl, fi, indexing="ij")]
+    lmax_a, mmax_a = teles.max_lm(
+        tel.baselines[blg], tel.wavelengths[fig], tel.u_width, tel.v_width
+    )
+    lmax_a = np.ceil(np.asarray(lmax_a) * tel.l_boost).reshape(tel.npairs, tel.nfreq)
+    mmax_a = np.ceil(np.asarray(mmax_a) * tel.l_boost).reshape(tel.npairs, tel.nfreq)
+    ms = (m_lo + np.arange(nm))[:, None, None]
+    pair_rows = 2 * (mmax_a[None] >= ms).sum(axis=1)
+    lrows = tel.num_pol_sky * np.maximum(lmax_a.max(axis=0)[None] + 1 - ms[:, :, 0], 0)
+    return np.minimum(np.minimum(pair_rows, lrows), S).sum(axis=1)
+
+
+def product_all_resident(
+    tel, pos, neg, ls, lf, noisew, mbatch=None, max_m=None, mesh=None,
+    sig_levels=None, bucket=None, m_range=None, topband=False,
+    band_lt=None, ps_threshold=0.1,
+):
+    """Run the SVD+KL product step (and the fused Fisher) over every m.
+
+    ls, lf, noisew (and band_lt) are host arrays or tensors; they are
+    moved to the tables' device in the tables' real precision.  Returns
+    host numpy (evals (nm, F*S), nmodes (nm, F)), plus the (nbands,
+    nbands) complex128 Fisher matrix summed over m when ``band_lt`` (from
+    :func:`mstep.band_factor_table`) is given.
+
+    ``sig_levels=None`` picks the signal-side depth per batch: one Gram
+    level first, and the default depth again for any batch whose top
+    eigenvalue exceeds ``_SIG1_TOP_BOUND``.  ``mbatch=None`` sizes the
+    batch from the device's memory.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"device meshes are {_NOT_PORTED}")
+    if m_range is not None:
+        raise NotImplementedError(f"m-windows are {_NOT_PORTED}")
+    if topband:
+        raise NotImplementedError(
+            "the top-band KL engine is not ported yet: ROADMAP.md, modules to "
+            "port, item 10"
+        )
+    nm = tel.mmax + 1 if max_m is None else min(max_m, tel.mmax + 1)
+    nl = tel.lmax + 1
+    F = tel.nfreq
+    S = min(nl, 2 * tel.npairs)
+    npol = tel.num_pol_sky
+    if bucket is None:
+        prof = _analytic_dof_bound(tel, nm).astype(np.float64)
+        bucket = float((prof**3).sum()) < 0.5 * nm * float(F * S) ** 3
+    if bucket:
+        raise NotImplementedError(f"m-bucketing is {_NOT_PORTED}")
+
+    dev = pos.device
+    rdt = pos.real.dtype
+    ls, lf, band_dev = mstep.factors_from_numpy(ls, lf, band_lt, dev, rdt)
+    noisew = torch.as_tensor(np.asarray(noisew), dtype=rdt, device=dev)
+    K_cov = nl * ls.shape[-1]
+    K_aug = nl * lf.shape[-1]
+
+    if mbatch is None:
+        mbatch = _auto_mbatch_n(F * S, K_cov, _device_budget(dev), K_aug=K_aug)
+
+    fisher = band_dev is not None
+    if fisher and float(ps_threshold) <= 0:
+        raise ValueError("ps_threshold must be > 0 for the Fisher pass")
+    fish_total = (
+        np.zeros((band_dev.shape[0],) * 2, np.complex128) if fisher else None
+    )
+
+    evals, nmodes = [], []
+    for s in range(0, nm, mbatch):
+        ms = np.arange(s, min(s + mbatch, nm))
+        mv = np.full(mbatch, -1, np.int64)
+        mv[: len(ms)] = ms
+        mvt = torch.as_tensor(mv, device=dev)
+        beam = _build_beam_batch(pos, neg, mvt, tel.npairs, F, npol, nl)
+
+        def run(levels):
+            return mstep.kl_product_step(
+                beam, noisew, ls, lf, mvt, npol=npol, nl=nl, sig_levels=levels
+            )
+
+        res = run(1 if sig_levels is None else sig_levels)
+        ev = res.evals.cpu().numpy()
+        if sig_levels is None and ev.max() > _SIG1_TOP_BOUND:
+            res = run(2)
+            ev = res.evals.cpu().numpy()
+        if fisher:
+            kf = int((ev > ps_threshold).sum(axis=1).max())
+            if kf:
+                fm = mstep.fisher_step(
+                    res.evals, res.evecs, res.beam_svd, band_dev,
+                    ps_threshold=float(ps_threshold), npol=npol, nl=nl, kf=kf,
+                )
+                fish_total += fm.sum(0).cpu().numpy().astype(np.complex128)
+        evals.append(ev[: len(ms)])
+        nmodes.append(res.nmodes.cpu().numpy()[: len(ms)])
+
+    if fisher:
+        return np.concatenate(evals), np.concatenate(nmodes), fish_total
+    return np.concatenate(evals), np.concatenate(nmodes)
