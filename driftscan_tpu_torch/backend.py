@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import torch
@@ -171,16 +172,20 @@ def build(source: str) -> str:
 
 
 def build_all() -> dict:
-    """Build every registered CUDA kernel; returns {name: ptxas report}."""
+    """Build every registered CUDA kernel, one ``nvcc`` per source, all
+    started together; returns {source: ptxas report}."""
     # importing the kernel modules registers every kernel
-    from .ops import fpencil, kernels, sht  # noqa: F401
+    from .ops import fpencil, kernels, probe, sht  # noqa: F401
     from .parallel import mstep  # noqa: F401
 
+    cuda = [k for k in KERNELS.values() if k.route == "cuda"]
+    sources = sorted({k.source for k in cuda})
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        paths = dict(zip(sources, pool.map(build, sources)))
+    for k in cuda:
+        k.lib()
     reports = {}
-    for k in KERNELS.values():
-        if k.route == "cuda":
-            path = build(k.source)
-            k.lib()
-            with open(path + ".log") as f:
-                reports[k.name] = f.read()
+    for src, path in paths.items():
+        with open(path + ".log") as f:
+            reports[src] = f.read()
     return reports

@@ -1,9 +1,10 @@
 """Abstract transit-telescope model and the batched transfer-matrix driver.
 
-Port of ``driftscan_tpu/core/telescope.py`` (unpolarised part).  Feed
-layout, unique-baseline discovery, frequency binning and the noise model
-are host numpy, unchanged; the pixel grid, the beams and the visibility
-maps live on the telescope's ``device`` as torch tensors.
+Port of ``driftscan_tpu/core/telescope.py`` (unpolarised and polarised
+telescopes, beams from a device bank).  Feed layout, unique-baseline
+discovery, frequency binning and the noise model are host numpy,
+unchanged; the pixel grid, the beams and the visibility maps live on the
+telescope's ``device`` as torch tensors.
 
 A telescope is built with an explicit device, e.g.
 ``UnpolarisedCylinderTelescope.from_config(params, device="cuda")``.
@@ -469,21 +470,25 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
                 packed = sht.pack_fftlike(
                     pos.cpu().numpy(), neg.cpu().numpy(), lside
                 )
-                # zero each unit above its own band limit
+                # zero each unit above its own band limit; Stokes components
+                # past the transformed ones stay zero
                 lmask = np.arange(lside + 1)[None, :] <= flat_lmax[sel][:, None]
-                tarray[sel, 0] = packed * lmask[:, :, None]
+                tarray[sel, : packed.shape[1]] = packed * lmask[:, None, :, None]
 
         return tarray.reshape(tshape)
 
     def btm_chunk(self, bl_ind, f_ind, nside, lmax):
         """BTM coefficients of a unit batch at one nside.
 
-        Returns (pos (nu, lmax+1, lmax+1), neg (nu, lmax+1, lmax)) complex
-        tensors on the device: btrans = conj(SHT(conj(visibility map))),
-        negative-m column j <-> m = -(j + 1).
+        Returns (pos (nu, npol_t, lmax+1, lmax+1), neg (nu, npol_t, lmax+1,
+        lmax)) complex tensors on the device, one scalar SHT per
+        transformed Stokes component (npol_t = 1 unpolarised): btrans =
+        conj(SHT(conj(visibility map))), negative-m column j <-> m = -(j + 1).
         """
         self._init_trans(nside)
         cvis = self._beam_map_batch(bl_ind, f_ind)
+        if cvis.dim() == 2:  # unpolarised: add the pol axis
+            cvis = cvis[:, None]
         pos, neg = sht.analysis(cvis.conj(), lmax=lmax, nside=nside)
         return pos.conj().resolve_conj(), neg.conj().resolve_conj()
 
@@ -504,8 +509,9 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
 
     @abc.abstractmethod
     def _beam_map_batch(self, bl_ind, f_ind):
-        """Visibility maps (nunit, nring*maxlen) of a batch of units at the
-        current nside, on the ring-padded device grid."""
+        """Visibility maps of a batch of units at the current nside, on the
+        ring-padded device grid: (nunit, nring*maxlen) unpolarised, or
+        (nunit, npol_transform, nring*maxlen) Stokes maps."""
 
     # ========================= noise ==========================
 
@@ -622,6 +628,51 @@ class UnpolarisedTelescope(TransitTelescope, metaclass=abc.ABCMeta):
         return bnoise[..., np.newaxis] * 0.5
 
 
+class PolarisedTelescope(TransitTelescope, metaclass=abc.ABCMeta):
+    """Telescope with dipole feed beams -> full Stokes transfer matrices.
+
+    ``skip_V`` / ``skip_pol`` transform only Stokes I, Q, U or only I; the
+    omitted components stay in the outputs as zeros.  The noise power has
+    no factor 1/2 (that correction is the unpolarised telescope's).
+    """
+
+    skip_V = config.Property(proptype=bool, default=False)
+    skip_pol = config.Property(proptype=bool, default=False)
+
+    _npol_sky_ = 4
+
+    @property
+    def polarisation(self):
+        raise NotImplementedError("`polarisation` must be implemented.")
+
+    @property
+    def _npol_transform(self):
+        if self.skip_pol:
+            return 1
+        if self.skip_V:
+            return 3
+        return 4
+
+    @property
+    def included_pol(self) -> np.ndarray:
+        return np.arange(self._npol_transform)
+
+    def _beam_map_batch(self, bl_ind, f_ind):
+        """Stokes maps (nunit, npol_transform, npix) of a batch of units."""
+        fx, par, idx_i, idx_j, uv3 = self._gather_beams(bl_ind, f_ind)
+        return kernels.bank_stokes_maps(
+            self._angpos_cart,
+            self._horizon,
+            fx,
+            par,
+            idx_i,
+            idx_j,
+            uv3,
+            pxarea=4.0 * np.pi / (12 * self._nside**2),
+            npol=self._npol_transform,
+        )
+
+
 class SimpleUnpolarisedTelescope(UnpolarisedTelescope, metaclass=abc.ABCMeta):
     """Single-beamclass unpolarised telescope (implement `_single_feedpositions`)."""
 
@@ -637,3 +688,28 @@ class SimpleUnpolarisedTelescope(UnpolarisedTelescope, metaclass=abc.ABCMeta):
     @property
     def feedpositions(self):
         return self._single_feedpositions
+
+
+class SimplePolarisedTelescope(PolarisedTelescope, metaclass=abc.ABCMeta):
+    """Dual-polarisation telescope: X feeds (beamclass 0), then Y feeds
+    (beamclass 1) at the same positions."""
+
+    @property
+    def polarisation(self):
+        return np.asarray(
+            ["X" if feed % 2 == 0 else "Y" for feed in self.beamclass], dtype=str
+        )
+
+    @property
+    def beamclass(self):
+        nsfeed = self._single_feedpositions.shape[0]
+        return np.concatenate((np.zeros(nsfeed), np.ones(nsfeed))).astype(np.int64)
+
+    @property
+    @abc.abstractmethod
+    def _single_feedpositions(self):
+        """(nfeed, 2) positions of the single-polarisation feeds."""
+
+    @property
+    def feedpositions(self):
+        return np.concatenate((self._single_feedpositions, self._single_feedpositions))

@@ -1,9 +1,9 @@
-"""Beam and fringe pixel kernels, and the fused beam/visibility-map kernel.
+"""Beam and fringe pixel kernels, and the fused beam/visibility-map kernels.
 
-Port of ``driftscan_tpu/ops/kernels.py`` (the unpolarised part) plus the
-per-pixel cylinder beam of ``driftscan_tpu/telescope/cylbeam.py``.  The
-hot program of the BTM phase evaluates, for every (baseline, frequency)
-unit, the visibility transfer map
+Port of ``driftscan_tpu/ops/kernels.py`` plus the per-pixel cylinder
+beam of ``driftscan_tpu/telescope/cylbeam.py``.  The hot program of the
+BTM phase evaluates, for every (baseline, frequency) unit, the
+visibility transfer map
 
     V(n) = h(n) B_i(n) conj(B_j(n)) exp(2 pi i u.n) / sqrt(Omega_i Omega_j)
 
@@ -12,6 +12,11 @@ uniform-grid Fraunhofer table in the E-W direction times an ExpTan
 profile N-S, times the horizon h).  :func:`bank_visibility_maps` runs it
 as one hand-written Triton kernel in two passes (solid angles, then the
 maps); :func:`bank_visibility_maps_ref` is its plain PyTorch version.
+
+Polarised telescopes give each beam a dipole polarisation pattern (a unit
+vector in the (theta_hat, phi_hat) basis) and form the Stokes I/Q/U/V
+maps of each feed pair instead: :func:`bank_stokes_maps` (Triton) and
+:func:`bank_stokes_maps_ref` (plain).
 """
 
 from __future__ import annotations
@@ -28,6 +33,15 @@ K1K2 = backend.register(
     "triton",
     "driftscan_tpu_torch/csrc/beam_vis.py",
     "driftscan_tpu/telescope/cylbeam.py:133 + driftscan_tpu/ops/kernels.py:203",
+)
+
+# The polarised variant: dipole pattern (K19) + Stokes maps (K2).
+K1K2_STOKES = backend.register(
+    "k1k2_stokes_vis",
+    "triton",
+    "driftscan_tpu_torch/csrc/beam_vis.py",
+    "driftscan_tpu/telescope/cylbeam.py:133 + driftscan_tpu/ops/kernels.py:214"
+    " + driftscan_tpu/ops/kernels.py:297",
 )
 
 # Bank parameter row layout (see telescope.cylbeam.build_beam_bank).
@@ -139,12 +153,71 @@ def unpol_visibility_map(beam_i, beam_j, uv3, cart, horizon, pxarea: float):
     return bb * fringe(cart, uv3) * horizon * inv_om
 
 
-def bank_beam(cart, horizon, fx, par):
+def thetaphi_from_cart(cart: torch.Tensor):
+    """Unit vectors (theta_hat, phi_hat) at cartesian unit vectors (..., 3).
+
+    Formed from n directly, without arccos/arctan2: with rho = sin(theta)
+    = |(n_x, n_y)|, phi_hat = (-n_y, n_x, 0)/rho and theta_hat = (n_z n_x,
+    n_z n_y, -rho^2)/rho.  At a pole (rho = 0) phi is 0, as arctan2(0, 0)
+    gives in the JAX package.
+    """
+    x, y, z = cart[..., 0], cart[..., 1], cart[..., 2]
+    rho = torch.sqrt(x * x + y * y)
+    pole = rho == 0
+    safe = torch.where(pole, torch.ones_like(rho), rho)
+    cp = torch.where(pole, torch.ones_like(rho), x / safe)
+    sp = torch.where(pole, torch.zeros_like(rho), y / safe)
+    that = torch.stack([z * cp, z * sp, -rho], dim=-1)
+    phat = torch.stack([-sp, cp, torch.zeros_like(sp)], dim=-1)
+    return that, phat
+
+
+def polpattern(cart: torch.Tensor, dipole: torch.Tensor) -> torch.Tensor:
+    """Unit polarisation vectors of dipoles at each sky position (K19).
+
+    cart (npix, 3) sky directions; dipole (..., 3) cartesian dipole axes.
+    The dipole is projected onto the local (theta_hat, phi_hat) plane and
+    normalised; where the projection vanishes (a dipole along n) the
+    vector is zero.  Returns (..., npix, 2).
+    """
+    that, phat = thetaphi_from_cart(cart)
+    vt = torch.einsum("...k,pk->...p", dipole.to(cart.dtype), that)
+    vp = torch.einsum("...k,pk->...p", dipole.to(cart.dtype), phat)
+    norm = torch.sqrt(vt * vt + vp * vp)
+    ok = norm > 0
+    inv = torch.where(ok, 1.0 / torch.where(ok, norm, torch.ones_like(norm)), 0.0)
+    return torch.stack([vt * inv, vp * inv], dim=-1)
+
+
+def stokes_visibility_map(beam_i, beam_j, uv3, cart, horizon, pxarea: float):
+    """Normalised Stokes I/Q/U/V visibility maps of stacked beam pairs (K2).
+
+    beam_i, beam_j : (nu, npix, 2) field patterns in the (theta_hat,
+    phi_hat) basis on the padded grid; uv3 : (nu, 3) float64 baselines.
+    With tc = h e^{2 pi i u.n} / sqrt(Omega_i Omega_j) and conj on beam j:
+    I = tc (tt + pp), Q = tc (tt - pp), U = tc (tp + pt), V = i tc (tp - pt).
+    Returns (nu, 4, npix) complex.
+    """
+    om_i = torch.sum((beam_i.abs() ** 2).sum(-1) * horizon, dim=-1) * pxarea
+    om_j = torch.sum((beam_j.abs() ** 2).sum(-1) * horizon, dim=-1) * pxarea
+    inv_om = (1.0 / torch.sqrt(om_i * om_j))[..., None]
+    tc = fringe(cart, uv3) * horizon * inv_om
+    bit, bip = beam_i[..., 0], beam_i[..., 1]
+    bjt, bjp = beam_j[..., 0].conj(), beam_j[..., 1].conj()
+    tt, pp, tp, pt = bit * bjt, bip * bjp, bit * bjp, bip * bjt
+    return torch.stack(
+        [tc * (tt + pp), tc * (tt - pp), tc * (tp + pt), 1j * tc * (tp - pt)], dim=-2
+    )
+
+
+def bank_beam(cart, horizon, fx, par, polarised: bool = False):
     """Beams of bank rows over the pixel grid (K1), (nb, npix) real.
 
     Per pixel: a linear interpolation of the row's Fraunhofer table on
     its uniform grid at x = n.xhat, times the ExpTan N-S profile at
-    n.yhat, times the horizon.  fx (nb, nfx), par (nb, 12).
+    n.yhat, times the horizon.  fx (nb, nfx), par (nb, 12).  With
+    ``polarised`` each row's amplitude takes its dipole's
+    :func:`polpattern` (dipole ``par[:, 9:12]``): (nb, npix, 2).
     """
     nfx = fx.shape[-1]
     x = cart @ par[:, 3:6].T  # (npix, nb)
@@ -157,7 +230,10 @@ def bank_beam(cart, horizon, fx, par):
     ew1 = fx[rows, i0 + 1]
     ew = ew0 * (1.0 - frac) + ew1 * frac
     ns = torch.exp(-exptan_alpha(par[:, 2]) * exptan_tan2(y))
-    return (ew * ns * horizon[:, None]).T.contiguous()
+    amp = (ew * ns * horizon[:, None]).T.contiguous()
+    if not polarised:
+        return amp
+    return amp[..., None] * polpattern(cart, par[:, 9:12])
 
 
 def bank_visibility_maps_ref(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea):
@@ -182,6 +258,26 @@ def bank_visibility_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: floa
         return bank_visibility_maps_ref(
             cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea
         )
+    _require_bank_args(cart, horizon, fx, par, idx_i, idx_j, uv3)
+
+    from ..csrc import beam_vis
+
+    nu, npix = idx_i.shape[0], cart.shape[0]
+    alpha = exptan_alpha(par[:, 2]).contiguous()
+    omega = torch.zeros(fx.shape[0], dtype=cart.dtype, device=cart.device)
+    out = torch.empty(
+        (nu, npix), dtype=backend.complex_dtype(cart.dtype), device=cart.device
+    )
+    beam_vis.launch(
+        cart, horizon, fx, par, alpha, idx_i, idx_j, uv3, omega,
+        torch.view_as_real(out), float(pxarea),
+    )
+    K1K2.launches += 1
+    return out
+
+
+def _require_bank_args(cart, horizon, fx, par, idx_i, idx_j, uv3):
+    """Validate the arguments of the bank map kernels (float32 grid)."""
     dt = cart.dtype
     npix = cart.shape[0]
     nb, nfx = fx.shape
@@ -196,14 +292,47 @@ def bank_visibility_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: floa
     if nfx < 2:
         raise ValueError("bank tables need at least two samples")
 
+
+def bank_stokes_maps_ref(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea,
+                         npol: int = 4):
+    """Plain PyTorch version of :func:`bank_stokes_maps`."""
+    beams = bank_beam(cart, horizon, fx, par, polarised=True)
+    maps = stokes_visibility_map(
+        beams[idx_i], beams[idx_j], uv3, cart, horizon, pxarea
+    )
+    return maps[:, :npol]
+
+
+def bank_stokes_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: float,
+                     npol: int = 4):
+    """Stokes visibility maps of a unit batch of dipole bank beams (K1+K2, K19).
+
+    Arguments as :func:`bank_visibility_maps`; each bank row's beam is its
+    amplitude times its dipole's polarisation pattern.  Returns (nu,
+    npol, npix) complex: the first ``npol`` of Stokes I, Q, U, V (a
+    telescope that skips V or all polarisation transforms fewer).  CPU
+    tensors take the plain version; CUDA tensors launch the Triton kernel
+    (float32 grid).
+    """
+    if not 1 <= npol <= 4:
+        raise ValueError(f"npol={npol}: Stokes maps have 1 to 4 components")
+    if not backend.on_cuda(cart, horizon, fx, par, idx_i, idx_j, uv3):
+        return bank_stokes_maps_ref(
+            cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea, npol
+        )
+    _require_bank_args(cart, horizon, fx, par, idx_i, idx_j, uv3)
+
     from ..csrc import beam_vis
 
+    nu, npix = idx_i.shape[0], cart.shape[0]
     alpha = exptan_alpha(par[:, 2]).contiguous()
-    omega = torch.zeros(nb, dtype=dt, device=cart.device)
-    out = torch.empty((nu, npix), dtype=backend.complex_dtype(dt), device=cart.device)
-    beam_vis.launch(
+    omega = torch.zeros(fx.shape[0], dtype=cart.dtype, device=cart.device)
+    out = torch.empty(
+        (nu, npol, npix), dtype=backend.complex_dtype(cart.dtype), device=cart.device
+    )
+    beam_vis.launch_stokes(
         cart, horizon, fx, par, alpha, idx_i, idx_j, uv3, omega,
         torch.view_as_real(out), float(pxarea),
     )
-    K1K2.launches += 1
+    K1K2_STOKES.launches += 1
     return out

@@ -50,6 +50,13 @@ def factors_from_numpy(ls, lf, band_lt, device, dtype):
     return as_t(ls), as_t(lf), as_t(band_lt)
 
 
+def uses_compact_signal(n: int, width: int) -> bool:
+    """Whether :func:`kl_product_step` re-factors the signal side to width
+    n (K9 + shifted Cholesky): when the signal factor's width nl*K is more
+    than twice the pencil dimension n."""
+    return width > 2 * n
+
+
 class ProductStepResult(NamedTuple):
     """Per-m outputs of the batched product step (all padded)."""
 
@@ -69,6 +76,7 @@ def kl_product_step(
     m_values: torch.Tensor,
     npol: int,
     nl: int,
+    polsvcut: float = 1e-4,
     svcut: float = 1e-6,
     sig_levels: int = 2,
     band_rel: float = 3e-2,
@@ -78,7 +86,9 @@ def kl_product_step(
     beam : (M, F, T, npol*nl) complex, m-major; noisew (F, T) inverse noise
     weights (noisepower^-1/2), so the projected radiometer noise is the
     identity in the SVD basis; ls, lf (nl, npol, F, K) covariance factors;
-    m_values (M,) with m < 0 marking padding (zero outputs).
+    m_values (M,) with m < 0 marking padding (zero outputs).  ``polsvcut``
+    is the polarisation filter's cut (npol > 1), relative to each item's
+    largest polarised singular value.
     """
     M, F = beam.shape[0], beam.shape[1]
     cdt, rdt = beam.dtype, backend.real_dtype(beam.dtype)
@@ -96,7 +106,9 @@ def kl_product_step(
     tile = lmask.repeat(1, npol)[:, None, None, :]
     bw = beam.to(torch.complex128) * tile * noisew[None, :, :, None]
 
-    ut, bsvd, sig, nmodes = linalg.triple_svd_batched(bw, npol=npol, nl=nl)
+    ut, bsvd, sig, nmodes = linalg.triple_svd_batched(
+        bw, npol=npol, nl=nl, polsvcut=polsvcut
+    )
     S = ut.shape[-2]
 
     # global svcut relative to each m's top singular value
@@ -107,8 +119,7 @@ def kl_product_step(
     nmodes = torch.minimum(nmodes, svmask.sum(-1).to(nmodes.dtype))
 
     b5 = bsvd.reshape(M, F, S, npol, nl)
-    n_kl = F * S
-    if nl * ls.shape[-1] > 2 * n_kl:
+    if uses_compact_signal(F * S, nl * ls.shape[-1]):
         # re-factor the signal side to width n (K9 + shifted Cholesky)
         a_s = fpencil.beam_factor_compact(b5.to(cdt), ls)
     else:

@@ -32,7 +32,9 @@ def btm_resident(tel, bl_indices, f_indices, m_range=None):
     Returns (pos (nu, npol, lside+1, lside+1), neg (nu, npol, lside+1,
     lside)) complex tensors on ``tel.device``: pos column m holds m >= 0,
     neg column j holds m = -(j + 1); each unit is masked to its own band
-    limit.  ``tel.single_precision`` selects complex64.
+    limit.  A polarised telescope fills its transformed Stokes components;
+    the skipped ones stay zero.  ``tel.single_precision`` selects
+    complex64.
     """
     if m_range is not None:
         raise NotImplementedError(f"m-windowed BTM tables are {_NOT_PORTED}")
@@ -57,14 +59,16 @@ def btm_resident(tel, bl_indices, f_indices, m_range=None):
             sel = bucket[boff : boff + take]
             boff += take
             sub_lmax = int(lmax_arr[sel].max())
+            # (nu, npol_t, l, m) chunks
             p, n = tel.btm_chunk(bl_indices[sel], f_indices[sel], int(ns), sub_lmax)
+            npt = p.shape[1]
             lmask = (
                 torch.arange(sub_lmax + 1, device=tel.device)[None, :]
                 <= torch.as_tensor(lmax_arr[sel], device=tel.device)[:, None]
             ).to(p.real.dtype)[:, None, :, None]
             idx = torch.as_tensor(sel, device=tel.device)
-            pos[idx, :, : sub_lmax + 1, : sub_lmax + 1] = (p[:, None] * lmask).to(cdt)
-            neg[idx, :, : sub_lmax + 1, :sub_lmax] = (n[:, None] * lmask).to(cdt)
+            pos[idx, :npt, : sub_lmax + 1, : sub_lmax + 1] = (p * lmask).to(cdt)
+            neg[idx, :npt, : sub_lmax + 1, :sub_lmax] = (n * lmask).to(cdt)
     return pos, neg
 
 
@@ -112,12 +116,27 @@ def _auto_mbatch_n(n: int, K: int, budget_bytes: float, K_aug=None):
     when the compact signal path re-factors it) and a few (n, n) Gram and
     eigh temporaries, with a 3x allowance for temporaries.
     """
-    if K > 2 * n:
+    if mstep.uses_compact_signal(n, K):
         K = n
     ka = K if K_aug is None else K_aug
     per_m = ((ka + n) * n + n * K + 6 * n * n) * 8.0 * 3.0
     mb = int(max(1, min(_MBATCH_CAP, budget_bytes // max(per_m, 1.0))))
     return 1 << (mb.bit_length() - 1)  # power of two
+
+
+def pencil_size(tel) -> int:
+    """The KL pencil dimension n = F * S of the product step, with the
+    SVD basis length S = min(nl, 2 * npairs)."""
+    return tel.nfreq * min(tel.lmax + 1, 2 * tel.npairs)
+
+
+def auto_mbatch(tel, ls_width: int, lf_width: int, device) -> int:
+    """The m-batch :func:`product_all_resident` picks for ``tel`` on
+    ``device``, given the widths of the signal and foreground factors."""
+    nl = tel.lmax + 1
+    return _auto_mbatch_n(
+        pencil_size(tel), nl * ls_width, _device_budget(device), K_aug=nl * lf_width
+    )
 
 
 def _device_budget(device) -> float:
@@ -176,13 +195,9 @@ def product_all_resident(
             "port, item 10"
         )
     nm = tel.mmax + 1 if max_m is None else min(max_m, tel.mmax + 1)
-    nl = tel.lmax + 1
-    F = tel.nfreq
-    S = min(nl, 2 * tel.npairs)
-    npol = tel.num_pol_sky
     if bucket is None:
         prof = _analytic_dof_bound(tel, nm).astype(np.float64)
-        bucket = float((prof**3).sum()) < 0.5 * nm * float(F * S) ** 3
+        bucket = float((prof**3).sum()) < 0.5 * nm * float(pencil_size(tel)) ** 3
     if bucket:
         raise NotImplementedError(f"m-bucketing is {_NOT_PORTED}")
 
@@ -190,15 +205,11 @@ def product_all_resident(
     rdt = pos.real.dtype
     ls, lf, band_dev = mstep.factors_from_numpy(ls, lf, band_lt, dev, rdt)
     noisew = torch.as_tensor(np.asarray(noisew), dtype=rdt, device=dev)
-    K_cov = nl * ls.shape[-1]
-    K_aug = nl * lf.shape[-1]
 
     if mbatch is None:
-        mbatch = _auto_mbatch_n(F * S, K_cov, _device_budget(dev), K_aug=K_aug)
+        mbatch = auto_mbatch(tel, ls.shape[-1], lf.shape[-1], dev)
 
     fisher = band_dev is not None
-    if fisher and float(ps_threshold) <= 0:
-        raise ValueError("ps_threshold must be > 0 for the Fisher pass")
     fish_total = (
         np.zeros((band_dev.shape[0],) * 2, np.complex128) if fisher else None
     )
@@ -208,30 +219,58 @@ def product_all_resident(
         ms = np.arange(s, min(s + mbatch, nm))
         mv = np.full(mbatch, -1, np.int64)
         mv[: len(ms)] = ms
-        mvt = torch.as_tensor(mv, device=dev)
-        beam = _build_beam_batch(pos, neg, mvt, tel.npairs, F, npol, nl)
-
-        def run(levels):
-            return mstep.kl_product_step(
-                beam, noisew, ls, lf, mvt, npol=npol, nl=nl, sig_levels=levels
-            )
-
-        res = run(1 if sig_levels is None else sig_levels)
-        ev = res.evals.cpu().numpy()
-        if sig_levels is None and ev.max() > _SIG1_TOP_BOUND:
-            res = run(2)
-            ev = res.evals.cpu().numpy()
+        ev, nmo, fm = product_m_batch(
+            tel, pos, neg, ls, lf, noisew, mv, band_lt=band_dev,
+            ps_threshold=ps_threshold, sig_levels=sig_levels,
+        )
         if fisher:
-            kf = int((ev > ps_threshold).sum(axis=1).max())
-            if kf:
-                fm = mstep.fisher_step(
-                    res.evals, res.evecs, res.beam_svd, band_dev,
-                    ps_threshold=float(ps_threshold), npol=npol, nl=nl, kf=kf,
-                )
-                fish_total += fm.sum(0).cpu().numpy().astype(np.complex128)
+            fish_total += fm
         evals.append(ev[: len(ms)])
-        nmodes.append(res.nmodes.cpu().numpy()[: len(ms)])
+        nmodes.append(nmo[: len(ms)])
 
     if fisher:
         return np.concatenate(evals), np.concatenate(nmodes), fish_total
     return np.concatenate(evals), np.concatenate(nmodes)
+
+
+def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
+                    ps_threshold=0.1, sig_levels=None):
+    """One m-batch of :func:`product_all_resident`, any m's.
+
+    The batch's beams are gathered from the resident tables and go
+    through :func:`mstep.kl_product_step` (with the adaptive sig1 depth
+    when ``sig_levels`` is None) and, with ``band_lt``, through
+    :func:`mstep.fisher_step`.  ls, lf, noisew and band_lt are tensors on
+    the tables' device in their real precision
+    (:func:`mstep.factors_from_numpy`); m_values (M,) ints, m < 0 marking
+    padding.  Returns host (evals (M, F*S), nmodes (M, F), Fisher (nbands,
+    nbands) complex128 summed over the batch, or None without band_lt).
+    """
+    if band_lt is not None and float(ps_threshold) <= 0:
+        raise ValueError("ps_threshold must be > 0 for the Fisher pass")
+    npol = tel.num_pol_sky
+    nl = tel.lmax + 1
+    mvt = torch.as_tensor(np.asarray(m_values, dtype=np.int64), device=pos.device)
+    beam = _build_beam_batch(pos, neg, mvt, tel.npairs, tel.nfreq, npol, nl)
+
+    def run(levels):
+        return mstep.kl_product_step(
+            beam, noisew, ls, lf, mvt, npol=npol, nl=nl, sig_levels=levels
+        )
+
+    res = run(1 if sig_levels is None else sig_levels)
+    ev = res.evals.cpu().numpy()
+    if sig_levels is None and ev.max() > _SIG1_TOP_BOUND:
+        res = run(2)
+        ev = res.evals.cpu().numpy()
+    fish = None
+    if band_lt is not None:
+        fish = np.zeros((band_lt.shape[0],) * 2, np.complex128)
+        kf = int((ev > ps_threshold).sum(axis=1).max())
+        if kf:
+            fm = mstep.fisher_step(
+                res.evals, res.evecs, res.beam_svd, band_lt,
+                ps_threshold=float(ps_threshold), npol=npol, nl=nl, kf=kf,
+            )
+            fish += fm.sum(0).cpu().numpy().astype(np.complex128)
+    return ev, res.nmodes.cpu().numpy(), fish

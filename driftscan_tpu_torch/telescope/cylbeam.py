@@ -7,7 +7,9 @@ host by FFT, then interpolated on its uniform grid), and the N-S beam is
 the ExpTan model.  The bank packs every frequency's table and beam
 parameters into two arrays; the per-pixel evaluation of a bank row is
 fused with the visibility map in
-:func:`driftscan_tpu_torch.ops.kernels.bank_visibility_maps` (K1+K2).
+:func:`driftscan_tpu_torch.ops.kernels.bank_visibility_maps` (K1+K2), or
+with the dipole pattern and the Stokes maps in
+:func:`driftscan_tpu_torch.ops.kernels.bank_stokes_maps`.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Cylinder telescopes.
 
-Port of ``driftscan_tpu/telescope/cylinder.py`` (the unpolarised cylinder):
-N-S oriented parabolic cylinders, regularly spaced feeds along each axis,
-optional exclusion of intra-cylinder baselines, and Fraunhofer beams
-evaluated from the device beam bank (cylbeam).  The config property
-names are the JAX package's.
+Port of ``driftscan_tpu/telescope/cylinder.py`` (the unpolarised and the
+polarised cylinder): N-S oriented parabolic cylinders, regularly spaced
+feeds along each axis, optional exclusion of intra-cylinder baselines,
+and Fraunhofer beams evaluated from the device beam bank (cylbeam).  The
+config property names are the JAX package's.
 """
 
 from __future__ import annotations
@@ -139,3 +139,11 @@ class UnpolarisedCylinderTelescope(
 
     # the single beamclass 0 is bank row 0
     _bank_row_of_class = {0: 0}
+
+
+class PolarisedCylinderTelescope(CylinderTelescope, telescope.SimplePolarisedTelescope):
+    """Polarised cylinder telescope with X/Y dipole feeds."""
+
+    # X feeds (beamclass 0) are bank row 0, Y feeds (1) row 1, whose
+    # fwhm order is swapped (H-plane east-west)
+    _bank_row_of_class = {0: 0, 1: 1}

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from driftscan_tpu_torch.ops import fpencil, healpix, kernels, sht
+from driftscan_tpu_torch.ops import fpencil, healpix, kernels, probe, sht
 from driftscan_tpu_torch.parallel import mstep
 from driftscan_tpu_torch.telescope import cylinder
 
@@ -63,6 +63,26 @@ def test_k1k2_beam_vis(cuda):
            lambda: kernels.bank_visibility_maps_ref(*args), 1e-5)
 
 
+@pytest.mark.parametrize("skip,npol", [({}, 4), ({"skip_V": True}, 3), ({"skip_pol": True}, 1)])
+def test_k1k2_stokes_vis(cuda, skip, npol):
+    tel = cylinder.PolarisedCylinderTelescope.from_config(
+        dict(num_freq=2, freq_start=400.0, freq_end=410.0, num_cylinders=2,
+             cylinder_width=3.0, num_feeds=2, feed_spacing=1.0,
+             single_precision=True, **skip),
+        device=cuda,
+    )
+    bl = np.arange(tel.npairs)
+    fi = np.arange(tel.nfreq)
+    blg, fig = [x.ravel() for x in np.meshgrid(bl, fi, indexing="ij")]
+    ns = tel._nside_for(tel.lmax)
+    tel._init_trans(ns)
+    args = (tel._angpos_cart, tel._horizon, *tel._gather_beams(blg, fig),
+            4 * np.pi / (12 * ns**2))
+    assert tel._npol_transform == npol
+    _check(kernels.K1K2_STOKES, lambda: kernels.bank_stokes_maps(*args, npol=npol),
+           lambda: kernels.bank_stokes_maps_ref(*args, npol=npol), 1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_k3k5_legendre_sht(cuda, dtype):
     g = healpix.ring_geometry(16)
@@ -100,3 +120,17 @@ def test_wrappers_reject_lazy_conjugates(cuda):
     lb = torch.ones((1, 8, 2, 1), device=cuda)
     with pytest.raises(ValueError):
         mstep.fisher_cov(v.conj(), bt, lb)
+
+
+def test_probe_double(cuda):
+    x = torch.arange(1000 * 1001, dtype=torch.float32, device=cuda).reshape(1000, 1001)
+    _check(probe.PROBE_DOUBLE, lambda: probe.double(x), lambda: probe.double_ref(x), 0.0)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
+def test_probe_mm(cuda, dtype, rtol):
+    rng = np.random.default_rng(2)
+    # ragged shapes exercise the kernel's edge masks
+    a = torch.as_tensor(rng.standard_normal((130, 70)), dtype=dtype, device=cuda)
+    b = torch.as_tensor(rng.standard_normal((70, 97)), dtype=dtype, device=cuda)
+    _check(probe.PROBE_MM, lambda: probe.mm(a, b), lambda: probe.mm_ref(a, b), rtol)

@@ -20,7 +20,7 @@ def _crandn(rng, shape):
     return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
 
 
-@pytest.mark.parametrize("npol,K", [(1, 8), (1, 3), (2, 4)])
+@pytest.mark.parametrize("npol,K", [(1, 8), (1, 3), (2, 4), (4, 4)])
 def test_beam_factor_compact_matches_jax(npol, K):
     rng = np.random.default_rng(11 + K)
     F, S, nl = 3, 5, 37
@@ -109,7 +109,9 @@ def test_triple_svd_masks_and_pads():
     s_ref = np.linalg.svd(bfr[0], compute_uv=False)
     np.testing.assert_allclose(sig[0].numpy(), s_ref, rtol=1e-12)
     assert float(sig[2].abs().max()) == 0.0
-    with pytest.raises(NotImplementedError):
+    # npol * nl must match the beam's columns (the polarised stages are in
+    # tests/test_torch_pol.py)
+    with pytest.raises(ValueError):
         linalg.triple_svd_batched(torch.as_tensor(bfr), npol=2, nl=9)
 
 

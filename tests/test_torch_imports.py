@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.ops.healpix",
     "driftscan_tpu_torch.ops.kernels",
     "driftscan_tpu_torch.ops.linalg",
+    "driftscan_tpu_torch.ops.probe",
     "driftscan_tpu_torch.ops.sht",
     "driftscan_tpu_torch.parallel.mstep",
     "driftscan_tpu_torch.parallel.resident",
