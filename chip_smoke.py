@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # the phases below
     python3 chip_smoke.py --profile   # then torch.profiler over each path
+                                      # and over the file pipeline
 
 Needs one CUDA card and the CUDA toolkit (nvcc) and Triton; imports no
 JAX.  Phases, each printed on its own line(s); any failure raises, so the
@@ -21,18 +22,30 @@ script exits non-zero:
    (``library_ms``: ``torch.matmul(a, a.mH)`` of the pre-formed factor for
    K9 and K13); ``bound_ms`` is the larger of the bytes moved over 3.35
    TB/s and the operations over the peak of the units that run them
-   (67 TFLOP/s float32 on the CUDA cores; the Grams' 3xTF32 products,
-   three tf32 products each, at 495 TFLOP/s), from the shapes;
+   (67 TFLOP/s float32 on the CUDA cores; 67 TFLOP/s float64, the card's
+   float64 peak, on its tensor cores; the Grams' 3xTF32 products, three
+   tf32 products each, at 495 TFLOP/s), from the shapes;
 4. slice -- the bench telescope (``bench.build_telescope``'s full config)
    through ``btm_resident`` and ``product_all_resident`` with the fused
    Fisher over all m;
 5. pol -- the polarised telescope (``bench.build_pol_telescope``'s full
    config, npol 4) through the same entry points;
-6. probe -- the ports of the two Pallas probes of
+6. products -- the file pipeline behind ``drift-makeproducts``: the bench
+   unpolarised cylinder as a config dictionary through
+   ``ProductManager.apply_config(...).generate()`` into a fresh temporary
+   directory (beam and SVD files for all m, the KL and DoubleKL
+   eigenfiles, PSExact's Fisher file), then the checks of
+   :func:`products_phase`: every file opens, the Fisher from the files
+   against path 4's fused Fisher, KL spectra against the port's CPU run on
+   the same SVD beams, one m through the dense per-m transform, a second
+   ``generate()`` that skips every stage; then the sandwich (K15a) and the
+   Fisher trace (K15b) again at the sizes that run gave them
+   (``[products kernels]``);
+7. probe -- the ports of the two Pallas probes of
    ``scratch/pallas_probe.py`` (o = 2 x; a 1024^3 matmul, float32 and
    bfloat16 inputs) against their plain versions, with Tflop/s.
 
-Each path (4-6) runs with every launch count set to 0 just before it and
+Each path (4-7) runs with every launch count set to 0 just before it and
 read just after, and fails unless every kernel of that path launched.
 Paths 4 and 5 then re-run their first and last 8 m on CPU tensors from
 the same BTM tables (the plain paths) and compare with the card, and time
@@ -48,6 +61,7 @@ line before that one the kernels' JSON record; the last line is
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -95,13 +109,18 @@ CPU_CHECK_M = 8
 PROBE_N = 1024  # scratch/pallas_probe.py's shapes
 
 PROBE_KERNELS = ("probe_double", "probe_mm")
+NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet, dense): device
-# memory, float32 outside the tensor cores, and tf32 and bfloat16 on the
-# tensor cores, at the 700 W power limit.  The Gram kernels (K9, K13) take
-# each float32 product as three tf32 products (3xTF32).
+# memory, float32 outside the tensor cores, float64, tf32 and bfloat16 on
+# the tensor cores, at the 700 W power limit.  The Gram kernels (K9, K13)
+# take each float32 product as three tf32 products (3xTF32).  Float64 work
+# is bounded at the card's float64 peak, which its tensor cores give; the
+# sandwich runs on the CUDA cores, whose float64 rate is printed beside it.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 67e12
+F64_CUDA_CORE_FLOPS = 34e12
 GRAM_FLOPS = 495e12 / 3
 BF16_FLOPS = 989e12
 
@@ -354,6 +373,15 @@ def kernel_phases(tel, ptel):
 
         # K13: k = n retained modes (the upper bound)
         keep("k13_fisher_cov", k13_compare(t, 8, n, rng))
+
+        if not pol:
+            # K15a and K15b at nkl = k = n, the file path's upper bound (the
+            # products phase times them again at the sizes its run gave)
+            keep("k15a_sandwich", sandwich_band_compare(t, n, rng))
+            sandwich_band_compare(t, n, rng, dtype=torch.complex64)
+            sandwich_sky_compare(t, rng)
+            keep("k15b_fisher_trace", trace_compare(n, rng))
+            trace_compare(n, rng, dtype=torch.complex64, M=8)
     return res
 
 
@@ -396,6 +424,116 @@ def k13_compare(t, M, k, rng, tag="kernels"):
     )
 
 
+def _crandn(rng, shape, dtype, dev):
+    import torch
+
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.as_tensor(z, device=dev).to(dtype)
+
+
+def _rate(dtype):
+    import torch
+
+    return F64_FLOPS if dtype == torch.complex128 else F32_FLOPS
+
+
+def sandwich_band_compare(t, nkl, rng, dtype=None, tag="kernels"):
+    """K15a in its band form (PSExact's per-m projection of every band into
+    the KL basis): g (nkl, F, nl), NBANDS spectra (nl, F, F); against the
+    plain version, with the JAX line's one einsum as the library call."""
+    import torch
+
+    from driftscan_tpu_torch.ops import projections
+
+    dtype = dtype or torch.complex128
+    F, nl = t.nfreq, t.lmax + 1
+    g = _crandn(rng, (nkl, F, nl), dtype, t.device)
+    cl = torch.as_tensor(rng.standard_normal((NBANDS, nl, F, F)), device=t.device).to(
+        g.real.dtype
+    )
+    clc = cl.to(dtype)
+    flops = NBANDS * nl * (4.0 * nkl * F * F + 8.0 * nkl * nkl * F)
+    if dtype == torch.complex128:
+        log(f"[{tag}] k15a_sandwich band form nkl {nkl}: {flops:.4e} flop; at the float64 "
+            f"CUDA cores' 34 TFLOP/s {flops / F64_CUDA_CORE_FLOPS * 1e3:.4f} ms")
+    return compare(
+        f"k15a_sandwich band form (nkl {nkl}, F {F}, nl {nl}, nb {NBANDS}, {dtype})",
+        lambda: projections.band_covariance_projection(g, cl),
+        lambda: projections.sandwich_ref(g[None], g[None], cl),
+        rtol=1e-12 if dtype == torch.complex128 else 1e-5, tag=tag,
+        work=(nbytes(g, cl) + NBANDS * nkl * nkl * g.element_size(), [(flops, _rate(dtype))]),
+        library_fn=lambda: torch.einsum("kfl,blfh,qhl->bkq", g, clc, g.conj()),
+    )
+
+
+def sandwich_sky_compare(t, rng, tag="kernels"):
+    """K15a in its sky form (a sky covariance into the SVD basis, the dense
+    per-m KL path): one batch item per frequency pair, X = B[f], Y = B[g]
+    (S, npol 1, nl) complex128."""
+    import torch
+
+    from driftscan_tpu_torch.ops import projections
+    from driftscan_tpu_torch.parallel import resident
+
+    F, nl = t.nfreq, t.lmax + 1
+    S = resident.pencil_size(t) // F
+    beam = _crandn(rng, (F, S, 1, nl), torch.complex128, t.device)
+    cl = torch.as_tensor(rng.standard_normal((1, 1, nl, F, F)), device=t.device)
+    c = cl.permute(3, 4, 2, 0, 1).reshape(F * F, nl, 1, 1).contiguous()
+    fi = torch.arange(F).repeat_interleave(F)
+    gi = torch.arange(F).repeat(F)
+    ci = torch.arange(F * F)
+    clc = cl.to(beam.dtype)
+    lib = lambda: torch.einsum("fapl,pqlfg,gbql->fagb", beam, clc, beam.conj())
+    got = projections.sky_covariance_projection(beam, cl)
+    if not float((got - lib()).abs().max()) <= 1e-12 * float(got.abs().max()):
+        raise AssertionError("sky_covariance_projection disagrees with its einsum")
+    flops = F * F * nl * (4.0 * S + 8.0 * S * S)
+    log(f"[{tag}] k15a_sandwich sky form: {flops:.4e} flop; at the float64 CUDA cores' "
+        f"34 TFLOP/s {flops / F64_CUDA_CORE_FLOPS * 1e3:.4f} ms")
+    return compare(
+        f"k15a_sandwich sky form ({F * F} pairs, S {S}, npol 1, nl {nl}, complex128)",
+        lambda: projections.sandwich(beam, beam, c, fi, gi, ci),
+        lambda: projections.sandwich_ref(beam, beam, c, fi, gi, ci),
+        rtol=1e-12, tag=tag,
+        work=(nbytes(beam, c) + F * F * S * S * 16, [(flops, F64_FLOPS)]),
+        library_fn=lib,
+    )
+
+
+def trace_compare(k, rng, dtype=None, M=None, tag="kernels"):
+    """K15b at NBANDS bands of k modes (an m-batch of M where the fused
+    Fisher step calls it): against the plain version; the library call is
+    the JAX program's, a scale and one matmul of the flattened stacks."""
+    import torch
+
+    from driftscan_tpu_torch.ops import projections
+
+    dtype = dtype or torch.complex128
+    dev = torch.device("cuda")
+    lead = () if M is None else (M,)
+    c = _crandn(rng, lead + (NBANDS, k, k), dtype, dev)
+    w = torch.as_tensor(rng.random(lead + (k,)), device=dev).to(c.real.dtype)
+
+    def library():
+        d = c * (w[..., None, :, None] * w[..., None, None, :])
+        flat = lead + (NBANDS, k * k)
+        return d.reshape(flat) @ c.transpose(-1, -2).reshape(flat).transpose(-1, -2)
+
+    # one pass over the stack (C_a and C_b are the same tensor on every
+    # path); per term a complex product, the weight and the sum, in float64
+    nitem = M or 1
+    return compare(
+        f"k15b_fisher_trace (M {M}, nb {NBANDS}, k {k}, {dtype})",
+        lambda: projections.fisher_trace(c, c, w),
+        lambda: projections.fisher_trace_ref(c, c, w),
+        rtol=1e-12 if dtype == torch.complex128 else 1e-6, tag=tag,
+        work=(nbytes(c, w) + nitem * NBANDS * NBANDS * 16,
+              [(10.0 * nitem * NBANDS * NBANDS * k * k, F64_FLOPS)]),
+        library_fn=library,
+    )
+
+
 def path_k13(tag, tel, evals, ps_threshold, mb, launches):
     """K13 at the k the product path launched it with: per m-batch, the
     batch's largest retained count (``resident.fisher_k``, the path's own
@@ -409,8 +547,12 @@ def path_k13(tag, tel, evals, ps_threshold, mb, launches):
     if len(ks) != launches:
         raise AssertionError(f"{tag}: {len(ks)} K13 shapes for {launches} launches")
     rng = np.random.default_rng(SEED + 1)
+    import torch
+
     big = k13_compare(tel, mb, ks[-1], rng, tag=f"{tag} kernels")
     k13_compare(tel, mb, ks[len(ks) // 2], rng, tag=f"{tag} kernels")
+    # the Fisher step's trace over K13's covariances, at the same k
+    trace_compare(ks[-1], rng, dtype=torch.complex64, M=mb, tag=f"{tag} kernels")
     return big
 
 
@@ -430,13 +572,14 @@ def require_launched(tag, launches, names):
 def path_kernels(tel, ls_width):
     """The hand kernels a product path launches: beams + maps, the SHT,
     the compact signal Gram where the product step takes it
-    (``mstep.uses_compact_signal``), and the Fisher covariances."""
+    (``mstep.uses_compact_signal``), the Fisher covariances and their
+    weighted trace."""
     from driftscan_tpu_torch.parallel import mstep, resident
 
     n = resident.pencil_size(tel)
     width = (tel.lmax + 1) * ls_width
     names = ["k1k2_stokes_vis" if tel.num_pol_sky > 1 else "k1k2_beam_vis",
-             "k3k5_legendre_sht", "k13_fisher_cov"]
+             "k3k5_legendre_sht", "k13_fisher_cov", "k15b_fisher_trace"]
     if mstep.uses_compact_signal(n, width):
         names.append("k9_signal_gram")
     return names, n, width
@@ -509,9 +652,9 @@ def path_phase(tag, tel, ps_threshold):
 
     cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold)
     mb = resident.auto_mbatch(tel, ls.shape[-1], lf.shape[-1], tel.device)
-    return launches, required, path_k13(
-        tag, tel, evals, ps_threshold, mb, launches["k13_fisher_cov"]
-    )
+    k13_rec = path_k13(tag, tel, evals, ps_threshold, mb, launches["k13_fisher_cov"])
+    run = {"evals": evals, "fisher": fisher, "rate": nm / (t_btm + t_prod)}
+    return launches, required, k13_rec, run
 
 
 def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold):
@@ -572,6 +715,239 @@ def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold):
             raise AssertionError(f"{tag} {name}: partial Fisher card vs cpu {f_err:.3e} > 3e-2")
 
 
+def products_config(outdir):
+    """The bench unpolarised cylinder as a ``drift-makeproducts`` config:
+    the KL filter and the two-stage DoubleKL, and PSExact on the KL filter
+    with the four polar bands of :func:`fisher_bands`."""
+    return {
+        "config": {"beamtransfers": True, "kltransform": True, "psfisher": True,
+                   "output_directory": outdir},
+        "telescope": dict(type="UnpolarisedCylinder", **BENCH_PARAMS),
+        "kltransform": [
+            {"type": "KLTransform", "name": "kl", "threshold": PS_THRESHOLD},
+            {"type": "DoubleKL", "name": "dk"},
+        ],
+        "psfisher": [
+            {"type": "Full", "name": "ps", "klname": "kl", "threshold": PS_THRESHOLD,
+             "bandtype": "polar", "num_theta": 1, "unit_bands": True,
+             "k_bands": [{"spacing": "linear", "start": 0.02, "stop": 0.25,
+                          "num": NBANDS + 1}]},
+        ],
+    }
+
+
+def products_files(m):
+    """Every product file of a finished run of :func:`products_config`."""
+    bt, kl, dk = m.beamtransfer, m.kltransforms["kl"], m.kltransforms["dk"]
+    files = [bt.directory + "/svdspectrum.hdf5", kl.evdir + "/evals.hdf5",
+             dk.evdir + "/evals.hdf5", m.psestimators["ps"].psdir + "/fisher.hdf5"]
+    for mi in range(m.telescope.mmax + 1):
+        files += [bt._mfile(mi), bt._svdfile(mi), kl._evfile % mi, dk._evfile % mi]
+    return files
+
+
+def products_phase(slice_run):
+    """The file pipeline on the card and its checks; ``slice_run`` holds the
+    resident path's spectra, Fisher matrix and rate for the same telescope,
+    bands and threshold.  Returns (launches, [nkl per m])."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.ops import projections, truncate
+    from driftscan_tpu_torch.util import store
+
+    tag = "products"
+    outdir = tempfile.mkdtemp(prefix="driftscan_products_")
+    try:
+        conf = products_config(outdir)
+        backend.reset_launch_counts()
+        t = time.time()
+        m = manager.ProductManager().apply_config(conf)
+        m.generate()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = launch_counts()
+
+        tel, bt = m.telescope, m.beamtransfer
+        kl, dk, ps = m.kltransforms["kl"], m.kltransforms["dk"], m.psestimators["ps"]
+        nm, n = tel.mmax + 1, bt.ndofmax
+        tm = m.timings
+        t_file = tm["beams"] + tm["kl.kl"] + tm["ps.ps"]
+        log(
+            f"[{tag}] store {store.BACKEND} (truncation codec {truncate.codec()}, "
+            f"file codec {store.codec(bt.compression)})  device {m.device}  wall {wall:.4f} s  "
+            f"t_beams {tm['beams']:.4f} s (compute {tm['beams.btm_compute']:.4f}, "
+            f"write {tm['beams.btm_write']:.4f})  t_svd {tm['beams.svd']:.4f} s  "
+            f"t_kl {tm['kl.kl']:.4f} s  t_doublekl {tm['kl.dk']:.4f} s  "
+            f"t_ps {tm['ps.ps']:.4f} s"
+        )
+        log(
+            f"[{tag}] m-modes/s of the file path (beams + SVD + KL + PSExact, "
+            f"{nm} m) {nm / t_file:.4f}; with DoubleKL {nm / (t_file + tm['kl.dk']):.4f}; "
+            f"the resident path's {slice_run['rate']:.4f}; m that took the dense "
+            f"fallback: {len(kl.dense_fallback_m)} {kl.dense_fallback_m}; launches {launches}"
+        )
+
+        # every product file exists and opens
+        files = products_files(m)
+        bad = [f for f in files if not store.readable(f)]
+        if bad:
+            raise AssertionError(f"{tag}: {len(bad)} product files missing or unreadable: {bad[:4]}")
+        size = sum(
+            os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(outdir) for f in fs
+        )
+        log(f"[{tag}] {len(files)} product files open ({size / 2**20:.1f} MiB on disk)")
+        require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht",
+                                         "k9_signal_gram", "k15a_sandwich",
+                                         "k15b_fisher_trace"])
+
+        # spectra and Fisher: finite, symmetric, positive diagonal
+        ev_file = kl.evals_all()
+        with store.File(dk.evdir + "/evals.hdf5", "r") as f:
+            dk_ev, dk_fev = f["evals"][:], f["f_evals"][:]
+        with store.File(ps.psdir + "/fisher.hdf5", "r") as f:
+            fisher = f["fisher"][:]
+            errors = f["errors"][:]
+            bandtype = f.attrs["bandtype"]
+        for name, arr in (("KL evals", ev_file), ("DoubleKL evals", dk_ev),
+                          ("DoubleKL f_evals", dk_fev), ("svd spectrum", bt.svd_all()),
+                          ("Fisher", fisher), ("errors", errors)):
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"{tag}: {name} not finite")
+        if ev_file.shape != (nm, n) or fisher.shape != (NBANDS, NBANDS):
+            raise AssertionError(f"{tag}: shapes {ev_file.shape} {fisher.shape}")
+        fscale = np.abs(fisher).max()
+        if not (np.abs(fisher - fisher.T).max() <= 1e-10 * fscale and (np.diag(fisher) > 0).all()):
+            raise AssertionError(f"{tag}: Fisher not symmetric with a positive diagonal: {fisher}")
+        nkl = []
+        for mi in range(nm):
+            with store.File(kl._evfile % mi, "r") as f:
+                nkl.append(int(f.attrs["num_modes"]))
+                if int(f.attrs["m"]) != mi:
+                    raise AssertionError(f"{tag}: ev file of m {mi} holds m {f.attrs['m']}")
+        log(
+            f"[{tag}] bandtype {bandtype!r}  KL modes >= {PS_THRESHOLD:g}: {sum(nkl)} "
+            f"(largest per m {max(nkl)})  top ev {ev_file.max():.6e}  DoubleKL kept "
+            f"{int((dk_ev > 0).sum())} modes (top S/F {dk_fev.max():.6e})  fisher diag "
+            f"{np.diag(fisher).tolist()}  errors {errors.tolist()}"
+        )
+
+        # PSExact's Fisher from the files against the fused resident Fisher
+        f_res = np.asarray(slice_run["fisher"]).real
+        f_err = float(np.abs(fisher - f_res).max() / np.abs(f_res).max())
+        log(f"[{tag}] Fisher, files vs resident path: rel {f_err:.3e} of max|F| (tol 3e-2)")
+        if not f_err <= 3e-2:
+            raise AssertionError(f"{tag}: file Fisher vs resident Fisher {f_err:.3e} > 3e-2")
+
+        # the file spectra against the resident path's (which solves the
+        # pencil without the foreground regulariser): printed, not gated
+        ev_res = np.sort(np.asarray(slice_run["evals"]), axis=1)
+        kept = ev_file > PS_THRESHOLD
+        top = np.maximum(ev_file.max(axis=1, keepdims=True), 1e-30)
+        rel = np.abs(ev_file - ev_res[:, -n:]) / top
+        log(
+            f"[{tag}] retained KL spectra, files vs resident path: max "
+            f"{float(rel[kept].max()) if kept.any() else 0.0:.3e} of each m's top"
+        )
+
+        # KL spectra of the first and last m against the CPU run of the
+        # same pencil on the same SVD beams
+        ls, lf = kl._cl_factors()
+        for name, lo, hi in (("first", 0, min(CPU_CHECK_M, nm)),
+                             ("last", max(nm - CPU_CHECK_M, 0), nm)):
+            bsvd, idx_list = kl._load_bsvd_batch(list(range(lo, hi)))
+            t = time.time()
+            ev_c, _ = projections.kl_factored_batched(
+                bsvd.cpu(), ls.cpu(), lf.cpu(), nc=1.0,
+                fg_reg_rel=kl._foreground_regulariser,
+            )
+            t_cpu = time.time() - t
+            ev_c = ev_c.numpy()
+            err = 0.0
+            for i, idx in enumerate(idx_list):
+                ndof = len(idx)
+                if ndof:
+                    a, b = ev_file[lo + i][n - ndof:], ev_c[i][n - ndof:]
+                    err = max(err, float(np.abs(a - b).max() / max(b.max(), 1e-30)))
+            log(
+                f"[{tag}] cpu check {name} m {lo}..{hi - 1} (cpu {t_cpu:.2f} s): max "
+                f"|ev_file - ev_cpu| / ev_top {err:.3e} (tol 1e-4)"
+            )
+            if not err <= 1e-4:
+                raise AssertionError(f"{tag} {name}: KL spectra card vs cpu {err:.3e} > 1e-4")
+
+        # a second generate() on the same directory skips every stage
+        stamp = {f: os.path.getmtime(f) for f in files if "svdspectrum" not in f}
+        backend.reset_launch_counts()
+        t = time.time()
+        m2 = manager.ProductManager().apply_config(conf)
+        m2.generate()
+        torch.cuda.synchronize()
+        t_again = time.time() - t
+        again = launch_counts()
+        touched = [f for f, at in stamp.items() if os.path.getmtime(f) != at]
+        log(f"[{tag}] second generate(): {t_again:.2f} s, launches {sum(again.values())}, "
+            f"files rewritten {len(touched)}")
+        if any(again.values()) or touched:
+            raise AssertionError(f"{tag}: the second generate() did not skip: {again} {touched[:4]}")
+
+        # one m through the dense per-m transform (the sandwich's sky form,
+        # then the whitened dense eigensolve): the card against the same
+        # transform on the CPU from the same files, and against the m's
+        # factored spectrum, on the retained band.  The dense noise
+        # covariance has a condition number of ~3e11 at this telescope, so
+        # its whitened spectrum is defined to ~cond * eps = 7e-5 of the top
+        # eigenvalue whatever computes it: both gates are 1e-3, and the
+        # figures are printed beside the KL tier's 1e-4.
+        mi = int(np.argmax(nkl))
+        with store.File(kl._evfile % mi, "r") as f:
+            ev_fact = f["evals_full"][:]
+        backend.reset_launch_counts()
+        t = time.time()
+        kl.transform_save(mi)
+        t_dense = time.time() - t
+        dense_launches = launch_counts()["k15a_sandwich"]
+        with store.File(kl._evfile % mi, "r") as f:
+            ev_dense = f["evals_full"][:]
+            n_dense = int(f.attrs["num_modes"])
+        kl_cpu = manager.ProductManager(device="cpu").apply_config(conf).kltransforms["kl"]
+        ev_dense_cpu = kl_cpu._transform_m(mi)[0]
+        band = (ev_fact > PS_THRESHOLD) | (ev_dense > PS_THRESHOLD)
+        c_err = float(np.abs(ev_dense - ev_dense_cpu)[band].max() / ev_dense_cpu.max())
+        d_err = float(np.abs(ev_fact - ev_dense)[band].max() / ev_dense.max())
+        log(
+            f"[{tag}] dense path, m {mi} ({t_dense:.2f} s, {dense_launches} sandwich "
+            f"launches): {n_dense} modes retained (factored {nkl[mi]}), retained band "
+            f"|ev_card - ev_cpu| / ev_top {c_err:.3e}, |ev_dense - ev_factored| / "
+            f"ev_top {d_err:.3e} (tol 1e-3 each; KL tier 1e-4)"
+        )
+        if not (c_err <= 1e-3 and dense_launches > 0):
+            raise AssertionError(f"{tag}: dense path m {mi}, card vs cpu {c_err:.3e} > 1e-3")
+        if not (d_err <= 1e-3 and abs(n_dense - nkl[mi]) <= 1):
+            raise AssertionError(
+                f"{tag}: dense path m {mi} vs factored: {d_err:.3e}, {n_dense} vs {nkl[mi]} modes"
+            )
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    return launches, nkl
+
+
+def products_kernels(tel, nkl):
+    """K15a (band form) and K15b again at the sizes the products run gave
+    them: its largest and its median count of retained KL modes per m."""
+    sizes = sorted(k for k in nkl if k)
+    log(f"[products] {len(sizes)} m with retained modes; nkl {sizes}")
+    rng = np.random.default_rng(SEED + 2)
+    recs = {}
+    for k in (sizes[-1], sizes[len(sizes) // 2]):
+        a = sandwich_band_compare(tel, k, rng, tag="products kernels")
+        b = trace_compare(k, rng, tag="products kernels")
+        recs.setdefault("k15a_sandwich", a)
+        recs.setdefault("k15b_fisher_trace", b)
+    return recs
+
+
 def probe_phase():
     """The two Pallas probes' ports: one run of each (counted), then each
     against its plain version, with Tflop/s for the matmul."""
@@ -625,12 +1001,50 @@ def probe_phase():
     return launches, res
 
 
+PROFILED = "chip_smoke profiled window"
+
+
+def device_busy(prof, wall):
+    """(seconds the device was busy, device operations) inside the
+    ``record_function(PROFILED)`` span of a finished torch.profiler run:
+    the union of its kernel and copy intervals, clipped to that span.
+    ``wall`` is the host's time for the same span; a busy time above it
+    means the trace is not to be trusted, and raises."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    marks = [
+        e for e in events
+        if e.get("name") == PROFILED and "dur" in e and "gpu" not in str(e.get("cat", ""))
+    ]
+    if not marks:
+        raise AssertionError("profile: the profiled window is not in the trace")
+    mark = max(marks, key=lambda e: e["dur"])
+    lo, hi = mark["ts"], mark["ts"] + mark["dur"]
+    spans = sorted(
+        (max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in events
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+        and e["ts"] < hi and e["ts"] + e["dur"] > lo
+    )
+    busy, end = 0.0, lo
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy *= 1e-6
+    if not busy <= wall:
+        raise AssertionError(f"profile: device busy {busy:.4f} s exceeds the wall {wall:.4f} s")
+    return busy, len(spans)
+
+
 def profile_paths(tels):
     """torch.profiler over one pass of each product path's two phases: the
     device busy time (union of kernel and copy intervals), the idle share
     of the wall, and the largest kernels by device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from driftscan_tpu_torch.parallel import mstep, resident
 
@@ -656,31 +1070,49 @@ def profile_paths(tels):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t = time.time()
-                fn()
-                torch.cuda.synchronize()
+                with record_function(PROFILED):
+                    fn()
+                    torch.cuda.synchronize()
                 wall = time.time() - t
-            with tempfile.TemporaryDirectory() as tmp:
-                path = os.path.join(tmp, "trace.json")
-                prof.export_chrome_trace(path)
-                with open(path) as f:
-                    events = json.load(f)["traceEvents"]
-            spans = sorted(
-                (e["ts"], e["ts"] + e["dur"]) for e in events
-                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
-            )
-            busy, end = 0.0, -1.0
-            for s, e in spans:
-                if e > end:
-                    busy += e - max(s, end)
-                    end = e
-            busy_s = busy * 1e-6
+            busy_s, nops = device_busy(prof, wall)
             log(
                 f"[profile] {tag} {phase}: wall {wall:.4f} s, device busy {busy_s:.4f} s, "
-                f"idle share {1.0 - busy_s / wall:.4f}, {len(spans)} device ops"
+                f"idle share {1.0 - busy_s / wall:.4f}, {nops} device ops"
             )
             table = prof.key_averages().table(sort_by="device_time_total", row_limit=12)
             for line in table.splitlines():
                 log(f"[profile]   {line}")
+
+
+def profile_products():
+    """torch.profiler over one whole ``generate()`` of the file pipeline in
+    a fresh directory: wall, device busy time, idle share, largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from driftscan_tpu_torch.core import manager
+
+    outdir = tempfile.mkdtemp(prefix="driftscan_products_")
+    try:
+        m = manager.ProductManager().apply_config(products_config(outdir))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            with record_function(PROFILED):
+                m.generate()
+                torch.cuda.synchronize()
+            wall = time.time() - t
+        busy_s, nops = device_busy(prof, wall)
+        stages = "  ".join(f"{k} {v:.3f} s" for k, v in m.timings.items())
+        log(
+            f"[profile] products generate(): wall {wall:.4f} s (profiled), device busy "
+            f"{busy_s:.4f} s, idle share {1.0 - busy_s / wall:.4f}, {nops} device ops; {stages}"
+        )
+        table = prof.key_averages().table(sort_by="device_time_total", row_limit=14)
+        for line in table.splitlines():
+            log(f"[profile]   {line}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
 
 
 def main():
@@ -709,18 +1141,26 @@ def main():
     perf = kernel_phases(tel, ptel)
     counted = {}
     for tag, t_, ps in (("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD)):
-        launches, required, k13_rec = path_phase(tag, t_, ps)
+        launches, required, k13_rec, run = path_phase(tag, t_, ps)
         for name in required:
             counted[name] = counted.get(name, 0) + launches[name]
         if tag == "slice":
             # the unpolarised leg's K13 at the largest k its path launched
             perf["k13_fisher_cov"] = k13_rec
+            slice_run = run
+    launches, nkl = products_phase(slice_run)
+    for name, count in launches.items():
+        if count:
+            counted[name] = counted.get(name, 0) + count
+    # the sandwich and the trace at the largest nkl of the products run
+    perf.update(products_kernels(tel, nkl))
     launches, probe_perf = probe_phase()
     perf.update(probe_perf)
     for name in PROBE_KERNELS:
         counted[name] = launches[name]
     if "--profile" in sys.argv[1:]:
         profile_paths((("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD)))
+        profile_products()
 
     missing = [k.name for k in backend.KERNELS.values() if k.name not in counted]
     if missing:

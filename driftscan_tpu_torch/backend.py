@@ -177,6 +177,11 @@ def _sm_count(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` names."""
+    return _sm_count(torch.device(device).index)
+
+
 def gram_launch(n: int, ncols: int, nbatch: int, like: torch.Tensor):
     """(part, (part pointer, part bytes, nsplit, cps)) for a Gram kernel's
     C entry point: the split of :func:`gram_split` on ``like``'s card and
@@ -245,11 +250,38 @@ def build(source: str) -> str:
     return out
 
 
+def build_host(source: str, extra_flags=()) -> str | None:
+    """Compile one host ``csrc/*.cpp`` codec into a shared library with the
+    host C++ compiler; return its path, or None when no compiler is found
+    or the compile fails (the callers then use their numpy / LZF codecs).
+    Same content-hashed naming as :func:`build`."""
+    src = os.path.join(_CSRC_DIR, source)
+    flags = ["-O3", "-fPIC", "-shared", "-std=c++17", *extra_flags]
+    h = hashlib.sha256(" ".join(flags).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [cxx, *flags[:4], "-o", tmp, src, *flags[4:]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        return None
+    os.replace(tmp, out)
+    return out
+
+
 def build_all() -> dict:
     """Build every registered CUDA kernel, one ``nvcc`` per source, all
     started together; returns {source: ptxas report}."""
     # importing the kernel modules registers every kernel
-    from .ops import fpencil, kernels, probe, sht  # noqa: F401
+    from .ops import fpencil, kernels, probe, projections, sht  # noqa: F401
     from .parallel import mstep  # noqa: F401
 
     cuda = [k for k in KERNELS.values() if k.route == "cuda"]

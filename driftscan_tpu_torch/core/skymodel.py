@@ -290,7 +290,34 @@ class Corr21cm:
         return pref[None] * integral
 
 
+class EoR21cm(Corr21cm):
+    """Epoch-of-reionisation variant: boosted amplitude at high z.
+
+    A lightweight stand-in for ``cora.signal.corr21cm.EoR21cm``: the mean
+    temperature is scaled by the neutral fraction (taken to be 1 during
+    the EoR) with the same correlation structure.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        cos = self.cosmo
+        # During reionisation Omega_HI ~ Omega_b x_HI: boost the amplitude.
+        self.cosmo = _cosmo.Cosmology(
+            H0=cos.H0,
+            omega_m=cos.omega_m,
+            omega_b=cos.omega_b,
+            n_s=cos.n_s,
+            sigma8=cos.sigma8,
+            T_cmb=cos.T_cmb,
+            omega_HI=cos.omega_b,
+        )
+
+
 _cr = None
+
+# Set by the product manager (``config: reionisation: Yes``): the default
+# signal model is then the EoR one.
+_reionisation = False
 
 
 def im21cm_model(lmax, frequencies, npol, cr=None, temponly=False):
@@ -303,7 +330,7 @@ def im21cm_model(lmax, frequencies, npol, cr=None, temponly=False):
 
     if not cr:
         if not _cr:
-            _cr = Corr21cm()
+            _cr = EoR21cm() if _reionisation else Corr21cm()
         cr = _cr
 
     cv_t = clarray(cr.angular_powerspectrum, lmax, frequencies)

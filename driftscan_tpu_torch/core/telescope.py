@@ -194,12 +194,47 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
     # Run the beam-map + SHT path in complex64 (float32 pixel grid).
     single_precision = config.Property(proptype=bool, default=False)
 
+    # Frequency channels and baselines left out of the product files.
+    skip_freq = config.Property(proptype=lambda v: [int(i) for i in v], default=list)
+    skip_baselines = config.Property(proptype=lambda v: [int(i) for i in v], default=list)
+
     # Tolerance (decimal places) when comparing baselines for equivalence.
     _bl_tol = 6
+
+    # private attributes that a pickle keeps: the rest (pixel grid, beam
+    # bank, baseline tables) are device tensors or caches rebuilt on demand
+    _pickle_keys = ("_frequencies",)
 
     def __init__(self, latitude=45, longitude=0, device="cuda", **kwargs):
         Observer.__init__(self, longitude, latitude, **kwargs)
         self.device = torch.device(device)
+
+    def __getstate__(self):
+        """The configuration alone: device tensors and caches are dropped,
+        and the device is kept by name."""
+        state = {
+            k: v
+            for k, v in self.__dict__.items()
+            if k in self._pickle_keys or not k.startswith("_")
+        }
+        state["device"] = str(self.device)
+        return state
+
+    def __setstate__(self, state):
+        """Restore the configuration and the name of the pickled device.
+        The state holds no tensor, so a pickle written on the card opens
+        on any host; nothing moves to another device unless the caller
+        asks with :meth:`to`."""
+        self.__dict__.update(state)
+        self.device = torch.device(state.get("device", "cpu"))
+
+    def to(self, device):
+        """Move the telescope to ``device``: its device caches are dropped
+        and rebuilt there on demand.  Returns self."""
+        for key in ("_beam_bank", "_nside", "_angpos_cart", "_horizon"):
+            self.__dict__.pop(key, None)
+        self.device = torch.device(device)
+        return self
 
     # ======================= location =========================
 
@@ -237,6 +272,26 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
     @property
     def npairs(self):
         return self.uniquepairs.shape[0]
+
+    @property
+    def nbase(self):
+        return self.npairs
+
+    @property
+    def included_freq(self) -> np.ndarray:
+        return np.array(
+            [i for i in range(self.nfreq) if i not in self.skip_freq], dtype=int
+        )
+
+    @property
+    def included_baseline(self) -> np.ndarray:
+        return np.array(
+            [i for i in range(self.nbase) if i not in self.skip_baselines], dtype=int
+        )
+
+    @property
+    def included_pol(self) -> np.ndarray:
+        return np.arange(self.num_pol_sky)
 
     @property
     def uniquepairs(self):

@@ -15,7 +15,10 @@ covariances:
   [A_f^H; I]; its triangular factor R comes from shifted CholeskyQR
   (:func:`chol_qr_r`), and the pencil eigenvalues are the squared
   singular values of R^-H A_s, resolved by Gram deflation levels
-  (:func:`gram_bands`).
+  (:func:`gram_bands`);
+* the two-stage DoubleKL pencil (:func:`doublekl_solve_qr`) composes the
+  same pieces: a foreground stage with the thermal noise suppressed, then
+  the thermal pencil on the modes that stage keeps.
 
 Every function is batched over leading axes: a Python loop or a batch
 dimension takes the place of the JAX package's ``vmap``/``scan``.
@@ -440,12 +443,47 @@ def pencil_solve_qr(
     return KLResult(evals.flip(-1), v.flip(-1))
 
 
-def _thermal_noise_rows(a_fg: torch.Tensor, nc: float) -> torch.Tensor:
-    """Noise factor rows [A_f^H; sqrt(nc) I] for N = nc*I + A_f A_f^H."""
+def _thermal_noise_rows(a_fg: torch.Tensor, nc) -> torch.Tensor:
+    """Noise factor rows [A_f^H; sqrt(nc) I] for N = nc*I + A_f A_f^H;
+    ``nc`` a float or a tensor over the batch axes."""
     n = a_fg.shape[-2]
-    eye = (nc**0.5) * torch.eye(n, dtype=a_fg.dtype, device=a_fg.device)
+    eye = torch.eye(n, dtype=a_fg.dtype, device=a_fg.device)
     afh = a_fg.conj().transpose(-1, -2)
+    if isinstance(nc, torch.Tensor):
+        eye = torch.sqrt(nc)[..., None, None].to(a_fg.dtype) * eye
+    else:
+        eye = (nc**0.5) * eye
     return torch.cat([afh, eye.expand(afh.shape[:-2] + (n, n))], dim=-2)
+
+
+_START_VECTORS: dict = {}
+
+
+def _start_vector(n: int, like: torch.Tensor) -> torch.Tensor:
+    """The fixed unit start vector (n, 1) of the power iteration (numpy
+    seed 97531, as the JAX package draws it)."""
+    if n not in _START_VECTORS:
+        q, _ = np.linalg.qr(np.random.default_rng(97531).standard_normal((n, 1)))
+        _START_VECTORS[n] = np.ascontiguousarray(q)
+    return torch.as_tensor(_START_VECTORS[n], device=like.device).to(like.dtype)
+
+
+def _spectral_norm_sq(a: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """lambda_max(A A^H) by power iteration from a fixed start, batched
+    over leading axes: (...,) real."""
+    v = _start_vector(a.shape[-2], a).expand(a.shape[:-2] + (a.shape[-2], 1))
+    lam = None
+    for _ in range(iters):
+        v = a @ (a.conj().transpose(-1, -2) @ v)
+        lam = torch.linalg.vector_norm(v, dim=(-2, -1))
+        v = v / (lam + 1e-30)[..., None, None].to(v.dtype)
+    return lam
+
+
+def _max_row_norm_sq(a_fg: torch.Tensor) -> torch.Tensor:
+    """The largest diagonal entry of F = A_f A_f^H (for PSD F its largest
+    entry), per batch item."""
+    return (a_fg.real**2 + a_fg.imag**2).sum(-1).amax(-1)
 
 
 def kl_solve_qr(
@@ -453,10 +491,26 @@ def kl_solve_qr(
     a_fg: torch.Tensor,
     sig_levels: int = 2,
     band_rel: float = 3e-2,
+    with_thermal: bool = True,
+    fg_floor: float = 1e-6,
+    fg_reg_rel: float = 0.0,
 ) -> KLResult:
-    """Solve S v = w (I + F) v by factor-side QR whitening."""
+    """Solve S v = w (nc I + F) v by factor-side QR whitening.
+
+    With thermal noise nc = 1 (the beams are noise-prewhitened); without
+    (DoubleKL stage 1), nc = ``fg_floor`` * lambda_max(F).  ``fg_reg_rel``
+    adds driftscan's foreground regulariser, fg_reg_rel * max|F_ij|, an
+    identity shift that folds into the noise scale.  The defaults give the
+    plain thermal pencil S v = w (I + F) v.
+    """
+    if with_thermal:
+        nc = 1.0
+    else:
+        nc = fg_floor * _spectral_norm_sq(a_fg) + 1e-30
+    if fg_reg_rel:
+        nc = nc + fg_reg_rel * _max_row_norm_sq(a_fg)
     return pencil_solve_qr(
-        a_signal, _thermal_noise_rows(a_fg, 1.0), sig_levels=sig_levels,
+        a_signal, _thermal_noise_rows(a_fg, nc), sig_levels=sig_levels,
         band_rel=band_rel,
     )
 
@@ -467,10 +521,14 @@ def kl_solve(
     sig_levels: int | None = None,
     band_rel: float | None = None,
     method: str = "qr",
+    with_thermal: bool = True,
+    fg_floor: float = 1e-6,
+    fg_reg_rel: float = 0.0,
 ) -> KLResult:
-    """Solve S v = w (I + A_f A_f^H) v; the ``qr`` engine only.
+    """Solve S v = w ([I +] A_f A_f^H) v; the ``qr`` engine only.
 
-    Defaults follow the JAX package: 2 signal levels at band_rel 3e-2.
+    Defaults follow the JAX package: 2 signal levels at band_rel 3e-2,
+    thermal noise on, no regulariser.
     """
     if method != "qr":
         raise NotImplementedError(
@@ -482,4 +540,75 @@ def kl_solve(
         a_fg,
         sig_levels=2 if sig_levels is None else sig_levels,
         band_rel=3e-2 if band_rel is None else band_rel,
+        with_thermal=with_thermal,
+        fg_floor=fg_floor,
+        fg_reg_rel=fg_reg_rel,
     )
+
+
+# ------------------------------------------------------------------
+# The two-stage (DoubleKL) pencil
+# ------------------------------------------------------------------
+
+
+def _doublekl_stage1_floor(a_fg, nc1, fg_floor, fg_reg_rel):
+    """Stage-1 identity floor: the suppressed radiometer noise ``nc1``
+    where the caller knows it (else a relative foreground floor), plus
+    the relative foreground regulariser fg_reg_rel * max|F_ij|."""
+    if nc1 is None:
+        nc1 = fg_floor * _spectral_norm_sq(a_fg) + 1e-30
+    return nc1 + fg_reg_rel * _max_row_norm_sq(a_fg)
+
+
+def _doublekl_stage2_rows(a_signal, a_fg, p):
+    """Stage-2 pencil factors on the kept subspace: (p^H A_s, noise rows
+    [A_f^H p; p; delta I]).  The kept-mode diagonal of N' is >= 1 (stage-1
+    noise normalisation), so delta = 1e-4 keeps dropped columns
+    nonsingular at ~1e-8 relative effect on genuine eigenvalues."""
+    n = p.shape[-1]
+    ph = p.conj().transpose(-1, -2)
+    bs = ph @ a_signal
+    fp = a_fg.conj().transpose(-1, -2) @ p  # (K, n)
+    delta = 1e-4 * torch.eye(n, dtype=p.dtype, device=p.device)
+    return bs, torch.cat([fp, p, delta.expand(p.shape[:-2] + (n, n))], dim=-2)
+
+
+def doublekl_solve_qr(
+    a_signal: torch.Tensor,
+    a_fg: torch.Tensor,
+    fg_threshold: float = 100.0,
+    fg_floor: float = 1e-6,
+    nc1: float | None = None,
+    fg_reg_rel: float = 1e-14,
+    sig_levels: int = 2,
+    band_rel: float = 3e-2,
+):
+    """Two-stage (DoubleKL) pencil on factors, batched over leading axes.
+
+    Stage 1 solves S v = w (F + nc1 I) v (thermal noise suppressed to
+    ``nc1``, or a relative floor when nc1 is None); modes with w <=
+    ``fg_threshold`` are mask-dropped (columns zeroed, shapes kept).
+    Stage 2 solves the thermal pencil on the kept subspace: signal factor
+    p^H A_s, noise rows [A_f^H p; p; delta I]; dropped columns emerge
+    with eigenvalue 0 and zero vectors, below any genuine mode.
+
+    Returns (f_evals (..., n) ascending stage-1 spectrum, evals (..., n)
+    ascending stage-2 spectrum with dropped modes 0, evecs (..., n, n)
+    final mode columns in the original basis, nkept (...,) int32).
+    """
+    floor = _doublekl_stage1_floor(a_fg, nc1, fg_floor, fg_reg_rel)
+    kl1 = pencil_solve_qr(
+        a_signal, _thermal_noise_rows(a_fg, floor), sig_levels=sig_levels,
+        band_rel=band_rel,
+    )
+    f_evals = kl1.evals
+    keep = f_evals > fg_threshold
+    p = kl1.evecs * keep[..., None, :].to(kl1.evecs.dtype)
+
+    bs, gr = _doublekl_stage2_rows(a_signal, a_fg, p)
+    kl2 = pencil_solve_qr(bs, gr, sig_levels=sig_levels, band_rel=band_rel)
+
+    v = p @ kl2.evecs
+    vnorm = (v.real**2 + v.imag**2).sum(-2)
+    evals2 = kl2.evals * (vnorm > 1e-12).to(kl2.evals.dtype)
+    return f_evals, evals2, v, keep.sum(-1).to(torch.int32)

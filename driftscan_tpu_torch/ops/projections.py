@@ -1,0 +1,453 @@
+"""Projection programs of the product pipeline.
+
+Port of ``driftscan_tpu/ops/projections.py``: the contractions behind
+BeamTransfer's projection API, the KL covariance builds and PSExact's
+Fisher matrix.  Every function takes tensors (or arrays, which go to
+``device``) and returns tensors that stay on their device until a file
+needs them; there is one native-complex path.
+
+Two of the programs are hand-written kernels:
+
+* :func:`sandwich` (K15a, CUDA C++): out = sum_l X_l C_l Y_l^H per batch
+  item, behind :func:`band_covariance_projection` and
+  :func:`sky_covariance_projection` / :func:`sky_covariance_projection_m`;
+* :func:`fisher_trace` (K15b, Triton): F_ab = sum_ij w_i w_j C_a[i,j]
+  C_b[j,i], behind :func:`fisher_trace_block` and ``mstep.fisher_step``.
+
+Each has a plain PyTorch version (``*_ref``) that the wrapper takes for
+CPU tensors only.  The rest are library compositions (a scaled batched
+matmul, ``torch.linalg``) or compositions of the factored-pencil pieces
+of ops.fpencil.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import backend
+from . import fpencil, linalg
+
+K15A = backend.register(
+    "k15a_sandwich",
+    "cuda",
+    "driftscan_tpu_torch/csrc/sandwich.cu",
+    "driftscan_tpu/ops/projections.py:302",
+)
+
+K15B = backend.register(
+    "k15b_fisher_trace",
+    "triton",
+    "driftscan_tpu_torch/csrc/fisher_trace.py",
+    "driftscan_tpu/ops/projections.py:352",
+)
+
+_TOPBAND = (
+    "the top-band KL engine is not ported yet: ROADMAP.md, modules to port, "
+    "item 10 (opt-in engines)"
+)
+
+
+def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
+    """``x`` as a tensor: a tensor stays on its device unless ``device`` is
+    given; an array goes to ``device`` (the card when None)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype) if (device or dtype) else x
+    return torch.as_tensor(
+        np.asarray(x), dtype=dtype, device="cuda" if device is None else device
+    )
+
+
+def products_from_numpy(device, dtype=torch.complex128, **arrays):
+    """Host arrays as the JAX package holds them (``beam_svd`` (F, S, npol,
+    nl), ``beam_ut``, KL ``evals`` / ``evecs``, ``clarray``, ...) as the
+    port's tensors on ``device``: complex arrays in ``dtype``, real ones in
+    its real precision.  Returns a dict with the same keys."""
+    rdt = backend.real_dtype(dtype)
+    out = {}
+    for name, arr in arrays.items():
+        arr = np.asarray(arr)
+        want = dtype if np.iscomplexobj(arr) else (rdt if arr.dtype.kind == "f" else None)
+        out[name] = torch.as_tensor(arr, dtype=want, device=device)
+    return out
+
+
+# ------------------------------------------------------------------
+# K15a: the projection sandwich
+# ------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _default_index(nb: int, size: int, device: torch.device) -> torch.Tensor:
+    """The index of an operand given without one: the identity for a batch
+    of nb, all zeros for a batch of one (kept per device: the per-m callers
+    ask for the same few again and again)."""
+    if size not in (1, nb):
+        raise ValueError(f"operand batch of {size} does not broadcast to {nb}")
+    i = torch.arange(nb, dtype=torch.int32) if size == nb else torch.zeros(nb, dtype=torch.int32)
+    return i.to(device)
+
+
+def _sandwich_indices(x, y, c, ix, iy, ic):
+    """The three (B,) int32 operand indices on the operands' device; given
+    ones are range-checked on the host."""
+    nb = max(x.shape[0], y.shape[0], c.shape[0]) if ix is None else len(ix)
+
+    def idx(name, i, size):
+        if i is None:
+            return _default_index(nb, size, x.device)
+        i = torch.as_tensor(i).cpu()
+        if i.shape != (nb,):
+            raise ValueError(f"{name}: shape {tuple(i.shape)}, expected ({nb},)")
+        if nb and not (0 <= int(i.min()) and int(i.max()) < size):
+            raise ValueError(f"{name} out of range for a batch of {size}")
+        return i.to(device=x.device, dtype=torch.int32).contiguous()
+
+    return idx("ix", ix, x.shape[0]), idx("iy", iy, y.shape[0]), idx("ic", ic, c.shape[0])
+
+
+def sandwich_ref(x, y, c, ix=None, iy=None, ic=None):
+    """Plain PyTorch version of :func:`sandwich` (two contractions)."""
+    c = c.to(backend.real_dtype(x.dtype))
+    ix, iy, ic = _sandwich_indices(x, y, c, ix, iy, ic)
+    t = torch.einsum("bicl,blcd->bidl", x[ix.long()], c[ic.long()].to(x.dtype))
+    return torch.einsum("bidl,bjdl->bij", t, y[iy.long()].conj())
+
+
+SANDWICH_TILE = 64  # output tile edge of csrc/sandwich.cu
+SANDWICH_KC = 16  # l per chunk there
+
+
+def sandwich_split(nb: int, n: int, m: int, cd: int, nl: int, sms: int) -> tuple[int, int]:
+    """(nsplit, chunks per split) of one sandwich launch: the kernel's
+    cd * ceil(nl / 16) chunks are shared among nsplit blocks per output
+    tile so that a launch has about two blocks per SM (the KL bases of the
+    product files give few tiles), with at least 4 chunks a block."""
+    tiles = nb * -(-n // SANDWICH_TILE) * -(-m // SANDWICH_TILE)
+    nch = cd * -(-nl // SANDWICH_KC)
+    nsplit = max(1, min(2 * sms // max(tiles, 1), nch // 4, 65535 // max(nb, 1)))
+    cps = -(-nch // nsplit)
+    return -(-nch // cps), cps
+
+
+def sandwich(x, y, c, ix=None, iy=None, ic=None):
+    """out[b] = sum_l X_b[:, :, l] C_b[l] Y_b[:, :, l]^H (K15a).
+
+    x (Nx, n, Cc, nl) and y (Ny, m, Cd, nl) complex64 or complex128,
+    c (Nc, nl, Cc, Cd) real; batch item b takes x[ix[b]], y[iy[b]] and
+    c[ic[b]] (an index left None is the identity, or all zeros for a batch
+    of one).  Returns (B, n, m) complex: out[b, i, j] = sum_{l, c, d}
+    x[i, c, l] C[l, c, d] conj(y[j, d, l]).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel.
+    """
+    c = c.to(backend.real_dtype(x.dtype))
+    if not backend.on_cuda(x, y, c):
+        return sandwich_ref(x, y, c, ix, iy, ic)
+    _, n, cc, nl = x.shape
+    _, m, cd, _ = y.shape
+    backend.require(x, "x", dtype=(torch.complex64, torch.complex128), ndim=4)
+    backend.require(y, "y", dtype=x.dtype, shape=(y.shape[0], m, cd, nl))
+    if c.dim() != 4 or tuple(c.shape[1:]) != (nl, cc, cd):
+        raise ValueError(f"c: shape {tuple(c.shape)}, expected (Nc, {nl}, {cc}, {cd})")
+    ix, iy, ic = _sandwich_indices(x, y, c, ix, iy, ic)
+    nb = len(ix)
+    if nb > 65535:
+        raise ValueError(f"sandwich batch {nb} exceeds the launch grid's 65535")
+    # every operand contiguous along l: C as (Nc, Cd, Cc, nl)
+    ct = c.permute(0, 3, 2, 1).contiguous()
+    out = torch.empty((nb, n, m), dtype=x.dtype, device=x.device)
+    nsplit, cps = sandwich_split(nb, n, m, cd, nl, backend.sm_count(x.device))
+    part = None
+    if nsplit > 1:
+        part = torch.empty((nsplit, nb, n, m), dtype=x.dtype, device=x.device)
+    fn = K15A.entry(
+        "sandwich_c64" if x.dtype == torch.complex64 else "sandwich_c128",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    )
+    backend.check(
+        fn(
+            x.data_ptr(), y.data_ptr(), ct.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            ix.data_ptr(), iy.data_ptr(), ic.data_ptr(),
+            nb, n, m, cc, cd, nl, nsplit, cps, backend.stream_ptr(x.device),
+        ),
+        K15A.name,
+    )
+    K15A.launches += 1
+    return out
+
+
+def band_covariance_projection(g, clarray, device=None):
+    """Project every band's angular power spectrum into the KL basis.
+
+    g (nkl, F, nl) complex: the KL modes rotated to the temperature sky
+    basis at one m; clarray (nbands, nl, F, F) real band spectra.  Returns
+    (nbands, nkl, nkl): proj[b, k, q] = sum_{l, f, h} g[k, f, l]
+    C_b[l, f, h] conj(g[q, h, l]).
+    """
+    g = as_tensor(g, device)
+    clarray = as_tensor(clarray, g.device)
+    gb = g.contiguous()[None]
+    return sandwich(gb, gb, clarray)
+
+
+def _sky_cl(cl, like):
+    """(P, Q, nl, F, G) -> (F*G, nl, P, Q) real blocks, one per (f, g)."""
+    cl = as_tensor(cl, like.device).to(backend.real_dtype(like.dtype))
+    p, q, nl, f, g = cl.shape
+    return cl.permute(3, 4, 2, 0, 1).reshape(f * g, nl, p, q), f
+
+
+def sky_covariance_projection(beam4, cl, device=None):
+    """matf[f, a, g, b] = sum_{p, q, l} B[f, a, p, l] C[p, q, l, f, g]
+    conj(B[g, b, q, l]); beam4 (F, A, P, nl) complex, cl real."""
+    beam4 = as_tensor(beam4, device).contiguous()
+    c, nf = _sky_cl(cl, beam4)
+    fi = torch.arange(nf).repeat_interleave(nf)
+    gi = torch.arange(nf).repeat(nf)
+    out = sandwich(beam4, beam4, c, ix=fi, iy=gi, ic=torch.arange(nf * nf))
+    na = beam4.shape[1]
+    return out.reshape(nf, nf, na, na).permute(0, 2, 1, 3)
+
+
+def sky_covariance_projection_m(beam5, cl, device=None):
+    """m-batched sky covariance projection: (M, F, S, P, nl) -> (M, F, S, F, S)."""
+    beam5 = as_tensor(beam5, device).contiguous()
+    nm, nf, ns = beam5.shape[:3]
+    c, _ = _sky_cl(cl, beam5)
+    mi = torch.arange(nm).repeat_interleave(nf * nf)
+    fi = torch.arange(nf).repeat_interleave(nf).repeat(nm)
+    gi = torch.arange(nf).repeat(nf * nm)
+    out = sandwich(
+        beam5.reshape((nm * nf,) + tuple(beam5.shape[2:])),
+        beam5.reshape((nm * nf,) + tuple(beam5.shape[2:])),
+        c, ix=mi * nf + fi, iy=mi * nf + gi, ic=fi * nf + gi,
+    )
+    return out.reshape(nm, nf, nf, ns, ns).permute(0, 1, 3, 2, 4)
+
+
+# ------------------------------------------------------------------
+# K15b: the weighted Fisher trace
+# ------------------------------------------------------------------
+
+
+def fisher_trace_ref(ca, cb, w):
+    """Plain PyTorch version of :func:`fisher_trace`."""
+    w = w.to(torch.float64)
+    ww = w[..., :, None] * w[..., None, :]
+    d = ca.to(torch.complex128) * ww[..., None, :, :]
+    return torch.einsum("...aij,...bji->...ab", d, cb.to(torch.complex128))
+
+
+def fisher_trace(ca, cb, w):
+    """F[a, b] = sum_ij w_i w_j C_a[i, j] C_b[j, i] (K15b).
+
+    ca (na, k, k) and cb (nb, k, k) complex64 or complex128 stacks of
+    projected band covariances, w (k,) real weights; or all three with one
+    leading batch axis M.  Returns (na, nb) (or (M, na, nb)) complex128,
+    accumulated in float64 whatever the input type.
+
+    The second factor enters transposed, C_b[j, i], as in PSExact's trace
+    tr(W C_a W C_b).  For Hermitian C_b that equals conj(C_b[i, j]), the
+    form of the fused Fisher step, whose covariances K13 returns Hermitian
+    bit for bit.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel.
+    """
+    if not backend.on_cuda(ca, cb, w):
+        return fisher_trace_ref(ca, cb, w)
+    batched = ca.dim() == 4
+    if not batched:
+        ca, cb, w = ca[None], cb[None], w[None]
+    nm, na, k = ca.shape[0], ca.shape[1], ca.shape[-1]
+    nb = cb.shape[1]
+    backend.require(ca, "ca", dtype=(torch.complex64, torch.complex128), shape=(nm, na, k, k))
+    backend.require(cb, "cb", dtype=ca.dtype, shape=(nm, nb, k, k))
+    backend.require(w, "w", dtype=(torch.float32, torch.float64), shape=(nm, k))
+    if not (k > 0 and na > 0 and nb > 0 and nm > 0):
+        out = torch.zeros((nm, na, nb), dtype=torch.complex128, device=ca.device)
+    else:
+        # the kernel writes every entry
+        out = torch.empty((nm, na, nb), dtype=torch.complex128, device=ca.device)
+        from ..csrc import fisher_trace as kernel
+
+        kernel.launch(
+            torch.view_as_real(ca), torch.view_as_real(cb), w,
+            torch.view_as_real(out), nm, na, nb, k,
+        )
+        K15B.launches += 1
+    return out if batched else out[0]
+
+
+def fisher_trace_block(proj_a, proj_b, w, device=None):
+    """F[a, b] = sum_ij C_a[i, j] C_b[j, i] w_i w_j for two band chunks;
+    ``w`` the real inverse-covariance weights 1 / (1 + lambda).  Returns
+    (chunk_a, chunk_b) complex128."""
+    proj_a = as_tensor(proj_a, device)
+    proj_b = as_tensor(proj_b, proj_a.device)
+    w = as_tensor(w, proj_a.device).to(backend.real_dtype(proj_a.dtype))
+    return fisher_trace(proj_a.contiguous(), proj_b.contiguous(), w.contiguous())
+
+
+# ------------------------------------------------------------------
+# Library compositions
+# ------------------------------------------------------------------
+
+
+def diag_noise_projection(beam_ut, dmat, device=None):
+    """blocks[f, a, b] = sum_t U[f, a, t] d[f, t] conj(U[f, b, t]) (d real)."""
+    beam_ut = as_tensor(beam_ut, device)
+    dmat = as_tensor(dmat, beam_ut.device).to(beam_ut.dtype)
+    return (beam_ut * dmat[:, None, :]) @ beam_ut.mH
+
+
+def diag_noise_projection_m(beam_ut, dmat, device=None):
+    """m-batched diagonal noise projection: (M, F, S, T), (F, T) -> (M, F, S, S)."""
+    beam_ut = as_tensor(beam_ut, device)
+    dmat = as_tensor(dmat, beam_ut.device).to(beam_ut.dtype)
+    return (beam_ut * dmat[None, :, None, :]) @ beam_ut.mH
+
+
+def block_matvec(mats, vecs, device=None):
+    """Batched (block-diagonal) matrix @ vector: "fij,fj...->fi..."."""
+    mats = as_tensor(mats, device)
+    vecs = as_tensor(vecs, mats.device).to(mats.dtype)
+    flat = vecs.reshape(vecs.shape[0], vecs.shape[1], -1)
+    return (mats @ flat).reshape(mats.shape[:2] + tuple(vecs.shape[2:]))
+
+
+def block_pinv(mats, rcond: float = 1e-6, device=None):
+    """Batched pseudo-inverse of (possibly complex) blocks."""
+    return torch.linalg.pinv(as_tensor(mats, device), rtol=rcond)
+
+
+def triple_svd(bfm_w, npol: int, nl: int, polsvcut: float, device=None):
+    """Triple-SVD compression of a batch of noise-weighted beams (batch,
+    ntel, npol*nl) with the file pipeline's image cuts: (ut, beam, sig,
+    nmodes), see :func:`linalg.triple_svd_batched`."""
+    return linalg.triple_svd_batched(
+        as_tensor(bfm_w, device), npol=npol, nl=nl, polsvcut=polsvcut,
+        floor1=linalg.FILE_SVD1_FLOOR, floor3=linalg.FILE_SVD3_FLOOR,
+    )
+
+
+def _projected_factors(bsvd5, ls, lf, nc, compact):
+    """Signal and foreground factors of a beam batch, scaled by nc^-1/2."""
+    from ..parallel import mstep
+
+    scale = 1.0 / float(np.sqrt(nc))
+    n = bsvd5.shape[1] * bsvd5.shape[2]
+    ls_t = as_tensor(ls, bsvd5.device)
+    if compact and mstep.uses_compact_signal(n, ls_t.shape[0] * ls_t.shape[-1]):
+        a_s = fpencil.beam_factor_compact(bsvd5, ls_t)
+    else:
+        a_s = fpencil.beam_factor(bsvd5, ls_t)
+    a_f = fpencil.beam_factor(bsvd5, lf)
+    if scale != 1.0:
+        a_s, a_f = a_s * scale, a_f * scale
+    return a_s, a_f
+
+
+def kl_factored_batched(
+    bsvd5,
+    ls,
+    lf,
+    nc: float = 1.0,
+    with_thermal: bool = True,
+    sig_levels: int = 2,
+    band_rel: float = 3e-2,
+    fg_floor: float = 1e-6,
+    method: str = "qr",
+    fg_reg_rel: float = 0.0,
+    device=None,
+    compact: bool = True,
+):
+    """m-batched KL pencil solve on *factored* covariances.
+
+    Solves ``S v = w (nc I + F) v`` per m with S and F given by their
+    per-l factor tables (ops.fpencil) projected through the SVD beams,
+    never forming the ill-conditioned dense covariances.
+
+    bsvd5 (M, F, S, npol, nl) complex svcut-masked sky -> SVD projections;
+    ls, lf (nl, npol, F, K) real factor tables; ``nc`` the scale of the
+    (identity) projected instrumental noise.  Where the signal factor is
+    wider than twice the pencil (``mstep.uses_compact_signal``) and
+    ``compact`` is set, the signal side is re-factored to width n through
+    the K9 Gram (the same S).  Returns (evals (M, n) ascending, evecs
+    (M, n, n) complex columns) on the beams' device.
+    """
+    bsvd5 = as_tensor(bsvd5, device)
+    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact)
+    kl = fpencil.kl_solve(
+        a_s, a_f, sig_levels=sig_levels, band_rel=band_rel, method=method,
+        with_thermal=with_thermal, fg_floor=fg_floor, fg_reg_rel=fg_reg_rel,
+    )
+    return kl.evals, kl.evecs
+
+
+def kl_support_stats(evecs, row_mask):
+    """Per column of each m's eigenbasis, the squared norm on the rows that
+    ``row_mask`` (M, n) marks and the total squared norm: ((M, n), (M, n))."""
+    p = evecs.real**2 + evecs.imag**2
+    mask = as_tensor(row_mask, evecs.device).to(p.dtype)
+    return torch.einsum("mij,mi->mj", p, mask), p.sum(dim=1)
+
+
+def doublekl_factored_batched(
+    bsvd5,
+    ls,
+    lf,
+    nc: float = 1.0,
+    nc1: float | None = None,
+    fg_threshold: float = 100.0,
+    fg_floor: float = 1e-6,
+    fg_reg_rel: float = 1e-14,
+    sig_levels: int = 2,
+    band_rel: float = 3e-2,
+    device=None,
+):
+    """m-batched two-stage (DoubleKL) factored pencil.
+
+    Stage 1 solves the S/F pencil per m; stage 2 re-solves S/(nc I + F) on
+    the modes whose S/F exceeds ``fg_threshold`` (dropped modes emerge
+    with eigenvalue 0 and zero columns; the caller compacts with
+    ``nkept``), see :func:`fpencil.doublekl_solve_qr`.  Returns (f_evals
+    (M, n) ascending, evals (M, n) ascending, evecs (M, n, n) complex
+    columns, nkept (M,) int).
+    """
+    bsvd5 = as_tensor(bsvd5, device)
+    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact=False)
+    return fpencil.doublekl_solve_qr(
+        a_s, a_f,
+        fg_threshold=fg_threshold,
+        fg_floor=fg_floor,
+        nc1=None if nc1 is None else float(nc1 / nc),
+        fg_reg_rel=fg_reg_rel,
+        sig_levels=sig_levels,
+        band_rel=band_rel,
+    )
+
+
+def kl_factored_batched_topband(*args, **kwargs):
+    raise NotImplementedError(_TOPBAND)
+
+
+def doublekl_factored_batched_topband(*args, **kwargs):
+    raise NotImplementedError(_TOPBAND)
+
+
+def generalised_eigh_batched(A, B, device=None):
+    """m-batched generalised Hermitian eigensolve: A, B (M, n, n) ->
+    (w (M, n) ascending, v (M, n, n) columns)."""
+    A = as_tensor(A, device)
+    w, v, _ = linalg.eigh_gen_batched(A, as_tensor(B, A.device))
+    return w, v
+
+
+def generalised_eigh(A, B, message: str = "", device=None):
+    """Generalised Hermitian eigensolve with the regularisation fallback:
+    (evals, evecs columns, add_const), see :func:`linalg.eigh_gen`."""
+    A = as_tensor(A, device)
+    return linalg.eigh_gen(A, as_tensor(B, A.device), message=message)

@@ -6,7 +6,8 @@ the KL filter of every one of them, with a batch dimension in place of
 the JAX package's ``vmap`` and one native-complex path.  The KL stage
 works on factored covariances (ops.fpencil); the fused Fisher step
 contracts each m's retained KL modes against factored band covariances,
-whose per-band Gram is the hand-written kernel K13.
+whose per-band Gram is the hand-written kernel K13 and whose weighted
+trace is the hand-written kernel K15b (ops.projections.fisher_trace).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import backend
-from ..ops import fpencil, linalg
+from ..ops import fpencil, linalg, projections
 
 K13 = backend.register(
     "k13_fisher_cov",
@@ -231,12 +232,14 @@ def fisher_step(evals, evecs, beam_svd, band_lt, ps_threshold: float, npol: int,
                 nl: int, kf: int):
     """Per-m quadratic-estimator Fisher matrices from the KL products.
 
-    F_ab[m] = sum_ij w_i w_j C_a[i, j] conj(C_b[i, j]) with w = 1/(1 + lambda)
+    F_ab[m] = sum_ij w_i w_j C_a[i, j] C_b[j, i] with w = 1/(1 + lambda)
     over the modes retained above ``ps_threshold`` (> 0, so zero-padded
-    slots drop out).  evals (M, n) ascending, evecs (M, n, n) rows = modes,
-    beam_svd (M, F, S, npol*nl); the retained modes are the trailing
-    ``kf`` rows, where kf is at least the batch's largest retained count.
-    Returns (M, nb, nb) complex.
+    slots drop out); the covariances C_b are Hermitian (K13 returns them
+    so bit for bit), so C_b[j, i] = conj(C_b[i, j]).  evals (M, n)
+    ascending, evecs (M, n, n) rows = modes, beam_svd (M, F, S, npol*nl);
+    the retained modes are the trailing ``kf`` rows, where kf is at least
+    the batch's largest retained count.  Returns (M, nb, nb) complex128
+    (:func:`projections.fisher_trace`, accumulated in float64).
     """
     if ps_threshold <= 0:
         raise ValueError("ps_threshold must be > 0 (padding-slot contract)")
@@ -247,6 +250,4 @@ def fisher_step(evals, evecs, beam_svd, band_lt, ps_threshold: float, npol: int,
     v = evecs[:, n - kf :].reshape(M, kf, F, S).resolve_conj().contiguous()
     bt = beam_svd.reshape(M, F, S, npol, nl)[:, :, :, 0].contiguous()
     c = fisher_cov(v, bt, band_lt)  # (M, nb, kf, kf)
-    ww = (w[:, :, None] * w[:, None, :]).to(c.dtype)
-    d = c * ww[:, None]
-    return torch.einsum("maij,mbij->mab", d, c.conj())
+    return projections.fisher_trace(c, c, w.contiguous())

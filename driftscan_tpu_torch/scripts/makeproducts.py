@@ -1,0 +1,98 @@
+#!/usr/bin/env python
+"""drift-makeproducts of the port: generate analysis products from a config.
+
+    python -m driftscan_tpu_torch.scripts.makeproducts run cfg.yaml [--device cpu]
+
+The ``run`` command is a thin ``click`` wrapper over :func:`run_config`,
+which programs call directly.  Products are generated on the card unless
+another device is named.  ``--profile`` writes a ``cProfile`` dump, or
+with ``--profiler torch`` a device trace (``torch.profiler``).  The
+``interactive`` and ``queue`` commands of driftscan are not ported yet
+(ROADMAP.md, modules to port, item 7.4).
+"""
+
+import logging
+
+
+def run_config(configfile, device=None, profile=False, profiler="cProfile"):
+    """Generate the products of the YAML ``configfile`` on ``device`` (the
+    card when None) and return the :class:`ProductManager`."""
+    from ..core import manager
+
+    prof = None
+    if profile and profiler.lower() == "torch":
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    elif profile:
+        import cProfile
+
+        prof = cProfile.Profile()
+        prof.enable()
+
+    m = manager.ProductManager.from_config(configfile, device=device)
+    m.generate()
+
+    if prof is not None and profiler.lower() == "torch":
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace("torch_trace_0.json")
+        logging.info("torch trace written to torch_trace_0.json")
+    elif prof is not None:
+        prof.disable()
+        prof.dump_stats("profile_0.prof")
+    return m
+
+
+def _setup_logging():
+    from ..parallel import comm
+
+    filt = comm.MPILogFilter(level_all=logging.INFO, level_rank0=logging.INFO)
+    formatter = logging.Formatter(
+        "%(asctime)s [MPI %(mpi_rank)d/%(mpi_size)d] - %(levelname)-8s "
+        "%(name)s: %(message)s"
+    )
+    root_logger = logging.getLogger()
+    root_logger.setLevel(level=logging.DEBUG)
+    ch = logging.StreamHandler()
+    ch.addFilter(filt)
+    ch.setFormatter(formatter)
+    root_logger.addHandler(ch)
+
+
+def _cli():
+    import click
+
+    @click.group()
+    def cli():
+        """Generate products for modelling and analysing driftscan telescopes."""
+
+    @cli.command()
+    @click.argument(
+        "configfile",
+        type=click.Path(exists=True, dir_okay=False, readable=True, resolve_path=True),
+    )
+    @click.option("--device", default=None,
+                  help="Device to run on (default: the CUDA card; 'cpu' for the host).")
+    @click.option("--profile", is_flag=True, default=False,
+                  help="Profile the run; writes profile_0.prof or torch_trace_0.json.")
+    @click.option(
+        "--profiler",
+        type=click.Choice(["cProfile", "torch"], case_sensitive=False),
+        default="cProfile",
+        help="Which profiler to use ('torch' writes a device trace).",
+    )
+    def run(configfile, device, profile, profiler):
+        """Immediately run the CONFIGFILE to generate products."""
+        _setup_logging()
+        run_config(configfile, device=device, profile=profile, profiler=profiler)
+
+    return cli
+
+
+def main():
+    _cli()()
+
+
+if __name__ == "__main__":
+    main()

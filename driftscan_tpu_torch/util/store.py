@@ -1,0 +1,168 @@
+"""Product files: one group-and-dataset tree, two ways to keep it.
+
+The product pipeline writes HDF5 (``beam.hdf5``, ``svd.hdf5``,
+``ev_m_<m>.hdf5``, ``fisher.hdf5``) through :mod:`h5py` wherever it
+imports, in the layout the JAX package and driftscan itself use, so
+product directories are interchangeable.  On a host without h5py the
+same tree is kept as a directory of that name holding one ``.npy`` file
+per dataset and the attributes in ``__attrs__.npz``: the pipeline runs
+unchanged, and the directory can be converted later.
+
+:func:`File` opens either; ``BACKEND`` says which one this process uses.
+A file opened for writing appears under its name only when it is closed
+without error.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+
+import numpy as np
+
+try:
+    import h5py
+
+    BACKEND = "h5py"
+except ImportError:
+    h5py = None
+    BACKEND = "npy"
+
+_ATTRS = "__attrs__.npz"
+
+
+class _NpyDataset:
+    """An array of a directory store, written back when the file closes."""
+
+    def __init__(self, array):
+        self._a = array
+
+    @property
+    def shape(self):
+        return self._a.shape
+
+    @property
+    def dtype(self):
+        return self._a.dtype
+
+    def __getitem__(self, ind):
+        return np.array(self._a[ind])
+
+    def __setitem__(self, ind, value):
+        self._a[ind] = value
+
+
+class _NpyFile:
+    """Directory-of-``.npy`` stand-in for the parts of ``h5py.File`` the
+    pipeline uses: ``create_dataset``, ``f[name]``, ``name in f``,
+    ``attrs`` and the context manager."""
+
+    def __init__(self, path, mode="r"):
+        if mode not in ("r", "w"):
+            raise ValueError(f"directory store: mode {mode!r} not supported")
+        self.path = path
+        self.mode = mode
+        self.attrs = {}
+        self._new = {}
+        if mode == "r":
+            if not os.path.isdir(path):
+                raise OSError(f"no product store at {path}")
+            with np.load(os.path.join(path, _ATTRS)) as z:
+                self.attrs = {k: (v[()] if v.ndim == 0 else v) for k, v in z.items()}
+
+    def create_dataset(self, name, shape=None, dtype=None, data=None, **_layout):
+        if data is not None:
+            arr = np.array(data, dtype=dtype)
+        else:
+            arr = np.zeros(shape, dtype=dtype)
+        self._new[name] = _NpyDataset(arr)
+        return self._new[name]
+
+    def __contains__(self, name):
+        if self.mode == "w":
+            return name in self._new
+        return os.path.exists(os.path.join(self.path, name + ".npy"))
+
+    def __getitem__(self, name):
+        if self.mode == "w":
+            return self._new[name]
+        fn = os.path.join(self.path, name + ".npy")
+        if not os.path.exists(fn):
+            raise KeyError(name)
+        return _NpyDataset(np.load(fn, mmap_mode="r"))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.mode == "w" and exc_type is None:
+            tmp = f"{self.path}.{os.getpid()}.part"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            for name, ds in self._new.items():
+                np.save(os.path.join(tmp, name + ".npy"), ds._a)
+            np.savez(os.path.join(tmp, _ATTRS),
+                     **{k: np.asarray(v) for k, v in self.attrs.items()})
+            remove(self.path)
+            os.replace(tmp, self.path)
+        return False
+
+
+def File(path, mode="r", **kwargs):
+    """Open a product file for reading (``"r"``) or writing (``"w"``)."""
+    if h5py is not None:
+        return h5py.File(path, mode, **kwargs)
+    return _NpyFile(path, mode)
+
+
+def remove(path):
+    """Delete a product file of either form, if it is there."""
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+def replace(tmp, path):
+    """Move a finished product file over ``path`` (either form)."""
+    if os.path.isdir(tmp):
+        remove(path)
+    os.replace(tmp, path)
+
+
+def readable(path) -> bool:
+    """True if ``path`` holds a complete product file that opens."""
+    if not os.path.exists(path):
+        return False
+    try:
+        with File(path, "r"):
+            return True
+    except (OSError, KeyError, ValueError):
+        return False
+
+
+def compression_kwargs(dtype, codec):
+    """``create_dataset`` compression arguments for ``codec`` (HDF5 only;
+    the directory store keeps plain arrays)."""
+    if h5py is None:
+        return {}
+    from ..ops import bitshuffle
+
+    return bitshuffle.compression_kwargs(dtype, codec)
+
+
+def codec(name) -> str:
+    """What a dataset written with codec ``name`` is compressed with here:
+    ``bitshuffle+LZ4``, ``LZF+shuffle`` or ``none``."""
+    kwargs = compression_kwargs(np.complex128, name)
+    if not kwargs:
+        return "none"
+    return "LZF+shuffle" if kwargs["compression"] == "lzf" else "bitshuffle+LZ4"
+
+
+def register_codecs():
+    """Make the bitshuffle filter known to HDF5 for readers (HDF5 only)."""
+    if h5py is not None:
+        from ..ops import bitshuffle
+
+        bitshuffle.register()

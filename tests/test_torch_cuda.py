@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from driftscan_tpu_torch import backend
-from driftscan_tpu_torch.ops import fpencil, healpix, kernels, probe, sht
+from driftscan_tpu_torch.ops import fpencil, healpix, kernels, probe, projections, sht
 from driftscan_tpu_torch.parallel import mstep
 from driftscan_tpu_torch.telescope import cylinder
 
@@ -173,6 +173,105 @@ def test_wrappers_reject_lazy_conjugates(cuda):
     lb = torch.ones((1, 8, 2, 1), device=cuda)
     with pytest.raises(ValueError):
         mstep.fisher_cov(v.conj(), bt, lb)
+
+
+# (nkl, F, nl, nb): ragged nkl around the 64-wide tile, one band, and the
+# bench cylinder's band form at a product run's size (nkl 52: one tile per
+# band, its chunks split across blocks) and at nkl = n = 352
+K15A_BAND = [(1, 3, 11, 1), (17, 3, 11, 3), (64, 2, 40, 2), (65, 5, 33, 1), (52, 8, 230, 4),
+             (352, 8, 230, 4)]
+K15_DTYPES = [(torch.complex128, 1e-12), (torch.complex64, 1e-5)]
+
+
+@pytest.mark.parametrize("dtype,rtol", K15_DTYPES)
+@pytest.mark.parametrize("shape", K15A_BAND, ids=lambda s: "x".join(map(str, s)))
+def test_k15a_sandwich_band_form(cuda, shape, dtype, rtol):
+    nkl, F, nl, nb = shape
+    rng = np.random.default_rng(15)
+    g = _crandn(rng, (nkl, F, nl), cuda).to(dtype)
+    cl = torch.as_tensor(rng.standard_normal((nb, nl, F, F)), device=cuda).to(
+        backend.real_dtype(dtype)
+    )
+    _check(projections.K15A, lambda: projections.band_covariance_projection(g, cl),
+           lambda: projections.sandwich_ref(g[None], g[None], cl), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", K15_DTYPES)
+@pytest.mark.parametrize("shape", [(3, 5, 1, 9), (3, 5, 4, 9), (8, 44, 1, 230), (4, 80, 4, 121)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k15a_sandwich_sky_form(cuda, shape, dtype, rtol):
+    """Two different outer operands per batch item (a frequency pair), a
+    result that is not Hermitian item by item, npol 1 and 4."""
+    F, S, npol, nl = shape
+    rng = np.random.default_rng(16)
+    beam = _crandn(rng, (F, S, npol, nl), cuda).to(dtype)
+    cl = torch.as_tensor(rng.standard_normal((npol, npol, nl, F, F)), device=cuda).to(
+        backend.real_dtype(dtype)
+    )
+    want = torch.einsum("fapl,pqlfg,gbql->fagb", beam, cl.to(dtype), beam.conj())
+    _check(projections.K15A, lambda: projections.sky_covariance_projection(beam, cl),
+           lambda: want, rtol)
+    beam5 = torch.stack([beam, 2 * beam])
+    got = projections.sky_covariance_projection_m(beam5, cl)
+    assert float((got[1] - 4 * want).abs().max()) <= 4 * rtol * float(want.abs().max())
+
+
+def test_k15a_sandwich_index_arrays(cuda):
+    rng = np.random.default_rng(17)
+    x = _crandn(rng, (2, 70, 3, 7), cuda).to(torch.complex128)
+    y = _crandn(rng, (3, 66, 2, 7), cuda).to(torch.complex128)
+    c = torch.as_tensor(rng.standard_normal((4, 7, 3, 2)), device=cuda)
+    ix, iy, ic = [1, 0, 1, 1, 0], [2, 2, 0, 1, 1], [3, 0, 1, 2, 3]
+    _check(projections.K15A, lambda: projections.sandwich(x, y, c, ix, iy, ic),
+           lambda: projections.sandwich_ref(x, y, c, ix, iy, ic), 1e-12)
+    with pytest.raises(ValueError):
+        projections.sandwich(x, y.conj(), c, ix, iy, ic)
+    with pytest.raises(TypeError):
+        projections.sandwich(x, y.to(torch.complex64), c, ix, iy, ic)
+
+
+def test_k15a_sandwich_split_plan(cuda, monkeypatch):
+    """Split and unsplit launches agree; a plan that leaves chunks
+    uncovered is refused at launch."""
+    rng = np.random.default_rng(19)
+    g = _crandn(rng, (52, 8, 230), cuda).to(torch.complex128)
+    cl = torch.as_tensor(rng.standard_normal((4, 230, 8, 8)), device=cuda)
+    nsplit, cps = projections.sandwich_split(4, 52, 52, 8, 230, backend.sm_count(cuda))
+    assert nsplit > 1
+    split = projections.band_covariance_projection(g, cl)
+    monkeypatch.setattr(projections, "sandwich_split", lambda *a: (1, 8 * 15))
+    whole = projections.band_covariance_projection(g, cl)
+    assert float((split - whole).abs().max()) <= 1e-12 * float(whole.abs().max())
+    monkeypatch.setattr(projections, "sandwich_split", lambda *a: (2, 8 * 15 // 2 - 1))
+    with pytest.raises(RuntimeError):
+        projections.band_covariance_projection(g, cl)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.complex128, 1e-12), (torch.complex64, 1e-6)])
+@pytest.mark.parametrize("k,na,nb", [(1, 1, 1), (17, 3, 2), (64, 2, 2), (65, 1, 3), (352, 4, 4)])
+def test_k15b_fisher_trace(cuda, k, na, nb, dtype, rtol):
+    """Non-Hermitian C_b: the kernel takes C_b[j, i], not conj(C_b[i, j])."""
+    rng = np.random.default_rng(18)
+    ca = _crandn(rng, (na, k, k), cuda).to(dtype)
+    cb = _crandn(rng, (nb, k, k), cuda).to(dtype)
+    w = torch.as_tensor(rng.random(k), device=cuda).to(backend.real_dtype(dtype))
+    _check(projections.K15B, lambda: projections.fisher_trace(ca, cb, w),
+           lambda: projections.fisher_trace_ref(ca, cb, w), rtol)
+    # the batched form of the fused Fisher step
+    cam, cbm, wm = torch.stack([ca, 2 * ca]), torch.stack([cb, cb]), torch.stack([w, w])
+    _check(projections.K15B, lambda: projections.fisher_trace(cam, cbm, wm),
+           lambda: projections.fisher_trace_ref(cam, cbm, wm), rtol)
+
+
+def test_k15b_fisher_trace_empty_and_strict(cuda):
+    z = torch.zeros((3, 0, 0), dtype=torch.complex128, device=cuda)
+    out = projections.fisher_trace(z, z, torch.zeros(0, dtype=torch.float64, device=cuda))
+    assert out.shape == (3, 3) and not out.any()
+    c = torch.ones((2, 4, 4), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError):
+        projections.fisher_trace(c, c.cpu(), torch.ones(4, device=cuda))
+    with pytest.raises(ValueError):
+        projections.fisher_trace(c, c.transpose(-1, -2), torch.ones(4, device=cuda))
 
 
 def test_probe_double(cuda):

@@ -51,6 +51,37 @@ def test_fisher_step_matches_jax(thr):
     assert np.abs(got[-1]).max() == 0.0  # the padding slot contributes nothing
 
 
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+@pytest.mark.parametrize("thr", [0.5, 2.0])
+def test_fisher_step_trace_is_the_old_contraction(thr, dtype):
+    """The step's tail now goes through ``projections.fisher_trace`` (its
+    plain version on the CPU): the same numbers as the contraction it
+    replaced, sum_ij w_i w_j C_a[i, j] conj(C_b[i, j]), to 1e-12 (K13's
+    covariances are Hermitian, so C_b[j, i] = conj(C_b[i, j]))."""
+    ev, evec, beam, blt, _ = _inputs(seed=int(thr * 10) + 1)
+    M, n = ev.shape
+    F, S, nl = beam.shape[1:]
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    ev_t = torch.as_tensor(ev).to(rdt)
+    evec_t, beam_t = torch.as_tensor(evec).to(dtype), torch.as_tensor(beam).to(dtype)
+    blt_t = torch.as_tensor(blt).to(rdt)
+    kf = int((ev > thr).sum(axis=1).max())
+    got = mstep.fisher_step(ev_t, evec_t, beam_t, blt_t, ps_threshold=thr, npol=1, nl=nl, kf=kf)
+    assert got.dtype == torch.complex128
+
+    evk = ev_t[:, n - kf:]
+    w = torch.where(evk > thr, 1.0 / (1.0 + evk), torch.zeros_like(evk))
+    v = evec_t[:, n - kf:].reshape(M, kf, F, S).contiguous()
+    c = mstep.fisher_cov(v, beam_t.reshape(M, F, S, 1, nl)[:, :, :, 0].contiguous(), blt_t)
+    # Hermitian to rounding here (matmul); bit for bit from the kernel
+    assert float((c - c.mH).abs().max()) <= 1e-6 * float(c.abs().max())
+    c, w = c.to(torch.complex128), w.to(torch.float64)
+    d = c * (w[:, :, None] * w[:, None, :]).to(c.dtype)[:, None]
+    want = torch.einsum("maij,mbij->mab", d, c.conj())
+    assert float(want.abs().max()) > 0
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
 def test_band_factor_table_matches_jax():
     rng = np.random.default_rng(2)
     clb = []

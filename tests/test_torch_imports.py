@@ -1,4 +1,6 @@
-"""driftscan_tpu_torch stands alone: no JAX (or h5py/yaml/click) on its slice.
+"""driftscan_tpu_torch stands alone: no JAX anywhere; no h5py/yaml/click on
+the resident path; h5py only behind util.store, yaml and click only inside
+the functions that read a YAML file or build the command line.
 
 ``tests/conftest.py`` imports jax in the test process, so the import check
 runs in a subprocess.
@@ -20,7 +22,6 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.backend",
     "driftscan_tpu_torch.config",
     "driftscan_tpu_torch.core.cosmology",
-    "driftscan_tpu_torch.core.psestimation",
     "driftscan_tpu_torch.core.skymodel",
     "driftscan_tpu_torch.core.telescope",
     "driftscan_tpu_torch.ops.fpencil",
@@ -28,22 +29,38 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.ops.kernels",
     "driftscan_tpu_torch.ops.linalg",
     "driftscan_tpu_torch.ops.probe",
+    "driftscan_tpu_torch.ops.projections",
     "driftscan_tpu_torch.ops.sht",
+    "driftscan_tpu_torch.parallel.comm",
     "driftscan_tpu_torch.parallel.mstep",
     "driftscan_tpu_torch.parallel.resident",
     "driftscan_tpu_torch.telescope.cylbeam",
     "driftscan_tpu_torch.telescope.cylinder",
+    "driftscan_tpu_torch.util.util",
     "chip_smoke",
 ]
 
+# the file pipeline: product files go through util.store (h5py where it
+# imports)
+FILE_MODULES = [
+    "driftscan_tpu_torch.core.beamtransfer",
+    "driftscan_tpu_torch.core.doublekl",
+    "driftscan_tpu_torch.core.kltransform",
+    "driftscan_tpu_torch.core.manager",
+    "driftscan_tpu_torch.core.psestimation",
+    "driftscan_tpu_torch.ops.bitshuffle",
+    "driftscan_tpu_torch.ops.truncate",
+    "driftscan_tpu_torch.scripts.makeproducts",
+    "driftscan_tpu_torch.util.store",
+]
 
-def test_slice_imports_no_jax():
+
+def _import_check(modules, banned):
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE_MODULES!r}:\n"
+        f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'driftscan_tpu', 'h5py', 'yaml', 'click')"
-        " if m in sys.modules]\n"
+        f"bad = [m for m in {banned!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -55,6 +72,34 @@ def test_slice_imports_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_slice_imports_no_jax():
+    _import_check(
+        SLICE_MODULES, ("jax", "jaxlib", "driftscan_tpu", "h5py", "yaml", "click")
+    )
+
+
+def test_file_pipeline_imports_no_jax():
+    """Every module of the package, the file pipeline included: no JAX,
+    nothing of the JAX package, and no yaml or click at import."""
+    _import_check(
+        SLICE_MODULES + FILE_MODULES, ("jax", "jaxlib", "driftscan_tpu", "yaml", "click")
+    )
+
+
+def test_every_module_is_listed():
+    """The two lists above cover every module of the package."""
+    import pkgutil
+
+    import driftscan_tpu_torch
+
+    found = {"driftscan_tpu_torch"} | {
+        m.name
+        for m in pkgutil.walk_packages(driftscan_tpu_torch.__path__, "driftscan_tpu_torch.")
+        if not m.ispkg and ".csrc." not in m.name
+    }
+    assert found <= set(SLICE_MODULES + FILE_MODULES), found - set(SLICE_MODULES + FILE_MODULES)
 
 
 def test_telescope_defaults_to_the_card():
