@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (driftscan_tpu_torch) on one GPU.
 
     python3 chip_smoke.py             # the phases below
-    python3 chip_smoke.py --profile   # then torch.profiler over each path
-                                      # and over the file pipeline
+    python3 chip_smoke.py --profile   # then torch.profiler over each path,
+                                      # the file pipeline and the timestream
+                                      # pipeline
 
 Needs one CUDA card and the CUDA toolkit (nvcc) and Triton; imports no
 JAX.  Phases, each printed on its own line(s); any failure raises, so the
@@ -14,9 +15,10 @@ script exits non-zero:
 2. build -- compiles every CUDA source of ``driftscan_tpu_torch/csrc``
    into ``driftscan_tpu_torch/_build/``, one ``nvcc`` per source, all at
    once (the Triton kernels compile at their first launch);
-3. kernels -- each hand-written kernel of the product paths against its
-   plain PyTorch version on the same CUDA inputs (at the shapes each of
-   paths 4 and 5 gives it, numpy seed), with the tolerance asserted and
+3. kernels -- each hand-written kernel of the product and timestream
+   paths against its plain PyTorch version on the same CUDA inputs (at the
+   shapes each of paths 4, 5, 7 and 8 gives it, numpy seed; K14 at B 8, lmax
+   229, 1023 rings, real and complex forms), with the tolerance asserted and
    the median time (CUDA events) of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call
    (``library_ms``: ``torch.matmul(a, a.mH)`` of the pre-formed factor for
@@ -41,12 +43,25 @@ script exits non-zero:
    ``generate()`` that skips every stage; then the sandwich (K15a) and the
    Fisher trace (K15b) again at the sizes that run gave them
    (``[products kernels]``);
-7. probe -- the ports of the two Pallas probes of
+7. klinv -- an inverse KL filter ``klinv`` added to that product
+   directory's config and generated (:func:`klinv_phase`: the dense per-m
+   path, K15a's sky form);
+8. timestream -- the pipeline behind ``drift-runpipeline`` on that product
+   directory (:func:`timestream_phase`): an input sky made by
+   ``synthesis_real`` (K14) at the nside of the BTM, then
+   ``runpipeline.run_config``: two timestreams (noiseless; the telescope's
+   noise from a seed) -> m-modes -> SVD and KL modes -> power spectra and
+   cross power -> full, SVD and ``klinv`` maps; its checks (every file
+   opens, m-modes against the direct projection, maps against the CPU
+   synthesis of their alm, SVD/KL modes and power spectra against the CPU,
+   a second run that rewrites only the full and SVD maps);
+9. probe -- the ports of the two Pallas probes of
    ``scratch/pallas_probe.py`` (o = 2 x; a 1024^3 matmul, float32 and
    bfloat16 inputs) against their plain versions, with Tflop/s.
 
-Each path (4-7) runs with every launch count set to 0 just before it and
-read just after, and fails unless every kernel of that path launched.
+Each path (4-9) runs with every launch count set to 0 just before it and
+read just after, and fails unless every kernel of that path launched; in
+8 that window holds ``run_config`` alone, not the making of its input.
 Paths 4 and 5 then re-run their first and last 8 m on CPU tensors from
 the same BTM tables (the plain paths) and compare with the card, and time
 K13 again at the k the path launched it with (``[slice kernels]``,
@@ -382,7 +397,60 @@ def kernel_phases(tel, ptel):
             sandwich_sky_compare(t, rng)
             keep("k15b_fisher_trace", trace_compare(n, rng))
             trace_compare(n, rng, dtype=torch.complex64, M=8)
+    keep("k14_legendre_synth", k14_compare(tel, rng))
     return res
+
+
+def k14_compare(tel, rng, tag="kernels"):
+    """K14 against its plain version at the timestream path's shape: B =
+    nfreq x npol coefficients at the telescope's band limit, on the rings
+    of the nside of its own BTM, complex128 in the real form (recorded) and
+    the complex form, and the complex64 instantiation; then K3+K5 at the
+    input map's shape (complex128, B 8).  Bound: ~12 float64 flops of
+    recurrence a lambda on the CUDA cores, 4 flops a real x complex
+    multiply-add per unit and block at the card's float64 (or float32)
+    peak; the coefficients read and the (B, nm, nring) outputs written
+    once."""
+    import torch
+
+    from driftscan_tpu_torch.ops import healpix, sht
+
+    dev = tel.device
+    g = healpix.ring_geometry(tel._nside_for(tel.lmax))
+    B, lmax = tel.nfreq * tel.num_pol_sky, tel.lmax
+    nl = lmax + 1
+    ct = torch.as_tensor(g.cos_theta, device=dev)
+    st = torch.as_tensor(g.sin_theta, device=dev)
+    nlam = nl * (nl + 1) // 2 * g.nring
+    log(f"[{tag}] k14_legendre_synth: {nlam:.4e} lambda (B {B}, lmax {lmax}, nside {g.nside})")
+    rec = None
+    for dtype, rtol in ((torch.complex128, 1e-10), (torch.complex64, 1e-5)):
+        pos = _crandn(rng, (B, nl, nl), dtype, dev)
+        neg = _crandn(rng, (B, nl, lmax), dtype, dev)
+        for form, nb in (("real", None), ("complex", neg)):
+            k = 1 if nb is None else 2
+            ops = [(12.0 * nlam, F64_CUDA_CORE_FLOPS), (4.0 * k * B * nlam, _rate(dtype))]
+            moved = nbytes(pos, ct, st, *(() if nb is None else (nb,)))
+            moved += k * B * nl * g.nring * pos.element_size()
+            r = compare(
+                f"k14_legendre_synth ({form} form, B {B}, lmax {lmax}, nring {g.nring}, {dtype})",
+                lambda: sht.legendre_synth(pos, nb, ct, st)[:k],
+                lambda: sht.legendre_synth_ref(pos, nb, ct, st)[:k],
+                rtol=rtol, reps=5, tag=tag, work=(moved, ops),
+            )
+            rec = rec or r
+    F = _crandn(rng, (B, nl, g.nring), torch.complex128, dev)
+    G = _crandn(rng, (B, nl, g.nring), torch.complex128, dev)
+    area = 4.0 * np.pi / g.npix
+    compare(
+        f"k3k5_legendre_sht (input map: B {B}, lmax {lmax}, nring {g.nring}, complex128)",
+        lambda: sht.legendre_contract(F, G, ct, st, lmax, area),
+        lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, area),
+        rtol=1e-10, reps=5, tag=tag,
+        work=(nbytes(F, G, ct, st) + 2 * B * nl * nl * 16,
+              [(12.0 * nlam, F64_CUDA_CORE_FLOPS), (8.0 * B * nlam, F64_FLOPS)]),
+    )
+    return rec
 
 
 def k13_compare(t, M, k, rng, tag="kernels"):
@@ -746,10 +814,11 @@ def products_files(m):
     return files
 
 
-def products_phase(slice_run):
-    """The file pipeline on the card and its checks; ``slice_run`` holds the
-    resident path's spectra, Fisher matrix and rate for the same telescope,
-    bands and threshold.  Returns (launches, [nkl per m])."""
+def products_phase(slice_run, outdir):
+    """The file pipeline on the card, into ``outdir``, and its checks;
+    ``slice_run`` holds the resident path's spectra, Fisher matrix and rate
+    for the same telescope, bands and threshold.  Returns (launches, [nkl
+    per m])."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -758,178 +827,174 @@ def products_phase(slice_run):
     from driftscan_tpu_torch.util import store
 
     tag = "products"
-    outdir = tempfile.mkdtemp(prefix="driftscan_products_")
-    try:
-        conf = products_config(outdir)
-        backend.reset_launch_counts()
-        t = time.time()
-        m = manager.ProductManager().apply_config(conf)
-        m.generate()
-        torch.cuda.synchronize()
-        wall = time.time() - t
-        launches = launch_counts()
+    conf = products_config(outdir)
+    backend.reset_launch_counts()
+    t = time.time()
+    m = manager.ProductManager().apply_config(conf)
+    m.generate()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = launch_counts()
 
-        tel, bt = m.telescope, m.beamtransfer
-        kl, dk, ps = m.kltransforms["kl"], m.kltransforms["dk"], m.psestimators["ps"]
-        nm, n = tel.mmax + 1, bt.ndofmax
-        tm = m.timings
-        t_file = tm["beams"] + tm["kl.kl"] + tm["ps.ps"]
-        log(
-            f"[{tag}] store {store.BACKEND} (truncation codec {truncate.codec()}, "
-            f"file codec {store.codec(bt.compression)})  device {m.device}  wall {wall:.4f} s  "
-            f"t_beams {tm['beams']:.4f} s (compute {tm['beams.btm_compute']:.4f}, "
-            f"write {tm['beams.btm_write']:.4f})  t_svd {tm['beams.svd']:.4f} s  "
-            f"t_kl {tm['kl.kl']:.4f} s  t_doublekl {tm['kl.dk']:.4f} s  "
-            f"t_ps {tm['ps.ps']:.4f} s"
-        )
-        log(
-            f"[{tag}] m-modes/s of the file path (beams + SVD + KL + PSExact, "
-            f"{nm} m) {nm / t_file:.4f}; with DoubleKL {nm / (t_file + tm['kl.dk']):.4f}; "
-            f"the resident path's {slice_run['rate']:.4f}; m that took the dense "
-            f"fallback: {len(kl.dense_fallback_m)} {kl.dense_fallback_m}; launches {launches}"
-        )
+    tel, bt = m.telescope, m.beamtransfer
+    kl, dk, ps = m.kltransforms["kl"], m.kltransforms["dk"], m.psestimators["ps"]
+    nm, n = tel.mmax + 1, bt.ndofmax
+    tm = m.timings
+    t_file = tm["beams"] + tm["kl.kl"] + tm["ps.ps"]
+    log(
+        f"[{tag}] store {store.BACKEND} (truncation codec {truncate.codec()}, "
+        f"file codec {store.codec(bt.compression)})  device {m.device}  wall {wall:.4f} s  "
+        f"t_beams {tm['beams']:.4f} s (compute {tm['beams.btm_compute']:.4f}, "
+        f"write {tm['beams.btm_write']:.4f})  t_svd {tm['beams.svd']:.4f} s  "
+        f"t_kl {tm['kl.kl']:.4f} s  t_doublekl {tm['kl.dk']:.4f} s  "
+        f"t_ps {tm['ps.ps']:.4f} s"
+    )
+    log(
+        f"[{tag}] m-modes/s of the file path (beams + SVD + KL + PSExact, "
+        f"{nm} m) {nm / t_file:.4f}; with DoubleKL {nm / (t_file + tm['kl.dk']):.4f}; "
+        f"the resident path's {slice_run['rate']:.4f}; m that took the dense "
+        f"fallback: {len(kl.dense_fallback_m)} {kl.dense_fallback_m}; launches {launches}"
+    )
 
-        # every product file exists and opens
-        files = products_files(m)
-        bad = [f for f in files if not store.readable(f)]
-        if bad:
-            raise AssertionError(f"{tag}: {len(bad)} product files missing or unreadable: {bad[:4]}")
-        size = sum(
-            os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(outdir) for f in fs
-        )
-        log(f"[{tag}] {len(files)} product files open ({size / 2**20:.1f} MiB on disk)")
-        require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht",
-                                         "k9_signal_gram", "k15a_sandwich",
-                                         "k15b_fisher_trace"])
+    # every product file exists and opens
+    files = products_files(m)
+    bad = [f for f in files if not store.readable(f)]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} product files missing or unreadable: {bad[:4]}")
+    size = sum(
+        os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(outdir) for f in fs
+    )
+    log(f"[{tag}] {len(files)} product files open ({size / 2**20:.1f} MiB on disk)")
+    require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht",
+                                     "k9_signal_gram", "k15a_sandwich",
+                                     "k15b_fisher_trace"])
 
-        # spectra and Fisher: finite, symmetric, positive diagonal
-        ev_file = kl.evals_all()
-        with store.File(dk.evdir + "/evals.hdf5", "r") as f:
-            dk_ev, dk_fev = f["evals"][:], f["f_evals"][:]
-        with store.File(ps.psdir + "/fisher.hdf5", "r") as f:
-            fisher = f["fisher"][:]
-            errors = f["errors"][:]
-            bandtype = f.attrs["bandtype"]
-        for name, arr in (("KL evals", ev_file), ("DoubleKL evals", dk_ev),
-                          ("DoubleKL f_evals", dk_fev), ("svd spectrum", bt.svd_all()),
-                          ("Fisher", fisher), ("errors", errors)):
-            if not np.isfinite(arr).all():
-                raise AssertionError(f"{tag}: {name} not finite")
-        if ev_file.shape != (nm, n) or fisher.shape != (NBANDS, NBANDS):
-            raise AssertionError(f"{tag}: shapes {ev_file.shape} {fisher.shape}")
-        fscale = np.abs(fisher).max()
-        if not (np.abs(fisher - fisher.T).max() <= 1e-10 * fscale and (np.diag(fisher) > 0).all()):
-            raise AssertionError(f"{tag}: Fisher not symmetric with a positive diagonal: {fisher}")
-        nkl = []
-        for mi in range(nm):
-            with store.File(kl._evfile % mi, "r") as f:
-                nkl.append(int(f.attrs["num_modes"]))
-                if int(f.attrs["m"]) != mi:
-                    raise AssertionError(f"{tag}: ev file of m {mi} holds m {f.attrs['m']}")
-        log(
-            f"[{tag}] bandtype {bandtype!r}  KL modes >= {PS_THRESHOLD:g}: {sum(nkl)} "
-            f"(largest per m {max(nkl)})  top ev {ev_file.max():.6e}  DoubleKL kept "
-            f"{int((dk_ev > 0).sum())} modes (top S/F {dk_fev.max():.6e})  fisher diag "
-            f"{np.diag(fisher).tolist()}  errors {errors.tolist()}"
-        )
-
-        # PSExact's Fisher from the files against the fused resident Fisher
-        f_res = np.asarray(slice_run["fisher"]).real
-        f_err = float(np.abs(fisher - f_res).max() / np.abs(f_res).max())
-        log(f"[{tag}] Fisher, files vs resident path: rel {f_err:.3e} of max|F| (tol 3e-2)")
-        if not f_err <= 3e-2:
-            raise AssertionError(f"{tag}: file Fisher vs resident Fisher {f_err:.3e} > 3e-2")
-
-        # the file spectra against the resident path's (which solves the
-        # pencil without the foreground regulariser): printed, not gated
-        ev_res = np.sort(np.asarray(slice_run["evals"]), axis=1)
-        kept = ev_file > PS_THRESHOLD
-        top = np.maximum(ev_file.max(axis=1, keepdims=True), 1e-30)
-        rel = np.abs(ev_file - ev_res[:, -n:]) / top
-        log(
-            f"[{tag}] retained KL spectra, files vs resident path: max "
-            f"{float(rel[kept].max()) if kept.any() else 0.0:.3e} of each m's top"
-        )
-
-        # KL spectra of the first and last m against the CPU run of the
-        # same pencil on the same SVD beams
-        ls, lf = kl._cl_factors()
-        for name, lo, hi in (("first", 0, min(CPU_CHECK_M, nm)),
-                             ("last", max(nm - CPU_CHECK_M, 0), nm)):
-            bsvd, idx_list = kl._load_bsvd_batch(list(range(lo, hi)))
-            t = time.time()
-            ev_c, _ = projections.kl_factored_batched(
-                bsvd.cpu(), ls.cpu(), lf.cpu(), nc=1.0,
-                fg_reg_rel=kl._foreground_regulariser,
-            )
-            t_cpu = time.time() - t
-            ev_c = ev_c.numpy()
-            err = 0.0
-            for i, idx in enumerate(idx_list):
-                ndof = len(idx)
-                if ndof:
-                    a, b = ev_file[lo + i][n - ndof:], ev_c[i][n - ndof:]
-                    err = max(err, float(np.abs(a - b).max() / max(b.max(), 1e-30)))
-            log(
-                f"[{tag}] cpu check {name} m {lo}..{hi - 1} (cpu {t_cpu:.2f} s): max "
-                f"|ev_file - ev_cpu| / ev_top {err:.3e} (tol 1e-4)"
-            )
-            if not err <= 1e-4:
-                raise AssertionError(f"{tag} {name}: KL spectra card vs cpu {err:.3e} > 1e-4")
-
-        # a second generate() on the same directory skips every stage
-        stamp = {f: os.path.getmtime(f) for f in files if "svdspectrum" not in f}
-        backend.reset_launch_counts()
-        t = time.time()
-        m2 = manager.ProductManager().apply_config(conf)
-        m2.generate()
-        torch.cuda.synchronize()
-        t_again = time.time() - t
-        again = launch_counts()
-        touched = [f for f, at in stamp.items() if os.path.getmtime(f) != at]
-        log(f"[{tag}] second generate(): {t_again:.2f} s, launches {sum(again.values())}, "
-            f"files rewritten {len(touched)}")
-        if any(again.values()) or touched:
-            raise AssertionError(f"{tag}: the second generate() did not skip: {again} {touched[:4]}")
-
-        # one m through the dense per-m transform (the sandwich's sky form,
-        # then the whitened dense eigensolve): the card against the same
-        # transform on the CPU from the same files, and against the m's
-        # factored spectrum, on the retained band.  The dense noise
-        # covariance has a condition number of ~3e11 at this telescope, so
-        # its whitened spectrum is defined to ~cond * eps = 7e-5 of the top
-        # eigenvalue whatever computes it: both gates are 1e-3, and the
-        # figures are printed beside the KL tier's 1e-4.
-        mi = int(np.argmax(nkl))
+    # spectra and Fisher: finite, symmetric, positive diagonal
+    ev_file = kl.evals_all()
+    with store.File(dk.evdir + "/evals.hdf5", "r") as f:
+        dk_ev, dk_fev = f["evals"][:], f["f_evals"][:]
+    with store.File(ps.psdir + "/fisher.hdf5", "r") as f:
+        fisher = f["fisher"][:]
+        errors = f["errors"][:]
+        bandtype = f.attrs["bandtype"]
+    for name, arr in (("KL evals", ev_file), ("DoubleKL evals", dk_ev),
+                      ("DoubleKL f_evals", dk_fev), ("svd spectrum", bt.svd_all()),
+                      ("Fisher", fisher), ("errors", errors)):
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"{tag}: {name} not finite")
+    if ev_file.shape != (nm, n) or fisher.shape != (NBANDS, NBANDS):
+        raise AssertionError(f"{tag}: shapes {ev_file.shape} {fisher.shape}")
+    fscale = np.abs(fisher).max()
+    if not (np.abs(fisher - fisher.T).max() <= 1e-10 * fscale and (np.diag(fisher) > 0).all()):
+        raise AssertionError(f"{tag}: Fisher not symmetric with a positive diagonal: {fisher}")
+    nkl = []
+    for mi in range(nm):
         with store.File(kl._evfile % mi, "r") as f:
-            ev_fact = f["evals_full"][:]
-        backend.reset_launch_counts()
+            nkl.append(int(f.attrs["num_modes"]))
+            if int(f.attrs["m"]) != mi:
+                raise AssertionError(f"{tag}: ev file of m {mi} holds m {f.attrs['m']}")
+    log(
+        f"[{tag}] bandtype {bandtype!r}  KL modes >= {PS_THRESHOLD:g}: {sum(nkl)} "
+        f"(largest per m {max(nkl)})  top ev {ev_file.max():.6e}  DoubleKL kept "
+        f"{int((dk_ev > 0).sum())} modes (top S/F {dk_fev.max():.6e})  fisher diag "
+        f"{np.diag(fisher).tolist()}  errors {errors.tolist()}"
+    )
+
+    # PSExact's Fisher from the files against the fused resident Fisher
+    f_res = np.asarray(slice_run["fisher"]).real
+    f_err = float(np.abs(fisher - f_res).max() / np.abs(f_res).max())
+    log(f"[{tag}] Fisher, files vs resident path: rel {f_err:.3e} of max|F| (tol 3e-2)")
+    if not f_err <= 3e-2:
+        raise AssertionError(f"{tag}: file Fisher vs resident Fisher {f_err:.3e} > 3e-2")
+
+    # the file spectra against the resident path's (which solves the
+    # pencil without the foreground regulariser): printed, not gated
+    ev_res = np.sort(np.asarray(slice_run["evals"]), axis=1)
+    kept = ev_file > PS_THRESHOLD
+    top = np.maximum(ev_file.max(axis=1, keepdims=True), 1e-30)
+    rel = np.abs(ev_file - ev_res[:, -n:]) / top
+    log(
+        f"[{tag}] retained KL spectra, files vs resident path: max "
+        f"{float(rel[kept].max()) if kept.any() else 0.0:.3e} of each m's top"
+    )
+
+    # KL spectra of the first and last m against the CPU run of the
+    # same pencil on the same SVD beams
+    ls, lf = kl._cl_factors()
+    for name, lo, hi in (("first", 0, min(CPU_CHECK_M, nm)),
+                         ("last", max(nm - CPU_CHECK_M, 0), nm)):
+        bsvd, idx_list = kl._load_bsvd_batch(list(range(lo, hi)))
         t = time.time()
-        kl.transform_save(mi)
-        t_dense = time.time() - t
-        dense_launches = launch_counts()["k15a_sandwich"]
-        with store.File(kl._evfile % mi, "r") as f:
-            ev_dense = f["evals_full"][:]
-            n_dense = int(f.attrs["num_modes"])
-        kl_cpu = manager.ProductManager(device="cpu").apply_config(conf).kltransforms["kl"]
-        ev_dense_cpu = kl_cpu._transform_m(mi)[0]
-        band = (ev_fact > PS_THRESHOLD) | (ev_dense > PS_THRESHOLD)
-        c_err = float(np.abs(ev_dense - ev_dense_cpu)[band].max() / ev_dense_cpu.max())
-        d_err = float(np.abs(ev_fact - ev_dense)[band].max() / ev_dense.max())
-        log(
-            f"[{tag}] dense path, m {mi} ({t_dense:.2f} s, {dense_launches} sandwich "
-            f"launches): {n_dense} modes retained (factored {nkl[mi]}), retained band "
-            f"|ev_card - ev_cpu| / ev_top {c_err:.3e}, |ev_dense - ev_factored| / "
-            f"ev_top {d_err:.3e} (tol 1e-3 each; KL tier 1e-4)"
+        ev_c, _ = projections.kl_factored_batched(
+            bsvd.cpu(), ls.cpu(), lf.cpu(), nc=1.0,
+            fg_reg_rel=kl._foreground_regulariser,
         )
-        if not (c_err <= 1e-3 and dense_launches > 0):
-            raise AssertionError(f"{tag}: dense path m {mi}, card vs cpu {c_err:.3e} > 1e-3")
-        if not (d_err <= 1e-3 and abs(n_dense - nkl[mi]) <= 1):
-            raise AssertionError(
-                f"{tag}: dense path m {mi} vs factored: {d_err:.3e}, {n_dense} vs {nkl[mi]} modes"
-            )
-    finally:
-        shutil.rmtree(outdir, ignore_errors=True)
+        t_cpu = time.time() - t
+        ev_c = ev_c.numpy()
+        err = 0.0
+        for i, idx in enumerate(idx_list):
+            ndof = len(idx)
+            if ndof:
+                a, b = ev_file[lo + i][n - ndof:], ev_c[i][n - ndof:]
+                err = max(err, float(np.abs(a - b).max() / max(b.max(), 1e-30)))
+        log(
+            f"[{tag}] cpu check {name} m {lo}..{hi - 1} (cpu {t_cpu:.2f} s): max "
+            f"|ev_file - ev_cpu| / ev_top {err:.3e} (tol 1e-4)"
+        )
+        if not err <= 1e-4:
+            raise AssertionError(f"{tag} {name}: KL spectra card vs cpu {err:.3e} > 1e-4")
+
+    # a second generate() on the same directory skips every stage
+    stamp = {f: os.path.getmtime(f) for f in files if "svdspectrum" not in f}
+    backend.reset_launch_counts()
+    t = time.time()
+    m2 = manager.ProductManager().apply_config(conf)
+    m2.generate()
+    torch.cuda.synchronize()
+    t_again = time.time() - t
+    again = launch_counts()
+    touched = [f for f, at in stamp.items() if os.path.getmtime(f) != at]
+    log(f"[{tag}] second generate(): {t_again:.2f} s, launches {sum(again.values())}, "
+        f"files rewritten {len(touched)}")
+    if any(again.values()) or touched:
+        raise AssertionError(f"{tag}: the second generate() did not skip: {again} {touched[:4]}")
+
+    # one m through the dense per-m transform (the sandwich's sky form,
+    # then the whitened dense eigensolve): the card against the same
+    # transform on the CPU from the same files, and against the m's
+    # factored spectrum, on the retained band.  The dense noise
+    # covariance has a condition number of ~3e11 at this telescope, so
+    # its whitened spectrum is defined to ~cond * eps = 7e-5 of the top
+    # eigenvalue whatever computes it: both gates are 1e-3, and the
+    # figures are printed beside the KL tier's 1e-4.
+    mi = int(np.argmax(nkl))
+    with store.File(kl._evfile % mi, "r") as f:
+        ev_fact = f["evals_full"][:]
+    backend.reset_launch_counts()
+    t = time.time()
+    kl.transform_save(mi)
+    t_dense = time.time() - t
+    dense_launches = launch_counts()["k15a_sandwich"]
+    with store.File(kl._evfile % mi, "r") as f:
+        ev_dense = f["evals_full"][:]
+        n_dense = int(f.attrs["num_modes"])
+    kl_cpu = manager.ProductManager(device="cpu").apply_config(conf).kltransforms["kl"]
+    ev_dense_cpu = kl_cpu._transform_m(mi)[0]
+    band = (ev_fact > PS_THRESHOLD) | (ev_dense > PS_THRESHOLD)
+    c_err = float(np.abs(ev_dense - ev_dense_cpu)[band].max() / ev_dense_cpu.max())
+    d_err = float(np.abs(ev_fact - ev_dense)[band].max() / ev_dense.max())
+    log(
+        f"[{tag}] dense path, m {mi} ({t_dense:.2f} s, {dense_launches} sandwich "
+        f"launches): {n_dense} modes retained (factored {nkl[mi]}), retained band "
+        f"|ev_card - ev_cpu| / ev_top {c_err:.3e}, |ev_dense - ev_factored| / "
+        f"ev_top {d_err:.3e} (tol 1e-3 each; KL tier 1e-4)"
+    )
+    if not (c_err <= 1e-3 and dense_launches > 0):
+        raise AssertionError(f"{tag}: dense path m {mi}, card vs cpu {c_err:.3e} > 1e-3")
+    if not (d_err <= 1e-3 and abs(n_dense - nkl[mi]) <= 1):
+        raise AssertionError(
+            f"{tag}: dense path m {mi} vs factored: {d_err:.3e}, {n_dense} vs {nkl[mi]} modes"
+        )
     return launches, nkl
 
 
@@ -946,6 +1011,274 @@ def products_kernels(tel, nkl):
         recs.setdefault("k15a_sandwich", a)
         recs.setdefault("k15b_fisher_trace", b)
     return recs
+
+
+def write_yaml(conf, path):
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(conf, f)
+    return path
+
+
+def timestream_config(outdir, tsdir, mapfile, nside):
+    """The ``drift-runpipeline`` config of ``[timestream]`` on the products
+    in ``outdir``: ts1 noiseless from ``mapfile``, ts2 with the telescope's
+    noise from a seed; every stage, the KL modes of both filters, PSExact on
+    ``kl``, maps of the inverse filter ``klinv`` at ``nside``, and the
+    cross power of the two timestreams."""
+    sim = {"product_directory": outdir, "maps": [mapfile]}
+    return {
+        "config": {
+            "product_directory": outdir, "klmodes": ["kl", "klinv"],
+            "powerspectra": [{"psname": "ps", "klname": "kl"}], "klmaps": ["klinv"],
+            "nside": nside,
+        },
+        "timestreams": [
+            {"name": "ts1", "directory": f"{tsdir}/ts1", "simulate": dict(sim, ndays=0)},
+            {"name": "ts2", "directory": f"{tsdir}/ts2", "simulate": dict(sim, seed=SEED)},
+        ],
+        "crosspower": [{"psname": "ps", "klname": "kl", "timestreams": ["ts1", "ts2"],
+                        "psfile": f"{tsdir}/xps.hdf5"}],
+    }
+
+
+def timestream_files(pm, tsdir):
+    """Every file the pipeline of :func:`timestream_config` leaves."""
+    files = [os.path.join(tsdir, "xps.hdf5")]
+    for ts in pm.timestreams.values():
+        nm, out = ts.telescope.mmax + 1, ts.output_directory
+        files += [ts._ffile(fi) for fi in range(ts.telescope.nfreq)]
+        files += [ts._mfile(mi) for mi in range(nm)] + [ts._svdfile(mi) for mi in range(nm)]
+        for klname in ("kl", "klinv"):
+            ts.set_kltransform(klname)
+            files += [ts._klfile(mi) for mi in range(nm)]
+            files.append(os.path.join(out, f"klmodes_{klname}_{ts.klthreshold:f}.hdf5"))
+        files += [os.path.join(out, f"{n}.hdf5")
+                  for n in ("ps_ps", "map_full", "map_svd", "map_klinv")]
+    return files
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (0 for two empty arrays)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {a.shape} and {b.shape}")
+    return float(np.abs(a - b).max() / np.abs(b).max()) if b.size else 0.0
+
+
+def _gate(tag, what, err, tol):
+    log(f"[{tag}] {what}: {err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{tag}: {what} {err:.3e} > {tol:g}")
+
+
+def klinv_phase(outdir):
+    """An inverse KL filter ``klinv`` added to the products in ``outdir``:
+    their config, with ``klinv`` appended, goes into the directory as
+    ``config.yaml``, and a second ``generate()`` of a manager loaded from it
+    writes only ``klinv`` (the rest is skipped), through the dense per-m
+    path (K15a's sky form).  Returns (launches, manager)."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+
+    tag = "klinv"
+    conf = products_config(outdir)
+    conf["kltransform"].append(
+        {"type": "KLTransform", "name": "klinv", "threshold": PS_THRESHOLD, "inverse": True}
+    )
+    write_yaml(conf, os.path.join(outdir, "config.yaml"))
+
+    backend.reset_launch_counts()
+    t = time.time()
+    m = manager.ProductManager.from_config(outdir)
+    m.generate()
+    torch.cuda.synchronize()
+    t_klinv = time.time() - t
+    launches = launch_counts()
+    log(f"[{tag}] generate() {t_klinv:.4f} s  launches {launches}")
+    require_launched(tag, launches, ["k15a_sandwich"])
+    return launches, m
+
+
+def timestream_phase(outdir, m):
+    """The timestream pipeline behind ``drift-runpipeline`` on the card, on
+    the product directory ``[products]`` left in ``outdir`` with ``klinv``
+    added (manager ``m``), and its checks.
+
+    The input sky is made on the card by ``synthesis_real`` (K14) from
+    seeded band-limited alm at the nside of the telescope's BTM; the launch
+    counts are set to 0 after that, just before ``run_config``.  Returns
+    (launches, mapfile, nside)."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.ops import sht
+    from driftscan_tpu_torch.scripts import runpipeline
+    from driftscan_tpu_torch.util import store
+
+    tag = "timestream"
+    tel, bt = m.telescope, m.beamtransfer
+    nside = tel._nside_for(tel.lmax)
+    nl, nm = tel.lmax + 1, tel.mmax + 1
+    rng = np.random.default_rng(SEED + 3)
+    alm = rng.standard_normal((tel.nfreq, nl, nl)) + 1j * rng.standard_normal((tel.nfreq, nl, nl))
+    alm = np.where(np.arange(nl)[None, :] <= np.arange(nl)[:, None], alm, 0)
+    alm[..., 0] = alm[..., 0].real
+    skymap = sht.synthesis_real(torch.as_tensor(alm, device=tel.device), nside)[:, None]
+    skymap = skymap.cpu().numpy()
+    mapfile = os.path.join(outdir, "sky.hdf5")
+    with store.File(mapfile, "w") as f:
+        f.create_dataset("map", data=skymap)
+
+    tsdir = os.path.join(outdir, "timestreams")
+    cfg = write_yaml(timestream_config(outdir, tsdir, mapfile, nside),
+                     os.path.join(outdir, "timestream.yaml"))
+    backend.reset_launch_counts()
+    t = time.time()
+    pm = runpipeline.run_config(cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = launch_counts()
+    ts1, ts2 = pm.timestreams["ts1"], pm.timestreams["ts2"]
+    stages = "  ".join(f"t_{k} {v:.4f} s" for k, v in pm.timings.items())
+    log(
+        f"[{tag}] store {store.BACKEND}  nside {nside}  map {skymap.shape}  ntime {ts1.ntime}  "
+        f"pipeline wall {wall:.4f} s  {stages}"
+    )
+    log(f"[{tag}] launches {launches}")
+    require_launched(tag, launches, ["k14_legendre_synth", "k3k5_legendre_sht"])
+
+    # every file exists and opens
+    files = timestream_files(pm, tsdir)
+    bad = [f for f in files if not store.readable(f)]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} files missing or unreadable: {bad[:4]}")
+    log(f"[{tag}] {len(files)} pipeline files open")
+
+    # the noiseless m-modes are the direct projection of the sky's alm
+    alm_in = sht.sphtrans_sky(skymap, lmax=tel.lmax, device=tel.device).cpu().numpy()
+    direct, got = [], []
+    for mi in (0, 1, 8, tel.mmax):
+        direct.append(bt.project_vector_sky_to_telescope(mi, alm_in[..., mi]))
+        got.append(ts1.mmode(mi).reshape(tel.nfreq, bt.ntel))
+    _gate(tag, "ts1 m-modes (m 0, 1, 8, mmax) vs the direct projection, of max", _rel(got, direct), 1e-8)
+
+    # maps: finite, non-zero; ts1's against the CPU synthesis of the same alm
+    ts1.set_kltransform("klinv")
+    alm_of = {"full": ts1.alm_full_m, "svd": ts1.alm_svd_m,
+              "klinv": lambda mi: ts1.alm_kl_m(mi, pm.wiener)}
+    for ts in (ts1, ts2):
+        for name in alm_of:
+            with store.File(os.path.join(ts.output_directory, f"map_{name}.hdf5"), "r") as f:
+                skm = f["map"][:]
+            if skm.shape != (tel.nfreq, tel.num_pol_sky, 12 * nside**2):
+                raise AssertionError(f"{tag}: map_{name} shape {skm.shape}")
+            if not (np.isfinite(skm).all() and np.abs(skm).max() > 0):
+                raise AssertionError(f"{tag}: map_{name} of {ts.directory} not finite and non-zero")
+            if ts is ts1:
+                a = ts1.collect_alm(alm_of[name], ts1._mlist() if name == "klinv" else None)
+                cpu = sht.sphtrans_inv_sky(a, nside, device="cpu").numpy()
+                _gate(tag, f"ts1 map_{name} vs the CPU synthesis of its alm, of max "
+                      f"(max|map| {np.abs(cpu).max():.6e})", _rel(skm, cpu), 1e-10)
+
+    # SVD and KL modes of the first and last m against the CPU projections
+    mc = manager.ProductManager.from_config(outdir, device="cpu")
+    btc, klc = mc.beamtransfer, mc.kltransforms["kl"]
+    ts1.set_kltransform("kl")
+    e_svd = e_kl = 0.0
+    for mi in list(range(CPU_CHECK_M)) + list(range(nm - CPU_CHECK_M, nm)):
+        svd = ts1.mmode_svd(mi)
+        e_svd = max(e_svd, _rel(svd, btc.project_vector_telescope_to_svd(
+            mi, ts1.mmode(mi).reshape(tel.nfreq, bt.ntel))))
+        e_kl = max(e_kl, _rel(ts1.mmode_kl(mi),
+                              klc.project_vector_svd_to_kl(mi, svd, threshold=ts1.klthreshold)))
+    _gate(tag, f"ts1 SVD modes of the first and last {CPU_CHECK_M} m vs the CPU", e_svd, 1e-8)
+    _gate(tag, f"ts1 KL modes of the first and last {CPU_CHECK_M} m vs the CPU", e_kl, 1e-8)
+
+    # power spectra: finite, and the CPU's q estimator summed over m
+    psc = mc.psestimators["ps"]
+    psc.genbands()
+    fisher, bias = psc.fisher_bias()
+    finv = np.linalg.inv(fisher)
+    qs = []
+    for ts in (ts1, ts2):
+        ts.set_kltransform("kl")
+        ts.set_psestimator("ps")
+        q = sum(psc.q_estimator(mi, ts.mmode_kl(mi)) for mi in ts._mlist())
+        qs.append(q)
+        with store.File(ts._psfile, "r") as f:
+            ps = f["powerspectrum"][:]
+        if not np.isfinite(ps).all():
+            raise AssertionError(f"{tag}: power spectrum of {ts.directory} not finite")
+        _gate(tag, f"{os.path.basename(ts.directory)} power spectrum vs the CPU q estimator "
+              f"({np.round(ps, 9).tolist()})", _rel(ps, finv @ (q - bias)), 1e-8)
+    qx = np.zeros((2, 2, psc.nbands))
+    qx[0, 1] = qx[1, 0] = sum(psc.q_estimator(mi, ts1.mmode_kl(mi), ts2.mmode_kl(mi))
+                              for mi in ts1._mlist())
+    want = (finv @ (qx - bias).reshape(4, psc.nbands).T).T.reshape(2, 2, psc.nbands)
+    with store.File(os.path.join(tsdir, "xps.hdf5"), "r") as f:
+        xps = f["powerspectrum"][:]
+    if not np.isfinite(xps).all():
+        raise AssertionError(f"{tag}: cross power spectrum not finite")
+    _gate(tag, "cross power spectrum vs the CPU q estimator", _rel(xps, want), 1e-8)
+    psc.delbands()
+
+    # a second run rewrites only the full and SVD maps (as the JAX package)
+    def snapshot():
+        return {os.path.join(d, f): os.path.getmtime(os.path.join(d, f))
+                for d, _, fs in os.walk(tsdir) for f in fs}
+
+    def product(path):
+        parts = os.path.relpath(path, tsdir).split(os.sep)
+        return os.sep.join(parts[: next(i for i, p in enumerate(parts) if p.endswith(
+            (".hdf5", ".pickle", "COMPLETED_M"))) + 1])
+
+    stamp = snapshot()
+    t = time.time()
+    pm2 = runpipeline.run_config(cfg)
+    torch.cuda.synchronize()
+    t_again = time.time() - t
+    touched = {product(p) for p, at in snapshot().items() if stamp.get(p) != at}
+    want = {os.path.join(ts, f"map_{k}.hdf5") for ts in ("ts1", "ts2") for k in ("full", "svd")}
+    log(f"[{tag}] second run_config(): {t_again:.2f} s "
+        f"({'  '.join(f't_{k} {v:.3f}' for k, v in pm2.timings.items())}), rewrote {sorted(touched)}")
+    if touched != want:
+        raise AssertionError(f"{tag}: the second run rewrote {sorted(touched)}, expected {sorted(want)}")
+    return launches, mapfile, nside
+
+
+def profile_timestream(outdir, mapfile, nside):
+    """torch.profiler over one fresh ``run_config`` of the ``[timestream]``
+    pipeline (new timestream directories, the same products): wall, device
+    busy time, idle share, largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from driftscan_tpu_torch.scripts import runpipeline
+
+    tsdir = os.path.join(outdir, "timestreams_profiled")
+    cfg = write_yaml(timestream_config(outdir, tsdir, mapfile, nside),
+                     os.path.join(outdir, "timestream_profiled.yaml"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        with record_function(PROFILED):
+            pm = runpipeline.run_config(cfg)
+            torch.cuda.synchronize()
+        wall = time.time() - t
+    busy_s, nops = device_busy(prof, wall)
+    stages = "  ".join(f"{k} {v:.3f} s" for k, v in pm.timings.items())
+    log(
+        f"[profile] timestream run_config(): wall {wall:.4f} s (profiled), device busy "
+        f"{busy_s:.4f} s, idle share {1.0 - busy_s / wall:.4f}, {nops} device ops; {stages}"
+    )
+    table = prof.key_averages().table(sort_by="device_time_total", row_limit=14)
+    for line in table.splitlines():
+        log(f"[profile]   {line}")
 
 
 def probe_phase():
@@ -1148,17 +1481,33 @@ def main():
             # the unpolarised leg's K13 at the largest k its path launched
             perf["k13_fisher_cov"] = k13_rec
             slice_run = run
-    launches, nkl = products_phase(slice_run)
-    for name, count in launches.items():
-        if count:
-            counted[name] = counted.get(name, 0) + count
-    # the sandwich and the trace at the largest nkl of the products run
-    perf.update(products_kernels(tel, nkl))
+    # the product directory of [products] serves [timestream]
+    outdir = tempfile.mkdtemp(prefix="driftscan_products_")
+    profiling = "--profile" in sys.argv[1:]
+    try:
+        launches, nkl = products_phase(slice_run, outdir)
+        for name, count in launches.items():
+            if count:
+                counted[name] = counted.get(name, 0) + count
+        # the sandwich and the trace at the largest nkl of the products run
+        perf.update(products_kernels(tel, nkl))
+        launches, m = klinv_phase(outdir)
+        for name, count in launches.items():
+            if count:
+                counted[name] = counted.get(name, 0) + count
+        launches, mapfile, nside = timestream_phase(outdir, m)
+        for name, count in launches.items():
+            if count:
+                counted[name] = counted.get(name, 0) + count
+        if profiling:
+            profile_timestream(outdir, mapfile, nside)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
     launches, probe_perf = probe_phase()
     perf.update(probe_perf)
     for name in PROBE_KERNELS:
         counted[name] = launches[name]
-    if "--profile" in sys.argv[1:]:
+    if profiling:
         profile_paths((("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD)))
         profile_products()
 

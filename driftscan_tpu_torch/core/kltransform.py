@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..ops import fpencil, linalg, projections
+from ..ops import fpencil, linalg, projections, sht
 from ..parallel import comm
 from ..util import store, util
 from . import skymodel
@@ -675,22 +675,22 @@ class KLTransform(config.Reader):
         return self.project_matrix_svd_to_kl(mi, mproj, threshold)
 
     def project_sky(self, sky, mlist=None, threshold=None, harmonic=False):
-        """Project sky alm (nfreq, npol, lmax+1, m) through the KL filter
-        for a set of m.  Maps (``harmonic=False``) need the synthesis-side
-        SHT, which is not ported yet."""
-        if not harmonic:
-            raise NotImplementedError(
-                "projecting a sky map needs sphtrans_sky, which is not ported "
-                "yet: ROADMAP.md, modules to port, item 8 (timestream); pass "
-                "alm with harmonic=True"
-            )
+        """Project a sky map (nfreq, npol, npix), or with ``harmonic`` its
+        alm (nfreq, npol, lmax+1, m), through the KL filter for a set of m;
+        a map is transformed on the KL transform's device."""
         if mlist is None:
             mlist = list(range(self.telescope.mmax + 1))
         nmodes = self.beamtransfer.nfreq * self.beamtransfer.ntel
+        alm = (
+            sky
+            if harmonic
+            else sht.sphtrans_sky(sky, lmax=self.telescope.lmax, device=self.device)
+            .cpu().numpy()
+        )
 
         proj_arr = np.zeros((2 * self.telescope.mmax + 1, nmodes), dtype=np.complex128)
         for mi in comm.partition_list_mpi(mlist):
-            p1 = self.project_vector_sky_to_kl(mi, sky[..., mi], threshold)
+            p1 = self.project_vector_sky_to_kl(mi, alm[..., mi], threshold)
             if p1.size:
                 proj_arr[mi, -p1.size :] = p1
         return proj_arr

@@ -255,6 +255,9 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
     _baselines = None
     _redundancy = None
     _uniquepairs = None
+    _feedmap = None
+    _feedmask = None
+    _feedconj = None
 
     @property
     def baselines(self):
@@ -299,6 +302,27 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
             self.calculate_feedpairs()
         return self._uniquepairs
 
+    @property
+    def feedmap(self):
+        """(nfeed, nfeed) unique-pair label of every ordered feed pair."""
+        if self._feedmap is None:
+            self.calculate_feedpairs()
+        return self._feedmap
+
+    @property
+    def feedmask(self):
+        """(nfeed, nfeed) True for the feed pairs that are included."""
+        if self._feedmask is None:
+            self.calculate_feedpairs()
+        return self._feedmask
+
+    @property
+    def feedconj(self):
+        """(nfeed, nfeed) True where a pair is its unique pair conjugated."""
+        if self._feedconj is None:
+            self.calculate_feedpairs()
+        return self._feedconj
+
     def calculate_feedpairs(self):
         """Unique feed pairs, their redundancy and (east-pointing) baselines.
 
@@ -313,6 +337,7 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         fmap = self._rank_pairs(fmap, mask, conj)
 
         tmask = mask & ~conj
+        self._feedmap, self._feedmask, self._feedconj = fmap, mask, conj
         self._uniquepairs = _class_representatives(fmap, tmask)
         if self._uniquepairs.shape[0] == 0:
             raise ValueError(

@@ -19,26 +19,21 @@
 // What bounds it on an H100: float64 issue in the recurrence (~15 flops a
 // lambda, recomputed once per unit tile), not memory: the phase-stage
 // inputs (B, nm, nring) are streamed from L2 once per multipole tile.  The
-// JAX form exp(s + log|u|) per lambda is replaced by u * exp(s) with
-// exp(s) refreshed only when s changes (seed and rescale events), which
-// removes two float64 transcendentals from every step.
+// recurrence step (legendre_rec.cuh) is shared with the synthesis kernel
+// K14 (legendre_synth.cu).
 //
 // Plain version: driftscan_tpu_torch.ops.sht.legendre_contract_ref.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "legendre_rec.cuh"
+
 namespace {
 
 constexpr int BT = 16;    // units per block
 constexpr int TL = 16;    // multipoles per tile
 constexpr int RT = 256;   // rings per tile == threads per block
-
-constexpr double kBig = 1e30;
-constexpr double kSmall = 1e-30;
-constexpr double kLogBig = 69.07755278982137;   // log(1e30)
-constexpr double kTiny = 1.6458114310822737e-38;  // exp(-87)
-constexpr double kExpFloor = -745.0;            // exp() underflows below
 
 template <typename T>
 struct cpx {
@@ -97,10 +92,8 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
     }
     if (tid < TL) {
       const double l = (double)(l0 + tid);
-      const double denom = fmax(l * l - mf * mf, 1.0);
-      a_s[tid] = sqrt(fmax(4.0 * l * l - 1.0, 0.0) / denom);
-      b_s[tid] = sqrt(fmax((l - 1.0) * (l - 1.0) - mf * mf, 0.0) /
-                      fmax(4.0 * (l - 1.0) * (l - 1.0) - 1.0, 1.0));
+      a_s[tid] = legendre::coef_a(l, mf);
+      b_s[tid] = legendre::coef_b(l, mf);
     }
     __syncthreads();
 
@@ -109,47 +102,26 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
       const int r = r0 + tid;
       // ---- recurrence: TL steps of this thread's ring ----
       if (r < nring) {
-        double u0 = st[r * 4 + 0], u1 = st[r * 4 + 1];
-        double s = st[r * 4 + 2], sc = st[r * 4 + 3];
+        legendre::State rs;
+        rs.u0 = st[r * 4 + 0];
+        rs.u1 = st[r * 4 + 1];
+        rs.s = st[r * 4 + 2];
+        rs.sc = st[r * 4 + 3];
         const double x = cos_t[r];
+        const double sin_r = sin_t[r];
         for (int li = 0; li < TL; ++li) {
           const int l = l0 + li;
           double lam = 0.0;
           if (l >= m && l <= lmax) {
-            double u_new;
-            bool refresh = false;
-            if (l == m) {
-              u_new = sgn;
-              s = logpref[m] + mf * log(fmax(sin_t[r], 1e-30));
-              refresh = true;
-            } else if (l == m + 1) {
-              u_new = x * sq * u1;
-            } else {
-              u_new = a_s[li] * (x * u1 - b_s[li] * u0);
-            }
-            const double mx = fmax(fabs(u_new), fabs(u1));
-            double factor = 1.0;
-            if (mx > kBig) {
-              factor = kSmall;
-              s += kLogBig;
-              refresh = true;
-            } else if (mx > 0.0 && mx < kSmall) {
-              factor = kBig;
-              s -= kLogBig;
-              refresh = true;
-            }
-            u0 = u1 * factor;
-            u1 = u_new * factor;
-            if (refresh) sc = (s > kExpFloor) ? exp(s) : 0.0;
-            lam = u1 * sc;
-            if (fabs(lam) <= kTiny) lam = 0.0;
+            lam = legendre::step(rs, l, m, mf, x, sin_r, a_s[li], b_s[li], sgn,
+                                 sq, logpref);
           }
           lam_s[li * RT + tid] = (T)lam;
         }
-        st[r * 4 + 0] = u0;
-        st[r * 4 + 1] = u1;
-        st[r * 4 + 2] = s;
-        st[r * 4 + 3] = sc;
+        st[r * 4 + 0] = rs.u0;
+        st[r * 4 + 1] = rs.u1;
+        st[r * 4 + 2] = rs.s;
+        st[r * 4 + 3] = rs.sc;
       } else {
         for (int li = 0; li < TL; ++li) lam_s[li * RT + tid] = (T)0;
       }

@@ -1,6 +1,6 @@
-"""Forward spherical harmonic transform of ring-padded maps (analysis).
+"""Spherical harmonic transforms of HEALPix RING maps.
 
-Port of the analysis half of ``driftscan_tpu/ops/sht.py``:
+Port of ``driftscan_tpu/ops/sht.py``, the forward transform (analysis):
 
 * phase stage (K4) — ``F_m(r) = sum_j f(r, j) e^{-i m phi_rj}`` and its
   ``+m`` partner ``G_m(r)``, from one ``torch.fft`` per group of rings of
@@ -16,9 +16,25 @@ Port of the analysis half of ``driftscan_tpu/ops/sht.py``:
   :func:`legendre_contract_ref` is the plain version (a lambda table and
   a batched contraction), the JAX algorithm step for step.
 
-Conventions: Condon-Shortley phase, orthonormal harmonics, so
-``Y_{l,-m} = (-1)^m conj(Y_lm)``.  Quadrature is equal-area pixel
-weighting.
+and the inverse transform (synthesis):
+
+* Legendre stage (K14) -- ``T+[b, m, r] = sum_l lambda_lm(theta_r) a[b, l,
+  m]`` and, for a complex field, ``T-[b, m, r] = (-1)^m sum_l
+  lambda_lm(theta_r) a[b, l, -m]``.  :func:`legendre_synth` runs it as one
+  hand-written CUDA kernel that generates lambda on the fly;
+  :func:`legendre_synth_ref` is the plain version (a lambda table and one
+  contraction);
+* phase stage (K4's inverse) -- ring r's spectrum ``S_r[k] = sum_{m = k
+  mod N_r} w_m T+_m(r) e^{+i m phi0_r}`` (plus ``T-_m(r) e^{-i m phi0_r}``
+  at ``k = -m mod N_r``) is folded with ``index_add_`` (in the polar caps
+  several m share a bin), then ``f(r, j) = N_r ifft(S_r)[j]`` per group of
+  rings of equal length; the real form has ``w_0 = 1``, ``w_{m>0} = 2`` and
+  keeps the real part.
+
+Compact RING maps enter and leave through :func:`pad_map` and
+:func:`unpad_map`.  Conventions: Condon-Shortley phase, orthonormal
+harmonics, so ``Y_{l,-m} = (-1)^m conj(Y_lm)``.  Quadrature is equal-area
+pixel weighting.
 """
 
 from __future__ import annotations
@@ -26,19 +42,32 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import backend
 from .healpix import ring_geometry
+from .projections import as_tensor
 
 K3K5 = backend.register(
     "k3k5_legendre_sht",
     "cuda",
     "driftscan_tpu_torch/csrc/legendre_sht.cu",
     "driftscan_tpu/ops/sht.py:80 + driftscan_tpu/ops/sht.py:729",
+)
+
+K14 = backend.register(
+    "k14_legendre_synth",
+    "cuda",
+    "driftscan_tpu_torch/csrc/legendre_synth.cu",
+    "driftscan_tpu/ops/sht.py:474 + driftscan_tpu/ops/sht.py:535 (+ :80)",
+)
+
+_ITERS_NOT_PORTED = (
+    "Jacobi refinement of the forward SHT (iters > 0) is not ported yet: "
+    "ROADMAP.md, modules to port, item 8.1"
 )
 
 # Rescaling bounds of the Legendre recurrence (the JAX package's constants).
@@ -104,8 +133,10 @@ def legendre_table(mvals, cos_t, sin_t, lmax: int, logpref):
         mx = torch.maximum(u_new.abs(), u1.abs())
         up = mx > _BIG
         down = (mx > 0.0) & (mx < _SMALL)
-        factor = torch.where(up, _SMALL, torch.where(down, _BIG, 1.0))
-        dlog = torch.where(up, _LOG_BIG, torch.where(down, -_LOG_BIG, 0.0))
+        # float64 factors: where() of two Python scalars gives float32
+        one = torch.ones_like(mx)
+        factor = torch.where(up, _SMALL * one, torch.where(down, _BIG * one, one))
+        dlog = torch.where(up, _LOG_BIG * one, torch.where(down, -_LOG_BIG * one, 0.0 * one))
         u0 = u1 * factor
         u1 = u_new * factor
         s = s_new + dlog
@@ -233,14 +264,26 @@ def phase_stage(padded, nside: int, nm: int):
 _GEOM_CACHE = {}
 
 
-def _geom_tensors(nside: int, device):
+class _Geom(NamedTuple):
+    """Device tables of the ring geometry of one nside."""
+
+    cos_t: torch.Tensor  # (nring,) float64
+    sin_t: torch.Tensor  # (nring,) float64
+    mask: torch.Tensor  # (nring, maxlen) validity of each (ring, slot)
+    pix_index: torch.Tensor  # (nring*maxlen,) RING pixel of each slot
+    valid: torch.Tensor  # flat slots that hold a pixel, in RING order
+
+
+def _geom_tensors(nside: int, device) -> _Geom:
     key = (nside, str(device))
     if key not in _GEOM_CACHE:
         g = ring_geometry(nside)
-        _GEOM_CACHE[key] = (
+        _GEOM_CACHE[key] = _Geom(
             torch.as_tensor(g.cos_theta, dtype=torch.float64, device=device),
             torch.as_tensor(g.sin_theta, dtype=torch.float64, device=device),
             torch.as_tensor(g.mask, device=device),
+            torch.as_tensor(g.pix_index.ravel().astype(np.int64), device=device),
+            torch.as_tensor(np.nonzero(g.mask.ravel())[0], device=device),
         )
     return _GEOM_CACHE[key]
 
@@ -262,13 +305,194 @@ def analysis(maps, lmax: int, nside: int):
     if not maps.is_complex():
         raise TypeError("analysis takes complex maps")
     lead = maps.shape[:-1]
-    cos_t, sin_t, mask = _geom_tensors(nside, maps.device)
+    cos_t, sin_t, mask = _geom_tensors(nside, maps.device)[:3]
     flat = maps.reshape(-1, g.nring, g.maxlen) * mask.to(maps.real.dtype)
     F, G = phase_stage(flat, nside, mmax + 1)
     pos, neg = legendre_contract(F, G, cos_t, sin_t, lmax, 4.0 * math.pi / g.npix)
     pos = pos.reshape(lead + (lmax + 1, mmax + 1))
     neg = neg[..., 1:].reshape(lead + (lmax + 1, mmax))
     return pos, neg
+
+
+# ------------------------------------------------------------------
+# Compact RING maps
+# ------------------------------------------------------------------
+
+
+def pad_map(maps, nside: int):
+    """Gather (..., npix) RING maps into the flat padded (ring, slot) layout
+    (..., nring*maxlen) the transforms take; padding slots are zero."""
+    g = _geom_tensors(nside, maps.device)
+    return maps[..., g.pix_index] * g.mask.ravel().to(maps.real.dtype)
+
+
+def unpad_map(padded, nside: int):
+    """Inverse of :func:`pad_map`: flat padded layout -> (..., npix)."""
+    return padded[..., _geom_tensors(nside, padded.device).valid]
+
+
+def _nside_of(npix: int) -> int:
+    nside = int(round(math.sqrt(npix / 12)))
+    if 12 * nside * nside != npix:
+        raise ValueError(f"npix {npix} is not a valid healpix size")
+    return nside
+
+
+def sphtrans_sky(skymap, lmax: Optional[int] = None, iters: int = 0, device=None):
+    """Forward SHT of real RING sky maps [..., pix] -> alm [..., l, m >= 0].
+
+    The JAX package's ``analysis(maps, lmax)`` on real maps (``neg_m=False``,
+    mmax = lmax, default lmax 3 nside - 1): the map is padded, made complex
+    (float64 maps give complex128) and taken through the phase stage and
+    K3+K5, whose negative-m block is computed and dropped.  ``skymap`` is a
+    tensor, or an array that goes to ``device`` (the card when None).
+    """
+    if iters:
+        raise NotImplementedError(_ITERS_NOT_PORTED)
+    maps = as_tensor(skymap, device)
+    if maps.is_complex():
+        raise TypeError("sphtrans_sky takes real maps")
+    nside = _nside_of(maps.shape[-1])
+    lmax = 3 * nside - 1 if lmax is None else lmax
+    padded = pad_map(maps, nside).to(backend.complex_dtype(maps.dtype))
+    pos, _ = analysis(padded, lmax, nside)
+    return pos
+
+
+# ------------------------------------------------------------------
+# Synthesis: K14 and the inverse phase stage
+# ------------------------------------------------------------------
+
+
+def _synth_plane(lam, a):
+    """sum_l lam[l, m, r] a[b, l, m] for complex a, lam real: (B, nm, nring)."""
+    out = torch.einsum("lmr,blmc->bmrc", lam, torch.view_as_real(a.resolve_conj()))
+    return torch.view_as_complex(out.contiguous())
+
+
+def legendre_synth_ref(pos, neg, cos_t, sin_t):
+    """Plain PyTorch version of :func:`legendre_synth`: the lambda table of
+    the JAX recurrence and one contraction per block."""
+    nl, nm = pos.shape[1:]
+    rdtype = backend.real_dtype(pos.dtype)
+    mvals = torch.arange(nm, device=pos.device)
+    logpref = torch.as_tensor(_log_lambda_mm_prefactor(nl - 1), device=pos.device)
+    lam = legendre_table(mvals, cos_t, sin_t, nl - 1, logpref).to(rdtype)
+    tpos = _synth_plane(lam, pos)
+    if neg is None:
+        return tpos, None
+    shifted = torch.cat([torch.zeros_like(pos[..., :1]), neg], dim=-1)
+    signm = torch.where(mvals % 2 == 0, 1.0, -1.0).to(rdtype)
+    return tpos, _synth_plane(lam, shifted) * signm[:, None]
+
+
+def legendre_synth(pos, neg, cos_t, sin_t):
+    """Legendre stage of the synthesis (K14).
+
+    pos (B, lmax+1, nm) complex coefficients for m = 0..nm-1; neg (B,
+    lmax+1, nm-1) the negative-m block (column j holding m = -(j+1)) or
+    None for a real field; cos_t, sin_t (nring,) float64 ring colatitudes.
+    Returns (tpos, tneg), each (B, nm, nring) complex (tneg None without
+    ``neg``): ``tpos[b, m, r] = sum_l lambda_lm(theta_r) pos[b, l, m]`` and
+    ``tneg[b, m, r] = (-1)^m sum_l lambda_lm(theta_r) a[b, l, -m]``.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    args = (pos, cos_t, sin_t) + (() if neg is None else (neg,))
+    if not backend.on_cuda(*args):
+        return legendre_synth_ref(pos, neg, cos_t, sin_t)
+    B, nl, nm = pos.shape
+    nring = cos_t.shape[0]
+    backend.require(pos, "pos", dtype=(torch.complex64, torch.complex128), ndim=3)
+    if neg is not None:
+        backend.require(neg, "neg", dtype=pos.dtype, shape=(B, nl, nm - 1))
+    backend.require(cos_t, "cos_t", dtype=torch.float64, shape=(nring,))
+    backend.require(sin_t, "sin_t", dtype=torch.float64, shape=(nring,))
+    if nm > nl:
+        raise ValueError(f"nm={nm} exceeds lmax+1={nl}")
+    dev = pos.device
+    # the kernel writes every entry
+    tpos = torch.empty((B, nm, nring), dtype=pos.dtype, device=dev)
+    tneg = None if neg is None else torch.empty_like(tpos)
+    if tpos.numel() == 0:
+        return tpos, tneg
+    logpref = torch.as_tensor(_log_lambda_mm_prefactor(nl - 1), device=dev)
+    fn = K14.entry(
+        "legendre_synth_c64" if pos.dtype == torch.complex64 else "legendre_synth_c128",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    )
+    backend.check(
+        fn(
+            pos.data_ptr(), None if neg is None else neg.data_ptr(),
+            cos_t.data_ptr(), sin_t.data_ptr(), logpref.data_ptr(), tpos.data_ptr(),
+            None if tneg is None else tneg.data_ptr(),
+            B, nm, nring, nl - 1, backend.stream_ptr(dev),
+        ),
+        K14.name,
+    )
+    K14.launches += 1
+    return tpos, tneg
+
+
+def phase_stage_inv(tpos, tneg, nside: int, real: bool):
+    """Padded maps (B, nring, maxlen) from the Legendre stage's outputs.
+
+    Ring r's spectrum S_r[k] = sum_{m = k mod N_r} w_m T+_m(r) e^{+i m
+    phi0_r} (+ T-_m(r) e^{-i m phi0_r} at k = -m mod N_r) is folded with
+    ``index_add_``, which sums the m that share a bin in the polar caps
+    (the phase uses the true m); then f(r, j) = N_r ifft(S_r)[j] per group
+    of rings of equal length.  ``real``: w_0 = 1, w_{m>0} = 2 and the real
+    part (padding slots stay zero).
+    """
+    g = ring_geometry(nside)
+    B, nm, _ = tpos.shape
+    groups, kpos, kneg, shift = _phase_tables(nside, nm, tpos.dtype, tpos.device)
+    vals = tpos * shift
+    if real:
+        w = torch.full((nm, 1), 2.0, dtype=shift.real.dtype, device=tpos.device)
+        w[0] = 1.0
+        vals = vals * w
+    spec = torch.zeros((B, g.nring * g.maxlen, 2), dtype=shift.real.dtype, device=tpos.device)
+    spec.index_add_(1, kpos, torch.view_as_real(vals.reshape(B, -1)))
+    if tneg is not None:
+        spec.index_add_(1, kneg, torch.view_as_real((tneg * shift.conj()).reshape(B, -1)))
+    spec = torch.view_as_complex(spec).reshape(B, g.nring, g.maxlen)
+    out = torch.zeros_like(spec)
+    for n, r in groups:
+        out[:, r, :n] = torch.fft.ifft(spec[:, r, :n], dim=-1) * n
+    return out.real.contiguous() if real else out
+
+
+def _synthesis(pos, neg, nside: int):
+    lead = pos.shape[:-2]
+    nl, nm = pos.shape[-2:]
+    flat = pos.reshape((-1, nl, nm)).resolve_conj().contiguous()
+    if neg is not None:
+        neg = neg.reshape((-1, nl, nm - 1)).resolve_conj().contiguous()
+    g = _geom_tensors(nside, flat.device)
+    tpos, tneg = legendre_synth(flat, neg, g.cos_t, g.sin_t)
+    maps = phase_stage_inv(tpos, tneg, nside, real=neg is None)
+    out = unpad_map(maps.reshape(flat.shape[0], -1), nside)
+    return out.reshape(lead + (out.shape[-1],))
+
+
+def synthesis_real(alm, nside: int):
+    """Inverse SHT of the m >= 0 coefficients (..., lmax+1, mmax+1) of a
+    real field onto RING maps (..., npix), real (float64 for complex128)."""
+    return _synthesis(alm, None, nside)
+
+
+def synthesis_complex(alm_pos, alm_neg, nside: int):
+    """Inverse SHT of a complex field: alm_pos (..., lmax+1, mmax+1) for
+    m >= 0, alm_neg (..., lmax+1, mmax) with column j holding m = -(j+1).
+    Returns complex RING maps (..., npix)."""
+    return _synthesis(alm_pos, alm_neg, nside)
+
+
+def sphtrans_inv_sky(alm, nside: int, device=None):
+    """Inverse SHT onto real sky maps: alm [..., l, m >= 0] -> [..., pix]
+    (the JAX package's ``sphtrans_inv_sky``).  ``alm`` is a tensor, or an
+    array that goes to ``device`` (the card when None)."""
+    return synthesis_real(as_tensor(alm, device), nside)
 
 
 def pack_fftlike(pos: np.ndarray, neg: Optional[np.ndarray], lside: int) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Process-level coordination verbs, single process.
 
 Port of the verbs of ``driftscan_tpu/parallel/comm.py`` that the product
-pipeline calls, for one process: rank 0 of size 1, and every collective
+and timestream pipelines call, for one process: rank 0 of size 1, and every collective
 is the identity.  The partition helpers keep their arithmetic so the
 calling code reads as in the JAX package; a multi-process backend
 (``torch.distributed``) is ROADMAP.md, modules to port, item 11.
@@ -10,7 +10,7 @@ calling code reads as in the JAX package; a multi-process backend
 from __future__ import annotations
 
 import logging
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -64,6 +64,27 @@ def mpirange(n, *args) -> Sequence[int]:
 def partition_list_mpi(full_list: Sequence) -> List:
     """The sublist of items this process should handle."""
     return list(full_list)[rank() :: size()]
+
+
+def parallel_map(func: Callable, lst: Sequence) -> List:
+    """``func`` over ``lst``: the full, ordered result list (every item is
+    this process's)."""
+    return [func(x) for x in lst]
+
+
+def transpose_blocks(row_array, shape: Tuple[int, ...]):
+    """Redistribute an axis-0-split array to be split along the last axis.
+
+    For one process the local block is the whole array: rows must match
+    ``shape[0]``, and the last axis is trimmed to ``shape[-1]`` (the JAX
+    package trims m-modes this way).  Takes arrays or tensors.
+    """
+    if row_array.shape[0] != shape[0]:
+        raise ValueError(
+            f"Local rows {row_array.shape[0]} != global rows {shape[0]} "
+            "in single-process transpose_blocks"
+        )
+    return row_array[..., : shape[-1]]
 
 
 class MPILogFilter(logging.Filter):

@@ -8,6 +8,7 @@ works on factored covariances (ops.fpencil); the fused Fisher step
 contracts each m's retained KL modes against factored band covariances,
 whose per-band Gram is the hand-written kernel K13 and whose weighted
 trace is the hand-written kernel K15b (ops.projections.fisher_trace).
+:func:`btm_forward_step` is the timestream simulation's forward model.
 """
 
 from __future__ import annotations
@@ -251,3 +252,10 @@ def fisher_step(evals, evecs, beam_svd, band_lt, ps_threshold: float, npol: int,
     bt = beam_svd.reshape(M, F, S, npol, nl)[:, :, :, 0].contiguous()
     c = fisher_cov(v, bt, band_lt)  # (M, nb, kf, kf)
     return projections.fisher_trace(c, c, w.contiguous())
+
+
+def btm_forward_step(alm, beam):
+    """The m-mode forward model for a batch of m: sky alm -> visibilities,
+    v[m, f, t] = sum_s beam[m, f, t, s] alm[m, f, s] (the inner projection
+    of the timestream simulation)."""
+    return torch.einsum("mfts,mfs->mft", beam, alm.to(beam.dtype))

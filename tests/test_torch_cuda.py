@@ -97,6 +97,47 @@ def test_k3k5_legendre_sht(cuda, dtype):
            lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, 0.01), 1e-4)
 
 
+# (nside, lmax, B): an odd unit count over one and two unit tiles, ring counts
+# (63, 255) that are not a multiple of the 128-ring tile, m above the polar
+# rings' length, and the path's lmax at an nside of the same ring tiling
+K14_SHAPES = [(16, 30, 3), (16, 47, 11), (64, 150, 9), (32, 229, 8)]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.complex128, 1e-10), (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("neg", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("shape", K14_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k14_legendre_synth(cuda, shape, neg, dtype, rtol):
+    nside, lmax, B = shape
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(14)
+    pos = _crandn(rng, (B, lmax + 1, lmax + 1), cuda).to(dtype)
+    nalm = _crandn(rng, (B, lmax + 1, lmax), cuda).to(dtype) if neg else None
+    ct = torch.as_tensor(g.cos_theta, device=cuda)
+    st = torch.as_tensor(g.sin_theta, device=cuda)
+    _check(sht.K14, lambda: sht.legendre_synth(pos, nalm, ct, st)[: 1 + neg],
+           lambda: sht.legendre_synth_ref(pos, nalm, ct, st)[: 1 + neg], rtol)
+
+
+@pytest.mark.parametrize("neg", [False, True], ids=["real", "complex"])
+def test_synthesis_on_the_card(cuda, neg):
+    """The whole inverse SHT (K14 and the inverse phase stage, whose
+    index_add_ sums in no fixed order on the card) against the CPU."""
+    lmax, nside = 47, 16
+    rng = np.random.default_rng(3)
+    pos = _crandn(rng, (2, 3, lmax + 1, lmax + 1), torch.device("cpu")).to(torch.complex128)
+    nalm = _crandn(rng, (2, 3, lmax + 1, lmax), torch.device("cpu")).to(torch.complex128)
+    if neg:
+        fn = lambda p, n: sht.synthesis_complex(p, n, nside)
+    else:
+        fn = lambda p, n: sht.synthesis_real(p, nside)
+    before = sht.K14.launches
+    got = fn(pos.to(cuda), nalm.to(cuda)).cpu()
+    assert sht.K14.launches == before + 1
+    want = fn(pos, nalm)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
+
+
 def _check_gram(kernel, fn, ref, rtol):
     """A Gram kernel against its plain version, and its contract: the lower
     triangle bitwise the conjugate of the upper (real diagonal), and a

@@ -40,8 +40,8 @@ SLICE_MODULES = [
     "chip_smoke",
 ]
 
-# the file pipeline: product files go through util.store (h5py where it
-# imports)
+# the file pipelines (products and timestreams): files go through util.store
+# (h5py where it imports)
 FILE_MODULES = [
     "driftscan_tpu_torch.core.beamtransfer",
     "driftscan_tpu_torch.core.doublekl",
@@ -50,7 +50,11 @@ FILE_MODULES = [
     "driftscan_tpu_torch.core.psestimation",
     "driftscan_tpu_torch.ops.bitshuffle",
     "driftscan_tpu_torch.ops.truncate",
+    "driftscan_tpu_torch.pipeline",
+    "driftscan_tpu_torch.pipeline.pipeline",
+    "driftscan_tpu_torch.pipeline.timestream",
     "driftscan_tpu_torch.scripts.makeproducts",
+    "driftscan_tpu_torch.scripts.runpipeline",
     "driftscan_tpu_torch.util.store",
 ]
 

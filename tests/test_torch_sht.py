@@ -41,9 +41,12 @@ def test_analysis_matches_jax(nside, lmax):
     np.testing.assert_allclose(tn.numpy(), jn, rtol=0, atol=1e-10 * scale)
 
 
-def test_legendre_table_matches_jax():
-    g = healpix.ring_geometry(32)
-    lmax = 90  # m up to lmax reaches the polar rings' underflow range
+# lmax 90: m up to lmax reaches the polar rings' underflow range; lmax 229
+# (the bench cylinder's): mantissas pass 1e30, so the rescale factors must be
+# float64 (in float32 they put lambda 4e-9 off after the first rescale)
+@pytest.mark.parametrize("nside,lmax", [(32, 90), (64, 229)])
+def test_legendre_table_matches_jax(nside, lmax):
+    g = healpix.ring_geometry(nside)
     mvals = np.arange(lmax + 1)
     logpref = sht._log_lambda_mm_prefactor(lmax)
     want = np.asarray(
