@@ -17,8 +17,9 @@ script exits non-zero:
    once (the Triton kernels compile at their first launch);
 3. kernels -- each hand-written kernel of the product and timestream
    paths against its plain PyTorch version on the same CUDA inputs (at the
-   shapes each of paths 4, 5, 7 and 8 gives it, numpy seed; K14 at B 8, lmax
-   229, 1023 rings, real and complex forms), with the tolerance asserted and
+   shapes each of paths 4, 5, 5a, 7 and 8 gives it, numpy seed; K14 at B 8,
+   lmax 229, 1023 rings, real and complex forms; K1+K2 and K2-host also
+   launched twice, bitwise equal), with the tolerance asserted and
    the median time (CUDA events) of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call
    (``library_ms``: ``torch.matmul(a, a.mH)`` of the pre-formed factor for
@@ -32,6 +33,17 @@ script exits non-zero:
    Fisher over all m;
 5. pol -- the polarised telescope (``bench.build_pol_telescope``'s full
    config, npol 4) through the same entry points;
+5a. dish, restricted, restricted pol -- the host-beam telescopes through
+   the same entry points: DishArray as its JAX class defines it (4 x 4
+   dishes, 1000-1200 MHz, double precision; ``num_freq`` 100 -> 8), the
+   RestrictedCylinder (Gaussian mask) at bench's unpolarised parameters
+   and the RestrictedPolarisedCylinder (box) at its polarised ones, single
+   precision; each launches K2-host (scalar or Stokes) and no bank kernel,
+   with the CPU check of paths 4 and 5 and a retention cut at the top
+   decade of its spectrum; then the host-beam evaluation's share of a
+   cold ``[dish]`` BTM, and ``[float64 gate]``: the restricted and the
+   bench cylinder at ``single_precision: False``, one ``btm_resident``
+   each, K2-host in float64 against the CPU;
 6. products -- the file pipeline behind ``drift-makeproducts``: the bench
    unpolarised cylinder as a config dictionary through
    ``ProductManager.apply_config(...).generate()`` into a fresh temporary
@@ -55,6 +67,15 @@ script exits non-zero:
    opens, m-modes against the direct projection, maps against the CPU
    synthesis of their alm, SVD/KL modes and power spectra against the CPU,
    a second run that rewrites only the full and SVD maps);
+8a. example -- the repository's ``examples/disharray`` (DishArray,
+   ``nosvd``, a KL filter with an inverse), its two YAML files copied
+   unedited into a temporary directory and run there by
+   ``makeproducts.run_config`` and ``runpipeline.run_config`` after the
+   input map of the example's walkthrough script (K14, the port's store); every file
+   opens, the NoSVD telescope basis, maps against the CPU synthesis of
+   their alm; then ``[svd variants]``: TempSVD and FullSVD beam transfers
+   of the same telescope, their singular values against the CPU's
+   ``simple_svd`` (K18b, a library SVD) on the same beams;
 9. probe -- the ports of the two Pallas probes of
    ``scratch/pallas_probe.py`` (o = 2 x; a 1024^3 matmul, float32 and
    bfloat16 inputs) against their plain versions, with Tflop/s.
@@ -113,6 +134,16 @@ POL_PARAMS = dict(
     tsys=50.0,
     single_precision=True,
 )
+# The host-beam telescopes.  DishArray as its JAX class defines it (a 4 x 4
+# grid of 3.5 m dishes, 1000-1200 MHz, double precision: npairs 24, lmax
+# 494, mmax 349, nside 512) with one cut, num_freq 100 -> 8 edge channels
+# (n <= 384 per m, the bench cylinder's product size); the restricted
+# cylinders (a Gaussian and a box declination mask) at bench's parameters.
+DISH_PARAMS = dict(num_freq=8, freq_mode="edge")
+RESTRICTED_PARAMS = dict(BENCH_PARAMS, beam_type="gaussian")
+RESTRICTED_POL_PARAMS = dict(POL_PARAMS, beam_type="box")
+# the beam and visibility-map kernels: one of them serves each path
+MAP_KERNELS = ("k1k2_beam_vis", "k1k2_stokes_vis", "k2_host_vis", "k2_host_stokes")
 PS_THRESHOLD = 0.1  # bench's KL retention cut for the Fisher
 # The polarised telescope's KL spectrum tops at 6.42e-5 (m = 6), in the JAX
 # package as in the port: its product step on the same BTM tables gives the
@@ -234,13 +265,22 @@ def bound(nbytes_moved, ops):
 
 
 def compare(name, kernel_fn, plain_fn, rtol, work, library_fn=None, reps=10,
-            tag="kernels"):
+            tag="kernels", bitwise=False):
     """Kernel vs plain on the same inputs: max error, tolerance, times; the
     bound of ``work`` = (bytes, [(flops, rate), ...]) and the time of one
-    PyTorch call computing the same function (``library_fn``), if any."""
+    PyTorch call computing the same function (``library_fn``), if any.
+    With ``bitwise`` a second kernel call must repeat the first bit for
+    bit."""
     import torch
 
     got = kernel_fn()
+    if bitwise:
+        again = kernel_fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        log(f"[{tag}] {name}: two launches repeat bitwise")
+        del again
     ref = plain_fn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -327,7 +367,7 @@ def kernel_phases(tel, ptel):
                 f"k1k2_stokes_vis ({nu} units x {npol_t} Stokes x {npx} px, nside {ns})",
                 lambda: kernels.bank_stokes_maps(*args, npol=npol_t),
                 lambda: kernels.bank_stokes_maps_ref(*args, npol=npol_t),
-                rtol=1e-5, work=(nbytes(maps, *args[:7]), []),
+                rtol=1e-5, work=(nbytes(maps, *args[:7]), []), bitwise=True,
             ))
         else:
             maps = kernels.bank_visibility_maps(*args)
@@ -335,7 +375,7 @@ def kernel_phases(tel, ptel):
                 f"k1k2_beam_vis ({nu} units x {npx} px, nside {ns})",
                 lambda: kernels.bank_visibility_maps(*args),
                 lambda: kernels.bank_visibility_maps_ref(*args),
-                rtol=1e-5, work=(nbytes(maps, *args[:7]), []),
+                rtol=1e-5, work=(nbytes(maps, *args[:7]), []), bitwise=True,
             ))
         del args, maps
 
@@ -637,6 +677,31 @@ def require_launched(tag, launches, names):
             raise AssertionError(f"kernel {name} was not launched by the {tag} path")
 
 
+def map_kernel(tel):
+    """The beam and map kernel of ``tel``'s BTM: bank rows (K1+K2) or
+    host-evaluated beams (K2-host), scalar or Stokes."""
+    pol = tel.num_pol_sky > 1
+    if tel._bank_beams_apply():
+        return "k1k2_stokes_vis" if pol else "k1k2_beam_vis"
+    return "k2_host_stokes" if pol else "k2_host_vis"
+
+
+def require_map_kernel(tag, tel, launches):
+    """The path launched its own map kernel and none of the other three."""
+    mine = map_kernel(tel)
+    require_launched(tag, launches, [mine])
+    others = {k: launches[k] for k in MAP_KERNELS if k != mine and launches[k]}
+    if others:
+        raise AssertionError(f"{tag}: {mine} path also launched {others}")
+
+
+def top_decade(top):
+    """The retention cut of a new path: PS_THRESHOLD, or the top decade of
+    its spectrum where that tops below ten times the cut (as
+    POL_PS_THRESHOLD keeps the polarised cylinder's)."""
+    return min(PS_THRESHOLD, 10.0 ** np.floor(np.log10(top)))
+
+
 def path_kernels(tel, ls_width):
     """The hand kernels a product path launches: beams + maps, the SHT,
     the compact signal Gram where the product step takes it
@@ -646,15 +711,16 @@ def path_kernels(tel, ls_width):
 
     n = resident.pencil_size(tel)
     width = (tel.lmax + 1) * ls_width
-    names = ["k1k2_stokes_vis" if tel.num_pol_sky > 1 else "k1k2_beam_vis",
-             "k3k5_legendre_sht", "k13_fisher_cov", "k15b_fisher_trace"]
+    names = [map_kernel(tel), "k3k5_legendre_sht", "k13_fisher_cov", "k15b_fisher_trace"]
     if mstep.uses_compact_signal(n, width):
         names.append("k9_signal_gram")
     return names, n, width
 
 
-def path_phase(tag, tel, ps_threshold):
-    """One product path on the card, its launch counts, and the CPU check."""
+def path_phase(tag, tel, ps_threshold=None):
+    """One product path on the card, its launch counts, and the CPU check.
+    Without ``ps_threshold`` the cut is the top decade of the warm-up's
+    spectrum (:func:`top_decade`)."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -673,15 +739,22 @@ def path_phase(tag, tel, ps_threshold):
         f"npol {tel.num_pol_sky} units {len(blg)} pencil n {n} signal width {width} "
         f"ls {ls.shape} lf {lf.shape} band_lt {band_lt.shape} kernels {required}"
     )
-    kw = dict(band_lt=band_lt, ps_threshold=ps_threshold)
+    # m-bucketing (ROADMAP item 6.1) is not ported: every path runs the
+    # full-range m-batches (what "auto" picks at bench's two cylinders)
+    kw = dict(band_lt=band_lt, ps_threshold=ps_threshold or PS_THRESHOLD, bucket=False)
 
     # warm-up: builds, Triton compile, cuFFT plans, first-call costs
     t = time.time()
     pos, neg = resident.btm_resident(tel, blg, fig)
-    resident.product_all_resident(tel, pos, neg, ls, lf, noisew, max_m=8, **kw)
+    ev_w, nmo_w, _ = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, max_m=8, **kw)
     torch.cuda.synchronize()
     log(f"[{tag}] warm-up {time.time() - t:.2f} s")
+    tables_w = (pos, neg)
     del pos, neg
+    if ps_threshold is None:
+        ps_threshold = top_decade(float(np.max(ev_w)))
+        kw["ps_threshold"] = ps_threshold
+        log(f"[{tag}] retention cut {ps_threshold:g} (warm-up top ev {float(np.max(ev_w)):.6e})")
 
     backend.reset_launch_counts()
     t0 = time.time()
@@ -696,6 +769,19 @@ def path_phase(tag, tel, ps_threshold):
     launches = launch_counts()
 
     t_btm, t_prod = t1 - t0, t2 - t1
+    # the warm-up's tables and first m repeat: the BTM bit for bit (the
+    # solid angles are summed in a fixed order), and the product step's
+    # spectra and SVD mode counts reported as they came
+    if not all(torch.equal(a, b) for a, b in zip((pos, neg), tables_w)):
+        raise AssertionError(f"{tag}: two btm_resident runs on the same telescope differ")
+    del tables_w
+    nw = len(ev_w)
+    log(
+        f"[{tag}] repeat: btm_resident tables bitwise equal; first {nw} m warm-up vs timed: "
+        f"spectra {'bitwise equal' if np.array_equal(ev_w, evals[:nw]) else 'differ'} "
+        f"(max {float(np.abs(ev_w - evals[:nw]).max()):.3e}), svd modes "
+        f"{int(nmo_w.sum())} vs {int(nmodes[:nw].sum())}"
+    )
     retained = int((evals > ps_threshold).sum())
     log(
         f"[{tag}] t_btm {t_btm:.4f} s  t_product_fisher {t_prod:.4f} s  "
@@ -716,12 +802,14 @@ def path_phase(tag, tel, ps_threshold):
     if not ((diag.real >= 0).all() and np.abs(diag.imag).max() <= 1e-4 * fscale):
         raise AssertionError(f"{tag}: Fisher diagonal not real non-negative: {diag}")
     require_launched(tag, launches, required)
+    require_map_kernel(tag, tel, launches)
     log(f"[{tag}] fisher diag {np.round(diag.real, 12).tolist()}")
 
     cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold)
     mb = resident.auto_mbatch(tel, ls.shape[-1], lf.shape[-1], tel.device)
     k13_rec = path_k13(tag, tel, evals, ps_threshold, mb, launches["k13_fisher_cov"])
-    run = {"evals": evals, "fisher": fisher, "rate": nm / (t_btm + t_prod)}
+    run = {"evals": evals, "fisher": fisher, "rate": nm / (t_btm + t_prod),
+           "t_btm": t_btm, "ps_threshold": ps_threshold}
     return launches, required, k13_rec, run
 
 
@@ -1448,6 +1536,260 @@ def profile_products():
         shutil.rmtree(outdir, ignore_errors=True)
 
 
+def host_kernel_phases(tels):
+    """K2-host (scalar and Stokes) against its plain version at the first
+    BTM chunk of each host-beam path (``tels``: tag -> telescope), with a
+    bitwise repeat.  Bytes: the maps written, the grid (cart, horizon) and
+    the chunk's unique beams read once; the per-pixel arithmetic is not
+    counted.  No single PyTorch call computes the function.  Returns the
+    records of the double-precision scalar form (the ``[dish]`` path's)
+    and of the Stokes form."""
+    from driftscan_tpu_torch.ops import kernels
+
+    res = {}
+    for tag, t in tels.items():
+        pol = t.num_pol_sky > 1
+        ns, blc, fic, _ = first_chunk(t)
+        t._init_trans(ns)
+        beams, ii, jj, uv3 = t._gather_host_beams(blc, fic)
+        args = (beams, ii, jj, uv3, t._angpos_cart, t._horizon, t._pxarea)
+        npx = t._horizon.shape[0]
+        rtol = 1e-5 if t.single_precision else 1e-10
+        what = (f"({len(blc)} units x {t._npol_transform if pol else 1} x {npx} px, nside {ns}, "
+                f"{len(beams)} unique beams {beams.dtype}; {tag})")
+        if pol:
+            npol = t._npol_transform
+            maps = kernels.host_stokes_maps(*args, npol=npol)
+            rec = compare(
+                f"k2_host_stokes {what}",
+                lambda: kernels.host_stokes_maps(*args, npol=npol),
+                lambda: kernels.host_stokes_maps_ref(*args, npol=npol),
+                rtol=rtol, work=(nbytes(maps, *args[:6]), []), bitwise=True,
+            )
+            res.setdefault("k2_host_stokes", rec)
+        else:
+            maps = kernels.host_visibility_maps(*args)
+            rec = compare(
+                f"k2_host_vis {what}",
+                lambda: kernels.host_visibility_maps(*args),
+                lambda: kernels.host_visibility_maps_ref(*args),
+                rtol=rtol, work=(nbytes(maps, *args[:6]), []), bitwise=True,
+            )
+            if not t.single_precision:
+                res["k2_host_vis"] = rec
+        del maps, args, beams
+    return res
+
+
+def host_beam_share(tag, tel):
+    """The host-beam evaluation's share of a cold ``btm_resident`` (empty
+    beam caches): the seconds spent in ``beam(feed, freq)`` (numpy) and in
+    padding and uploading each beam, over t_btm."""
+    import torch
+
+    from driftscan_tpu_torch.parallel import resident
+
+    spent = {"_beam": 0.0, "_beam_device": 0.0}
+
+    def timed(name):
+        fn = getattr(tel, name)
+
+        def wrapper(*a):
+            t = time.time()
+            out = fn(*a)
+            spent[name] += time.time() - t
+            return out
+        return wrapper
+
+    blg, fig = units(tel)
+    tel._beam_cache = tel._beam_dev_cache = tel._beam_key = None
+    for name in spent:
+        setattr(tel, name, timed(name))
+    try:
+        torch.cuda.synchronize()
+        t = time.time()
+        pos, neg = resident.btm_resident(tel, blg, fig)
+        torch.cuda.synchronize()
+        t_btm = time.time() - t
+    finally:
+        for name in spent:
+            delattr(tel, name)
+    del pos, neg
+    log(
+        f"[{tag}] cold btm_resident {t_btm:.4f} s: host beams {spent['_beam']:.4f} s "
+        f"({spent['_beam'] / t_btm:.4f} of t_btm), with padding and upload "
+        f"{spent['_beam_device']:.4f} s ({spent['_beam_device'] / t_btm:.4f}); "
+        f"{len(tel._beam_cache)} beams"
+    )
+
+
+def precision_gate_phase(tag, klass, params, nunits=4):
+    """A cylinder at ``single_precision: False`` on the card: one
+    ``btm_resident`` pass of all its units launches K2-host in float64 and
+    no bank kernel, and the tables of a few units equal the CPU's."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.parallel import resident
+
+    tel = klass.from_config(dict(params, single_precision=False), device="cuda")
+    cpu = klass.from_config(dict(params, single_precision=False), device="cpu")
+    blg, fig = units(tel)
+    backend.reset_launch_counts()
+    t = time.time()
+    pos, neg = resident.btm_resident(tel, blg, fig)
+    torch.cuda.synchronize()
+    t_btm = time.time() - t
+    launches = launch_counts()
+    log(f"[{tag}] {klass.__name__} single_precision False: btm_resident {t_btm:.4f} s "
+        f"({len(blg)} units, {pos.dtype}) launches {launches}")
+    require_map_kernel(tag, tel, launches)
+    pick = np.linspace(0, len(blg) - 1, nunits).astype(int)
+    pc, nc = resident.btm_resident(cpu, blg[pick], fig[pick])
+    err = max(_rel(pos[pick].cpu().numpy(), pc.numpy()), _rel(neg[pick].cpu().numpy(), nc.numpy()))
+    _gate(tag, f"BTM tables of units {pick.tolist()} card vs CPU, of max", err, 1e-10)
+    return launches
+
+
+def example_phase(workdir):
+    """The repository's example (``examples/disharray``: DishArray with
+    ``nosvd``, a KL filter with an inverse; then a timestream and maps),
+    its two YAML files copied unedited into ``workdir`` and run there as
+    the example's README runs them, through the port: ``makeproducts``
+    then ``runpipeline.run_config``, after the input map the example's
+    walkthrough script writes (made here by K14 through the port's store).  Checks:
+    every file opens, the NoSVD telescope basis (ndof = ntel x nfreq), maps
+    finite and equal to the CPU synthesis of their alm.  Returns the
+    launches of the two runs and the telescope."""
+    import contextlib
+
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import beamtransfer
+    from driftscan_tpu_torch.ops import sht
+    from driftscan_tpu_torch.scripts import makeproducts, runpipeline
+    from driftscan_tpu_torch.util import store
+
+    tag = "example"
+    example = os.path.join(HERE, "examples", "disharray")
+    for name in ("prod_params.yaml", "pipe_params.yaml"):
+        shutil.copy(os.path.join(example, name), os.path.join(workdir, name))
+    counted = {}
+    with contextlib.chdir(workdir):
+        backend.reset_launch_counts()
+        t = time.time()
+        m = makeproducts.run_config("prod_params.yaml")
+        torch.cuda.synchronize()
+        t_prod = time.time() - t
+        launches = launch_counts()
+        tel, bt = m.telescope, m.beamtransfer
+        log(f"[{tag}] makeproducts {t_prod:.4f} s: {type(tel).__name__} lmax {tel.lmax} "
+            f"mmax {tel.mmax} nfreq {tel.nfreq} npairs {tel.npairs} "
+            f"{type(bt).__name__} ntel {bt.ntel} svd_len {bt.svd_len} ndof {bt.ndof(0)} "
+            f"launches {launches}")
+        if not isinstance(bt, beamtransfer.BeamTransferNoSVD):
+            raise AssertionError(f"{tag}: nosvd gave {type(bt).__name__}")
+        if not (bt.ndof(0) == bt.ndofmax == bt.ntel * bt.nfreq):
+            raise AssertionError(f"{tag}: NoSVD ndof {bt.ndof(0)} != ntel x nfreq")
+        require_map_kernel(tag, tel, launches)
+        counted.update({k: v for k, v in launches.items() if v})
+
+        # the walkthrough script's input map: seeded band-limited alm (K14)
+        nside = 32
+        nl = tel.lmax + 1
+        rng = np.random.default_rng(42)
+        alm = rng.standard_normal((tel.nfreq, nl, nl)) + 1j * rng.standard_normal(
+            (tel.nfreq, nl, nl))
+        alm = np.where(np.arange(nl)[None, :] <= np.arange(nl)[:, None], alm, 0)
+        alm[..., 0] = alm[..., 0].real
+        skymap = sht.synthesis_real(torch.as_tensor(alm, device="cuda"), nside)
+        with store.File("simulated_input_map.hdf5", "w") as f:
+            f.create_dataset("map", data=skymap[:, None].cpu().numpy())
+
+        backend.reset_launch_counts()
+        t = time.time()
+        pm = runpipeline.run_config("pipe_params.yaml")
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = launch_counts()
+        log(f"[{tag}] runpipeline run_config {wall:.4f} s  "
+            f"{'  '.join(f't_{k} {v:.4f} s' for k, v in pm.timings.items())}  launches {launches}")
+        require_launched(tag, launches, ["k3k5_legendre_sht", "k14_legendre_synth"])
+        for k, v in launches.items():
+            if v:
+                counted[k] = counted.get(k, 0) + v
+
+        files = [os.path.join(r, f) for r, ds, fs in os.walk(workdir) for f in fs
+                 if f.endswith(".hdf5")]
+        files += [os.path.join(r, d) for r, ds, fs in os.walk(workdir) for d in ds
+                  if d.endswith(".hdf5")]
+        bad = [f for f in files if not store.readable(f)]
+        if bad or not files:
+            raise AssertionError(f"{tag}: {len(bad)} of {len(files)} files unreadable: {bad[:4]}")
+        log(f"[{tag}] {len(files)} files open (store {store.BACKEND})")
+        ts = pm.timestreams["ts1"]
+        for name, alm_m in (("full", ts.alm_full_m), ("svd", ts.alm_svd_m)):
+            with store.File(os.path.join(ts.output_directory, f"map_{name}.hdf5"), "r") as f:
+                skm = f["map"][:]
+            if not (np.isfinite(skm).all() and np.abs(skm).max() > 0):
+                raise AssertionError(f"{tag}: map_{name} not finite and non-zero")
+            cpu = sht.sphtrans_inv_sky(ts.collect_alm(alm_m), nside, device="cpu").numpy()
+            _gate(tag, f"map_{name} {skm.shape} vs the CPU synthesis of its alm, of max",
+                  _rel(skm, cpu), 1e-10)
+    return counted, tel
+
+
+def svd_variants_phase(workdir):
+    """TempSVD and FullSVD beam transfers of the example's telescope on the
+    card (``[products]``-style: BTM and SVD files through the manager), and
+    ``simple_svd`` (K18b, the library SVD) against the CPU on the same
+    noise-weighted beams: singular values within 1e-8 of each m's top.
+    Times one batched call at an m-batch of the run's shape."""
+    import torch
+    import yaml
+
+    from driftscan_tpu_torch.core import beamtransfer, manager
+    from driftscan_tpu_torch.ops import projections
+
+    tag = "svd variants"
+    with open(os.path.join(HERE, "examples", "disharray", "prod_params.yaml")) as f:
+        base = yaml.safe_load(f)
+    for variant in ("fullsvd", "tempsvd"):
+        conf = {"config": {"beamtransfers": True, "fullsvd": variant == "fullsvd",
+                           "output_directory": os.path.join(workdir, variant)},
+                "telescope": base["telescope"]}
+        m = manager.ProductManager().apply_config(conf)
+        if variant == "tempsvd":
+            m.beamtransfer = beamtransfer.BeamTransferTempSVD(
+                m.beamtransfer.directory, telescope=m.telescope)
+        t = time.time()
+        m.generate()
+        torch.cuda.synchronize()
+        t_gen = time.time() - t
+        bt, tel = m.beamtransfer, m.telescope
+        nfreq, nl, npol = tel.nfreq, tel.lmax + 1, tel.num_pol_sky
+        noisew = np.stack([bt._noise_weights(fi) for fi in range(nfreq)])
+        err = 0.0
+        ms = list(range(0, tel.mmax + 1, max(1, tel.mmax // 8)))
+        for mi in ms:
+            bw = bt.beam_m(mi).reshape(nfreq, bt.ntel, npol * nl) * noisew[:, :, None]
+            block = bw if variant == "fullsvd" else bw.reshape(nfreq, bt.ntel, npol, nl)[:, :, 0]
+            _, sig_c = projections.simple_svd(block, device="cpu")
+            sig_g = bt.beam_singularvalues(mi)
+            top = max(float(sig_c.max()), 1e-300)
+            err = max(err, float(np.abs(sig_g - sig_c[:, : bt.svd_len].numpy()).max()) / top)
+        log(f"[{tag}] {type(bt).__name__}: generate {t_gen:.4f} s, svd_len {bt.svd_len}")
+        _gate(tag, f"{type(bt).__name__} singular values of m {ms} card vs CPU simple_svd, "
+              "of each m's top", err, 1e-8)
+    batch = torch.as_tensor(np.stack([
+        bt.beam_m(mi).reshape(nfreq, bt.ntel, npol * nl) * noisew[:, :, None]
+        for mi in range(min(bt.svd_mbatch, tel.mmax + 1))
+    ]).reshape(-1, bt.ntel, npol * nl), device="cuda")
+    ms_svd = median_ms(lambda: projections.simple_svd(batch), reps=5)
+    log(f"[{tag}] simple_svd (lib, complex128) of {tuple(batch.shape)}: {ms_svd:.4f} ms")
+
+
 def main():
     import torch
 
@@ -1455,7 +1797,7 @@ def main():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, HERE)
     from driftscan_tpu_torch import backend
-    from driftscan_tpu_torch.telescope import cylinder
+    from driftscan_tpu_torch.telescope import cylinder, disharray, restrictedcylinder
 
     card = card_line()
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1471,9 +1813,17 @@ def main():
 
     tel = cylinder.UnpolarisedCylinderTelescope.from_config(BENCH_PARAMS, device="cuda")
     ptel = cylinder.PolarisedCylinderTelescope.from_config(POL_PARAMS, device="cuda")
+    dtel = disharray.DishArray.from_config(DISH_PARAMS, device="cuda")
+    rtel = restrictedcylinder.RestrictedCylinder.from_config(RESTRICTED_PARAMS, device="cuda")
+    rptel = restrictedcylinder.RestrictedPolarisedCylinder.from_config(
+        RESTRICTED_POL_PARAMS, device="cuda")
     perf = kernel_phases(tel, ptel)
+    perf.update(host_kernel_phases(
+        {"restricted": rtel, "restricted pol": rptel, "dish": dtel}))
     counted = {}
-    for tag, t_, ps in (("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD)):
+    for tag, t_, ps in (("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD),
+                        ("dish", dtel, None), ("restricted", rtel, None),
+                        ("restricted pol", rptel, None)):
         launches, required, k13_rec, run = path_phase(tag, t_, ps)
         for name in required:
             counted[name] = counted.get(name, 0) + launches[name]
@@ -1481,6 +1831,14 @@ def main():
             # the unpolarised leg's K13 at the largest k its path launched
             perf["k13_fisher_cov"] = k13_rec
             slice_run = run
+        if tag == "dish":
+            host_beam_share(tag, dtel)
+        del run
+    del dtel
+    for klass, params in ((restrictedcylinder.RestrictedCylinder, RESTRICTED_PARAMS),
+                          (cylinder.UnpolarisedCylinderTelescope, BENCH_PARAMS)):
+        launches = precision_gate_phase("float64 gate", klass, params)
+        counted["k2_host_vis"] += launches["k2_host_vis"]
     # the product directory of [products] serves [timestream]
     outdir = tempfile.mkdtemp(prefix="driftscan_products_")
     profiling = "--profile" in sys.argv[1:]
@@ -1503,6 +1861,14 @@ def main():
             profile_timestream(outdir, mapfile, nside)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="driftscan_example_")
+    try:
+        launches, _ = example_phase(workdir)
+        for name, count in launches.items():
+            counted[name] = counted.get(name, 0) + count
+        svd_variants_phase(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     launches, probe_perf = probe_phase()
     perf.update(probe_perf)
     for name in PROBE_KERNELS:

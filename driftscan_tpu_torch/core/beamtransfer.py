@@ -16,10 +16,15 @@ the telescope's device:
 * the projections are the programs of ops.projections, compacted at the
   API boundary to driftscan's variable-size layout.
 
+The variants of the SVD stage: :class:`BeamTransferTempSVD` (a plain SVD
+of the Stokes I block), :class:`BeamTransferFullSVD` (a plain SVD of the
+whole beam), both batched like the triple SVD through
+``projections.simple_svd`` (K18b), and :class:`BeamTransferNoSVD` (no
+compression: the telescope basis, identity projections).
+
 Files go through util.store (HDF5 wherever h5py imports).  Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP line: the chunked
-streaming generate (``resident: never``, or tables over budget) and the
-TempSVD / FullSVD / NoSVD variants.
+raising ``NotImplementedError`` with its ROADMAP line: the chunked
+streaming generate (``resident: never``, or tables over budget).
 """
 
 from __future__ import annotations
@@ -43,10 +48,6 @@ logger = logging.getLogger(__name__)
 _CHUNKED_NOT_PORTED = (
     "the chunked streaming BTM generate is not ported yet: ROADMAP.md, "
     "modules to port, item 7.3"
-)
-_VARIANT_NOT_PORTED = (
-    "the TempSVD / FullSVD / NoSVD beam transfer variants are not ported "
-    "yet: ROADMAP.md, modules to port, item 7.2"
 )
 
 
@@ -511,10 +512,7 @@ class BeamTransfer(config.Reader):
         )
         bfm_w = self._dev(bfm) * self._dev(noisew)[None, :, :, None]
 
-        ut, beam, sig, _ = projections.triple_svd(
-            bfm_w.reshape(nm * nfreq, self.ntel, npol * nl),
-            npol=npol, nl=nl, polsvcut=self.polsvcut,
-        )
+        ut, beam, sig = self._svd_compress(bfm_w.reshape(nm * nfreq, self.ntel, npol * nl))
         ibeam = None
         if not skip_svd_inv:
             ibeam = projections.block_pinv(beam, rcond=1e-15)
@@ -528,6 +526,24 @@ class BeamTransfer(config.Reader):
                 self._dev_svd[mi] = b5[i]
 
         return m_chunk, noisew, (ut, beam, sig, ibeam), skip_svd_inv
+
+    def _svd_compress(self, bfm_w):
+        """(ut (B, svd_len, ntel), sky->SVD beam (B, svd_len, npol*nl),
+        singular values (B, svd_len)) of noise-weighted beams (B, ntel,
+        npol*nl): the triple SVD with its polarisation filter."""
+        tel = self.telescope
+        ut, beam, sig, _ = projections.triple_svd(
+            bfm_w, npol=tel.num_pol_sky, nl=tel.lmax + 1, polsvcut=self.polsvcut
+        )
+        return ut, beam, sig
+
+    def _simple_compress(self, bfm_w, block):
+        """The plain-SVD compression of the variants: U^H and the singular
+        values of ``block`` (the whole beam, or its Stokes I columns),
+        applied to the whole beam."""
+        ut, sig = projections.simple_svd(block)
+        ut, sig = ut[:, : self.svd_len], sig[:, : self.svd_len]
+        return ut, ut @ bfm_w, sig
 
     def _svd_finish_mbatch(self, m_chunk, noisew, products, skip_svd_inv, writer=None):
         """Fetch a dispatched chunk and write its svd.hdf5 files (through
@@ -715,8 +731,8 @@ class BeamTransfer(config.Reader):
 
         return vecb.reshape((self.nfreq, tel.num_pol_sky, tel.lmax + 1))
 
-    def project_matrix_sky_to_telescope(self, mi, mat, temponly=False):
-        """Sky covariance [pol,pol,l,f,f] -> telescope [f,ntel,f,ntel]."""
+    def matrix_sky_to_telescope(self, mi, mat, temponly=False) -> torch.Tensor:
+        """:meth:`project_matrix_sky_to_telescope` as a tensor on the device."""
         npol = 1 if temponly else self.telescope.num_pol_sky
         lside = self.telescope.lmax + 1
         beam = self.beam_m(mi).reshape(
@@ -725,7 +741,11 @@ class BeamTransfer(config.Reader):
         return projections.sky_covariance_projection(
             self._dev(np.ascontiguousarray(beam[:, :, :npol])),
             np.ascontiguousarray(np.asarray(mat)[:npol, :npol].real),
-        ).cpu().numpy()
+        )
+
+    def project_matrix_sky_to_telescope(self, mi, mat, temponly=False):
+        """Sky covariance [pol,pol,l,f,f] -> telescope [f,ntel,f,ntel]."""
+        return self.matrix_sky_to_telescope(mi, mat, temponly).cpu().numpy()
 
     project_matrix_forward = project_matrix_sky_to_telescope
 
@@ -896,18 +916,94 @@ class BeamTransfer(config.Reader):
         return int(self._svd_num(mi)[1][-1])
 
 
-def _variant_not_ported(name):
-    class _NotPorted:
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(f"{name}: {_VARIANT_NOT_PORTED}")
+class BeamTransferTempSVD(BeamTransfer):
+    """SVD of the temperature (Stokes I) block only: U^H from the plain
+    SVD of each (m, freq) beam's Stokes I columns, applied to the whole
+    beam (JAX ``core/beamtransfer.py:1152``)."""
 
-    _NotPorted.__name__ = name
-    return _NotPorted
+    def _svd_compress(self, bfm_w):
+        tel = self.telescope
+        nl = tel.lmax + 1
+        block = bfm_w.reshape(bfm_w.shape[0], self.ntel, tel.num_pol_sky, nl)[:, :, 0]
+        return self._simple_compress(bfm_w, block)
 
 
-BeamTransferTempSVD = _variant_not_ported("BeamTransferTempSVD")
-BeamTransferFullSVD = _variant_not_ported("BeamTransferFullSVD")
-BeamTransferNoSVD = _variant_not_ported("BeamTransferNoSVD")
+class BeamTransferFullSVD(BeamTransfer):
+    """Plain SVD of the full beam matrix, no polarisation filtering (JAX
+    ``core/beamtransfer.py:1191``)."""
+
+    def _svd_compress(self, bfm_w):
+        return self._simple_compress(bfm_w, bfm_w)
+
+    @property
+    def svd_len(self):
+        return min((self.telescope.lmax + 1) * self.telescope.num_pol_sky, self.ntel)
+
+
+class BeamTransferNoSVD(BeamTransfer):
+    """No SVD compression: every projection works in the telescope basis
+    (JAX ``core/beamtransfer.py:1234``)."""
+
+    svcut = 0.0
+    noise_weight = False
+    # telescope-basis beams: not prewhitened, (2, npairs) layout
+    kl_mbatch_ok = False
+
+    def _svd_num(self, mi):
+        svnum = (np.ones(self.nfreq) * self.ntel).astype(int)
+        svbounds = np.cumsum(np.insert(svnum, 0, 0))
+        return svnum, svbounds
+
+    def _generate_svdfiles(self, regen=False, skip_svd_inv=False):
+        logger.info("======== Skipping telescope SVD step ========")
+
+    def matrix_sky_to_svd(self, mi, mat, temponly=False) -> torch.Tensor:
+        n = self.ndof(mi)
+        return self.matrix_sky_to_telescope(mi, mat, temponly).reshape(n, n)
+
+    def project_matrix_sky_to_svd(self, mi, mat, temponly=False):
+        return self.matrix_sky_to_svd(mi, mat, temponly).cpu().numpy()
+
+    def project_vector_sky_to_svd(self, mi, vec, *args, **kwargs):
+        return self.project_vector_sky_to_telescope(mi, vec).flatten()
+
+    def project_matrix_telescope_to_svd(self, mi, mat):
+        return np.asarray(mat).reshape(self.ndof(mi), self.ndof(mi))
+
+    def matrix_diagonal_telescope_to_svd(self, mi, dmat) -> torch.Tensor:
+        return torch.diag(self._dev(np.asarray(dmat).flatten()))
+
+    def project_matrix_diagonal_telescope_to_svd(self, mi, dmat, *args, **kwargs):
+        return np.diag(np.asarray(dmat).flatten())
+
+    def project_vector_telescope_to_svd(self, mi, vec, *args, **kwargs):
+        return np.asarray(vec).flatten()
+
+    def project_vector_svd_to_sky(self, mi, vec, temponly=False, conj=False):
+        if temponly:
+            raise NotImplementedError(
+                "temponly not implemented for no-SVD project_vector_svd_to_sky!"
+            )
+        tel = self.telescope
+        vec = np.asarray(vec)
+        vr = vec.reshape((self.nfreq, self.ntel, -1))
+        if conj:
+            beam = self.beam_m(mi).reshape((self.nfreq, self.ntel, self.nsky))
+            out = self._matvec(np.swapaxes(beam, 1, 2).conj(), vr)
+        else:
+            ibeam = self.invbeam_m(mi).reshape((self.nfreq, self.nsky, self.ntel))
+            out = self._matvec(ibeam, vr)
+        return out.reshape((self.nfreq, tel.num_pol_sky, tel.lmax + 1) + vec.shape[1:])
+
+    def beam_svd(self, mi, *args, **kwargs):
+        return self.beam_m(mi)
+
+    def ndof(self, mi, *args, **kwargs):
+        return self.ntel * self.nfreq
+
+    @property
+    def ndofmax(self):
+        return self.ntel * self.nfreq
 
 
 def _load_beam_f(path, dset_name, ind=None):

@@ -94,13 +94,28 @@ class Registry:
 
 
 def _telescope_registry() -> Registry:
-    from ..telescope import cylinder
+    from ..telescope import (
+        cylinder,
+        disharray,
+        exotic_cylinder,
+        focalplane,
+        gmrt,
+        restrictedcylinder,
+    )
 
     return Registry(
         "telescope",
         {
             "UnpolarisedCylinder": cylinder.UnpolarisedCylinderTelescope,
             "PolarisedCylinder": cylinder.PolarisedCylinderTelescope,
+            "GMRT": gmrt.GmrtUnpolarised,
+            "FocalPlane": focalplane.FocalPlaneArray,
+            "RestrictedCylinder": restrictedcylinder.RestrictedCylinder,
+            "RestrictedPolarisedCylinder": restrictedcylinder.RestrictedPolarisedCylinder,
+            "RestrictedExtra": restrictedcylinder.RestrictedExtra,
+            "GradientCylinder": exotic_cylinder.GradientCylinder,
+            "PertCylinder": exotic_cylinder.CylinderPerturbed,
+            "DishArray": disharray.DishArray,
         },
     )
 

@@ -505,9 +505,17 @@ class PSExact(PSEstimation):
         return torch.einsum("kfa,fal->kfl", padded, bsvd_t)
 
     def _batchable_proj(self):
-        """True when the one-shot all-band projection applies (no makeproj
-        override)."""
-        return type(self).makeproj is PSExact.makeproj
+        """True when the one-shot all-band projection applies: the standard
+        SVD layout (a beam transfer with its own projections, as NoSVD,
+        goes band by band) and no makeproj override."""
+        from . import beamtransfer
+
+        bt = self.kltrans.beamtransfer
+        return (
+            type(bt).project_matrix_sky_to_svd
+            is beamtransfer.BeamTransfer.project_matrix_sky_to_svd
+            and type(self).makeproj is PSExact.makeproj
+        )
 
     def cacheproj(self, mi):
         """Cache the band projections (device memory for small, disk for

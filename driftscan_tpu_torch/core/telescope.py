@@ -1,10 +1,22 @@
 """Abstract transit-telescope model and the batched transfer-matrix driver.
 
 Port of ``driftscan_tpu/core/telescope.py`` (unpolarised and polarised
-telescopes, beams from a device bank).  Feed layout, unique-baseline
-discovery, frequency binning and the noise model are host numpy,
-unchanged; the pixel grid, the beams and the visibility maps live on the
-telescope's ``device`` as torch tensors.
+telescopes).  Feed layout, unique-baseline discovery, frequency binning
+and the noise model are host numpy, unchanged; the pixel grid, the beams
+and the visibility maps live on the telescope's ``device`` as torch
+tensors.  A telescope's beams come from one of two places:
+
+* a cylinder whose beam physics is the stock one, in single precision,
+  evaluates them from its device beam bank inside the map kernel (K1+K2,
+  :meth:`TransitTelescope._gather_beams`);
+* every other telescope evaluates ``beam(feed, freq)`` on the host grid
+  ``self._angpos`` (numpy, any subclass Python), caches the maps by
+  (nside, freq, beamclass) (:meth:`TransitTelescope._beam`), uploads each
+  once into the padded device layout (:meth:`TransitTelescope._beam_device`)
+  and hands the batch's unique beams to the K2-host kernel
+  (:meth:`TransitTelescope._gather_host_beams`).
+
+:meth:`TransitTelescope._bank_beams_apply` chooses between them.
 
 A telescope builds on the card by default
 (``UnpolarisedCylinderTelescope.from_config(params)``); the CPU is what a
@@ -158,9 +170,9 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
     """Base class for a transit interferometer.
 
     Subclasses implement ``feedpositions``, ``beamclass``, ``u_width``,
-    ``v_width`` and the beam bank (:meth:`_beam_bank_rows`); everything
-    else lives here.  ``device`` (the card unless given) holds the pixel
-    grid and the beams.
+    ``v_width`` and ``beam`` (or a beam bank, :meth:`_bank_beams_apply`);
+    everything else lives here.  ``device`` (the card unless given) holds
+    the pixel grid and the beams.
     """
 
     freq_lower = config.Property(proptype=config.float_or_none, default=None)
@@ -198,6 +210,9 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
     skip_freq = config.Property(proptype=lambda v: [int(i) for i in v], default=list)
     skip_baselines = config.Property(proptype=lambda v: [int(i) for i in v], default=list)
 
+    # Host beam cache budget (MB) of :meth:`_beam`.
+    beam_cache_size = config.Property(proptype=int, default=200)
+
     # Tolerance (decimal places) when comparing baselines for equivalence.
     _bl_tol = 6
 
@@ -231,7 +246,8 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
     def to(self, device):
         """Move the telescope to ``device``: its device caches are dropped
         and rebuilt there on demand.  Returns self."""
-        for key in ("_beam_bank", "_nside", "_angpos_cart", "_horizon"):
+        for key in ("_beam_bank", "_nside", "_angpos_cart", "_horizon",
+                    "_beam_dev_cache", "_beam_dev_bytes"):
             self.__dict__.pop(key, None)
         self.device = torch.device(device)
         return self
@@ -519,6 +535,16 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
 
     # ================== transfer matrices =====================
 
+    def transfer_for_frequency(self, freq):
+        """All transfer matrices at one frequency."""
+        bi = np.arange(self.npairs)
+        return self.transfer_matrices(bi, freq * np.ones_like(bi))
+
+    def transfer_for_baseline(self, baseline):
+        """All transfer matrices of one baseline."""
+        fi = np.arange(self.nfreq)
+        return self.transfer_matrices(baseline * np.ones_like(fi), fi)
+
     def transfer_matrices(self, bl_indices, f_indices):
         """Batched transfer matrices for (baseline, frequency) pairs.
 
@@ -623,27 +649,119 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         (nring*maxlen,); padding slots have horizon 0, so every pixel op
         is elementwise and the SHT consumes the maps with a reshape.
         Positions and horizon are formed in float64 on the host, then
-        cast to the telescope's precision on the device.
+        cast to the telescope's precision on the device.  Host beams are
+        evaluated on the compact grid ``self._angpos`` ((npix, 2) numpy)
+        and padded with ``_ring_pad_index`` / ``_ring_pad_mask``, the JAX
+        package's names, so subclasses written against it run unchanged.
         """
         if self._nside == nside:
             return
         self._nside = nside
+        self._angpos = healpix.ang_positions(nside)
         geom = healpix.ring_geometry(nside)
         pix = np.asarray(geom.pix_index).ravel()
-        padmask = torch.as_tensor(np.asarray(geom.mask).ravel())
-        angpos = torch.as_tensor(healpix.ang_positions(nside)[pix])
+        self._ring_pad_index = pix
+        self._ring_pad_mask = np.asarray(geom.mask).ravel()
+        padmask = torch.as_tensor(self._ring_pad_mask)
+        angpos = torch.as_tensor(self._angpos[pix])
         cart = kernels.sph_to_cart(angpos)
         horizon = kernels.horizon_mask(cart, torch.as_tensor(self.zenith)) * padmask
         dt = self.real_dtype
         self._angpos_cart = cart.to(device=self.device, dtype=dt).contiguous()
         self._horizon = horizon.to(device=self.device, dtype=dt).contiguous()
 
-    def _beam_bank_rows(self, freq):
-        """(params (C, 12), tables (C, nfx)) device bank rows of one
-        frequency, and the map beamclass -> row C; see cylbeam."""
-        raise NotImplementedError(
-            "beams outside a bank (host-evaluated beam maps) are not ported "
-            "yet: ROADMAP.md, modules to port, item 9"
+    def _bank_beams_apply(self):
+        """True when the beams are device bank rows (K1+K2); False, as
+        here, sends the telescope to the host-beam path (K2-host)."""
+        return False
+
+    _beam_cache = None
+    _beam_cache_bytes = 0
+
+    def _beam(self, feed, freq):
+        """Host beam map of ``feed`` at frequency index ``freq`` on the
+        compact grid, cached by (nside, freq, beamclass) within
+        ``beam_cache_size`` MB (oldest out first); float32 / complex64
+        under ``single_precision``."""
+        if self._beam_cache is None:
+            self._beam_cache = {}
+            self._beam_cache_bytes = 0
+        key = (self._nside, int(freq), int(self.beamclass[feed]))
+        beam = self._beam_cache.get(key)
+        if beam is None:
+            beam = np.asarray(self.beam(feed, freq))
+            if self.single_precision:
+                beam = beam.astype(np.complex64 if np.iscomplexobj(beam) else np.float32)
+            limit = self.beam_cache_size << 20
+            while self._beam_cache_bytes + beam.nbytes > limit and self._beam_cache:
+                old = self._beam_cache.pop(next(iter(self._beam_cache)))
+                self._beam_cache_bytes -= old.nbytes
+            self._beam_cache[key] = beam
+            self._beam_cache_bytes += beam.nbytes
+        return beam
+
+    _beam_dev_cache = None
+    _beam_dev_bytes = 0
+    _beam_dev_budget = 1 << 30  # ~1 GB of device beams
+
+    def _beam_device(self, feed, freq):
+        """The beam of ``feed`` at ``freq`` on the device grid: the host map
+        padded into the (ring, slot) layout with zeroed padding, in the
+        grid's precision (complex beams in its complex counterpart),
+        uploaded once per (nside, freq, beamclass) and kept in an LRU cache
+        of ``_beam_dev_budget`` bytes."""
+        if self._beam_dev_cache is None:
+            self._beam_dev_cache = {}
+            self._beam_dev_bytes = 0
+        key = (self._nside, int(freq), int(self.beamclass[feed]))
+        beam = self._beam_dev_cache.pop(key, None)
+        if beam is None:
+            bh = self._beam(feed, freq)
+            pad = self._ring_pad_mask.reshape((-1,) + (1,) * (bh.ndim - 1))
+            bh = bh[self._ring_pad_index] * pad.astype(bh.real.dtype)
+            dt = self.real_dtype
+            if np.iscomplexobj(bh):
+                dt = torch.complex64 if dt == torch.float32 else torch.complex128
+            beam = torch.as_tensor(bh).to(device=self.device, dtype=dt).contiguous()
+            nbytes = beam.numel() * beam.element_size()
+            while self._beam_dev_bytes + nbytes > self._beam_dev_budget and self._beam_dev_cache:
+                old = self._beam_dev_cache.pop(next(iter(self._beam_dev_cache)))
+                self._beam_dev_bytes -= old.numel() * old.element_size()
+            self._beam_dev_bytes += nbytes
+        # (re)inserted last: the most recently used beams are evicted last
+        self._beam_dev_cache[key] = beam
+        return beam
+
+    def _unit_pairs(self, bl_ind, f_ind):
+        """The batch's unique (freq, beamclass) beams and the pairing.
+
+        Returns (keys [(freq, feed)] of the unique beams in first-use
+        order, idx_i, idx_j (nu,) int64 on the device, uv3 (nu, 3) float64
+        baselines in wavelengths on the device).
+        """
+        slot = {}
+        keys = []
+        idx_i, idx_j, uvs = [], [], []
+        for bi, fi in zip(bl_ind, f_ind):
+            feedi, feedj = self.uniquepairs[bi]
+            for feed, idx in ((feedi, idx_i), (feedj, idx_j)):
+                key = (int(fi), int(self.beamclass[feed]))
+                if key not in slot:
+                    slot[key] = len(keys)
+                    keys.append((int(fi), int(feed)))
+                idx.append(slot[key])
+            uvs.append(self.baselines[bi] / self.wavelengths[fi])
+
+        uv = np.array(uvs)
+        if self.single_precision:
+            uv = uv.astype(np.float32)
+        dev = self.device
+        uv3 = kernels.uv_cart(torch.as_tensor(self.zenith), torch.as_tensor(uv))
+        return (
+            keys,
+            torch.as_tensor(idx_i, dtype=torch.int64, device=dev),
+            torch.as_tensor(idx_j, dtype=torch.int64, device=dev),
+            uv3.to(dev).contiguous(),
         )
 
     def _gather_beams(self, bl_ind, f_ind):
@@ -653,37 +771,31 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         (fx (nb, nfx), par (nb, 12), idx_i (nu,), idx_j (nu,), uv3 (nu, 3)
         float64 baselines in wavelengths).
         """
-        slot = {}
-        rows_f, rows_c = [], []
-        idx_i, idx_j, uvs = [], [], []
-        for bi, fi in zip(bl_ind, f_ind):
-            feedi, feedj = self.uniquepairs[bi]
-            for feed, idx in ((feedi, idx_i), (feedj, idx_j)):
-                key = (int(fi), int(self.beamclass[feed]))
-                if key not in slot:
-                    slot[key] = len(rows_f)
-                    rows_f.append(key[0])
-                    rows_c.append(key[1])
-                idx.append(slot[key])
-            uvs.append(self.baselines[bi] / self.wavelengths[fi])
-
-        uv = np.array(uvs)
-        if self.single_precision:
-            uv = uv.astype(np.float32)
+        keys, idx_i, idx_j, uv3 = self._unit_pairs(bl_ind, f_ind)
         par, fx = [], []
-        for f, c in zip(rows_f, rows_c):
+        for f, feed in keys:
             p, t, row_of = self._beam_bank_rows(f)
-            par.append(p[row_of[c]])
-            fx.append(t[row_of[c]])
-        dev = self.device
-        uv3 = kernels.uv_cart(torch.as_tensor(self.zenith), torch.as_tensor(uv))
-        return (
-            torch.stack(fx).contiguous(),
-            torch.stack(par).contiguous(),
-            torch.as_tensor(idx_i, dtype=torch.int64, device=dev),
-            torch.as_tensor(idx_j, dtype=torch.int64, device=dev),
-            uv3.to(dev).contiguous(),
-        )
+            row = row_of[int(self.beamclass[feed])]
+            par.append(p[row])
+            fx.append(t[row])
+        return torch.stack(fx).contiguous(), torch.stack(par).contiguous(), idx_i, idx_j, uv3
+
+    def _gather_host_beams(self, bl_ind, f_ind):
+        """Host-evaluated unique beams of a batch and the per-unit pairing.
+
+        Returns (beams (nb, npix) or (nb, npix, 2) on the device grid,
+        idx_i (nu,), idx_j (nu,), uv3 (nu, 3) float64): each unique
+        (freq, beamclass) beam crosses to the device once per nside
+        (:meth:`_beam_device`).
+        """
+        keys, idx_i, idx_j, uv3 = self._unit_pairs(bl_ind, f_ind)
+        beams = torch.stack([self._beam_device(feed, f) for f, feed in keys])
+        return beams, idx_i, idx_j, uv3
+
+    @property
+    def _pxarea(self):
+        """Pixel area at the current nside (not one over the padded length)."""
+        return 4.0 * np.pi / (12 * self._nside**2)
 
 
 class UnpolarisedTelescope(TransitTelescope, metaclass=abc.ABCMeta):
@@ -691,18 +803,23 @@ class UnpolarisedTelescope(TransitTelescope, metaclass=abc.ABCMeta):
 
     _npol_sky_ = 1
 
+    @abc.abstractmethod
+    def beam(self, feed, freq):
+        """Scalar beam map (npix,) of ``feed`` at frequency index ``freq``
+        on the compact host grid ``self._angpos``, real or complex."""
+
     def _beam_map_batch(self, bl_ind, f_ind):
-        """Stacked normalised visibility maps for a batch of units."""
-        fx, par, idx_i, idx_j, uv3 = self._gather_beams(bl_ind, f_ind)
-        return kernels.bank_visibility_maps(
-            self._angpos_cart,
-            self._horizon,
-            fx,
-            par,
-            idx_i,
-            idx_j,
-            uv3,
-            pxarea=4.0 * np.pi / (12 * self._nside**2),
+        """Stacked normalised visibility maps for a batch of units: from
+        bank rows (K1+K2) or from host-evaluated beams (K2-host)."""
+        cart, hor = self._angpos_cart, self._horizon
+        if self._bank_beams_apply():
+            fx, par, idx_i, idx_j, uv3 = self._gather_beams(bl_ind, f_ind)
+            return kernels.bank_visibility_maps(
+                cart, hor, fx, par, idx_i, idx_j, uv3, pxarea=self._pxarea
+            )
+        beams, idx_i, idx_j, uv3 = self._gather_host_beams(bl_ind, f_ind)
+        return kernels.host_visibility_maps(
+            beams, idx_i, idx_j, uv3, cart, hor, pxarea=self._pxarea
         )
 
     def noisepower(self, bl_indices, f_indices, ndays=None):
@@ -740,19 +857,23 @@ class PolarisedTelescope(TransitTelescope, metaclass=abc.ABCMeta):
     def included_pol(self) -> np.ndarray:
         return np.arange(self._npol_transform)
 
+    @abc.abstractmethod
+    def beam(self, feed, freq):
+        """(npix, 2) field pattern of ``feed`` in the (theta_hat, phi_hat)
+        basis on the compact host grid, real or complex."""
+
     def _beam_map_batch(self, bl_ind, f_ind):
-        """Stokes maps (nunit, npol_transform, npix) of a batch of units."""
-        fx, par, idx_i, idx_j, uv3 = self._gather_beams(bl_ind, f_ind)
-        return kernels.bank_stokes_maps(
-            self._angpos_cart,
-            self._horizon,
-            fx,
-            par,
-            idx_i,
-            idx_j,
-            uv3,
-            pxarea=4.0 * np.pi / (12 * self._nside**2),
-            npol=self._npol_transform,
+        """Stokes maps (nunit, npol_transform, npix) of a batch of units:
+        from bank rows (K1+K2) or host-evaluated beams (K2-host)."""
+        cart, hor, npol = self._angpos_cart, self._horizon, self._npol_transform
+        if self._bank_beams_apply():
+            fx, par, idx_i, idx_j, uv3 = self._gather_beams(bl_ind, f_ind)
+            return kernels.bank_stokes_maps(
+                cart, hor, fx, par, idx_i, idx_j, uv3, pxarea=self._pxarea, npol=npol
+            )
+        beams, idx_i, idx_j, uv3 = self._gather_host_beams(bl_ind, f_ind)
+        return kernels.host_stokes_maps(
+            beams, idx_i, idx_j, uv3, cart, hor, pxarea=self._pxarea, npol=npol
         )
 
 
@@ -796,3 +917,16 @@ class SimplePolarisedTelescope(PolarisedTelescope, metaclass=abc.ABCMeta):
     @property
     def feedpositions(self):
         return np.concatenate((self._single_feedpositions, self._single_feedpositions))
+
+    def beam(self, feed, freq):
+        if self.beamclass[feed] % 2 == 0:
+            return self.beamx(feed, freq)
+        return self.beamy(feed, freq)
+
+    @abc.abstractmethod
+    def beamx(self, feed, freq):
+        """(npix, 2) field pattern of the X feed."""
+
+    @abc.abstractmethod
+    def beamy(self, feed, freq):
+        """(npix, 2) field pattern of the Y feed."""

@@ -12,8 +12,11 @@ angles, fringe and the normalised maps).  Plain versions:
 Two passes over the ring-padded pixel grid:
 
 1. ``_omega_kernel``, grid (pixel blocks, bank rows): each program
-   evaluates one beam row over a pixel block and adds its block sum of
-   |B|^2 h to that row's solid angle (one float atomic per program);
+   evaluates one beam row over a pixel block and writes its block sum of
+   |B|^2 h to a (rows, blocks) scratch; ``_row_sum_kernel``, one program
+   a row, then sums the row's partials in a fixed order into its solid
+   angle.  No atomics: the solid angles, and so the maps, repeat bitwise
+   from run to run;
 2. ``_map_kernel`` (scalar beams) or ``_stokes_kernel`` (dipole beams),
    grid (pixel blocks, units): each program re-evaluates B_i and B_j for
    its unit over a pixel block, forms the fringe and writes
@@ -41,11 +44,13 @@ This module imports ``triton`` at the top: import it only from the
 launching function.
 """
 
+import torch
 import triton
 import triton.language as tl
 import triton.language.extra.libdevice as tld
 
 BLOCK = 1024
+RBLOCK = 1024
 
 
 @triton.jit
@@ -110,7 +115,27 @@ def _fringe(cx, cy, cz, uv_row):
 
 
 @triton.jit
-def _omega_kernel(cart_ptr, hor_ptr, fx_ptr, par_ptr, alpha_ptr, om_ptr,
+def _row_sum_kernel(part_ptr, out_ptr, ncols, RBLOCK: tl.constexpr):
+    """out[row] = the sum of part[row, :ncols], in one fixed order: a
+    vector of RBLOCK running sums over the row, then one tree sum."""
+    row = tl.program_id(0)
+    base = part_ptr + row.to(tl.int64) * ncols
+    acc = tl.zeros([RBLOCK], dtype=part_ptr.dtype.element_ty)
+    for start in range(0, ncols, RBLOCK):
+        offs = start + tl.arange(0, RBLOCK)
+        acc += tl.load(base + offs, mask=offs < ncols, other=0.0)
+    tl.store(out_ptr + row, tl.sum(acc, axis=0))
+
+
+def omega_sums(part, omega):
+    """Launch :func:`_row_sum_kernel`: ``omega[r] = part[r].sum()`` for a
+    (rows, blocks) partial-sum scratch, on the current stream."""
+    _row_sum_kernel[(part.shape[0],)](part, omega, part.shape[1], RBLOCK=RBLOCK,
+                                      num_warps=4)
+
+
+@triton.jit
+def _omega_kernel(cart_ptr, hor_ptr, fx_ptr, par_ptr, alpha_ptr, part_ptr,
                   npix, nfx, POLARISED: tl.constexpr, BLOCK: tl.constexpr):
     pid = tl.program_id(0)
     row = tl.program_id(1)
@@ -127,7 +152,7 @@ def _omega_kernel(cart_ptr, hor_ptr, fx_ptr, par_ptr, alpha_ptr, om_ptr,
         rho, cp, sp = _frame(cx, cy)
         pt, pp = _polvec(cz, rho, cp, sp, par_ptr + row * 12)
         w = w * (pt * pt + pp * pp)
-    tl.atomic_add(om_ptr + row, tl.sum(w, axis=0))
+    tl.store(part_ptr + row * tl.num_programs(0) + pid, tl.sum(w, axis=0))
 
 
 @triton.jit
@@ -214,10 +239,12 @@ def launch(cart, horizon, fx, par, alpha, idx_i, idx_j, uv3, omega, out_ri, pxar
     nb, nfx = fx.shape
     nu = idx_i.shape[0]
     nblk = triton.cdiv(npix, BLOCK)
+    part = torch.empty((nb, nblk), dtype=omega.dtype, device=omega.device)
     _omega_kernel[(nblk, nb)](
-        cart, horizon, fx, par, alpha, omega, npix, nfx, POLARISED=False,
+        cart, horizon, fx, par, alpha, part, npix, nfx, POLARISED=False,
         BLOCK=BLOCK, num_warps=8,
     )
+    omega_sums(part, omega)
     _map_kernel[(nblk, nu)](
         cart, horizon, fx, par, alpha, omega, idx_i, idx_j, uv3, out_ri,
         npix, nfx, pxarea, BLOCK=BLOCK, num_warps=8,
@@ -233,10 +260,12 @@ def launch_stokes(cart, horizon, fx, par, alpha, idx_i, idx_j, uv3, omega, out_r
     nb, nfx = fx.shape
     nu, npol = out_ri.shape[0], out_ri.shape[1]
     nblk = triton.cdiv(npix, BLOCK)
+    part = torch.empty((nb, nblk), dtype=omega.dtype, device=omega.device)
     _omega_kernel[(nblk, nb)](
-        cart, horizon, fx, par, alpha, omega, npix, nfx, POLARISED=True,
+        cart, horizon, fx, par, alpha, part, npix, nfx, POLARISED=True,
         BLOCK=BLOCK, num_warps=8,
     )
+    omega_sums(part, omega)
     _stokes_kernel[(nblk, nu)](
         cart, horizon, fx, par, alpha, omega, idx_i, idx_j, uv3, out_ri,
         npix, nfx, pxarea, NPOL=npol, BLOCK=BLOCK, num_warps=8,

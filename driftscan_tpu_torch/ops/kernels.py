@@ -17,6 +17,11 @@ Polarised telescopes give each beam a dipole polarisation pattern (a unit
 vector in the (theta_hat, phi_hat) basis) and form the Stokes I/Q/U/V
 maps of each feed pair instead: :func:`bank_stokes_maps` (Triton) and
 :func:`bank_stokes_maps_ref` (plain).
+
+Telescopes whose beams are evaluated on the host (any beam that is not a
+cylinder bank row) hand the batch's unique beam arrays to
+:func:`host_visibility_maps` / :func:`host_stokes_maps` (K2 alone, Triton;
+plain versions :func:`host_visibility_maps_ref` / :func:`host_stokes_maps_ref`).
 """
 
 from __future__ import annotations
@@ -42,6 +47,22 @@ K1K2_STOKES = backend.register(
     "driftscan_tpu_torch/csrc/beam_vis.py",
     "driftscan_tpu/telescope/cylbeam.py:133 + driftscan_tpu/ops/kernels.py:214"
     " + driftscan_tpu/ops/kernels.py:297",
+)
+
+# K2 on host-evaluated beams: solid angles + normalised visibility maps.
+K2_HOST = backend.register(
+    "k2_host_vis",
+    "triton",
+    "driftscan_tpu_torch/csrc/host_vis.py",
+    "driftscan_tpu/ops/kernels.py:189 (+ :41, :72, :84)",
+)
+
+# Its Stokes form: solid angles + Stokes I/Q/U/V maps of field patterns.
+K2_HOST_STOKES = backend.register(
+    "k2_host_stokes",
+    "triton",
+    "driftscan_tpu_torch/csrc/host_vis.py",
+    "driftscan_tpu/ops/kernels.py:196 (+ :41, :72, :101)",
 )
 
 # Bank parameter row layout (see telescope.cylbeam.build_beam_bank).
@@ -264,7 +285,7 @@ def bank_visibility_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: floa
 
     nu, npix = idx_i.shape[0], cart.shape[0]
     alpha = exptan_alpha(par[:, 2]).contiguous()
-    omega = torch.zeros(fx.shape[0], dtype=cart.dtype, device=cart.device)
+    omega = torch.empty(fx.shape[0], dtype=cart.dtype, device=cart.device)
     out = torch.empty(
         (nu, npix), dtype=backend.complex_dtype(cart.dtype), device=cart.device
     )
@@ -326,7 +347,7 @@ def bank_stokes_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: float,
 
     nu, npix = idx_i.shape[0], cart.shape[0]
     alpha = exptan_alpha(par[:, 2]).contiguous()
-    omega = torch.zeros(fx.shape[0], dtype=cart.dtype, device=cart.device)
+    omega = torch.empty(fx.shape[0], dtype=cart.dtype, device=cart.device)
     out = torch.empty(
         (nu, npol, npix), dtype=backend.complex_dtype(cart.dtype), device=cart.device
     )
@@ -336,3 +357,95 @@ def bank_stokes_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: float,
     )
     K1K2_STOKES.launches += 1
     return out
+
+
+def host_visibility_maps_ref(beams, idx_i, idx_j, uv3, cart, horizon, pxarea):
+    """Plain PyTorch version of :func:`host_visibility_maps`."""
+    return unpol_visibility_map(beams[idx_i], beams[idx_j], uv3, cart, horizon, pxarea)
+
+
+def host_visibility_maps(beams, idx_i, idx_j, uv3, cart, horizon, pxarea: float):
+    """Visibility maps of a unit batch from host-evaluated beams (K2).
+
+    beams (nb, npix) real or complex: the batch's unique beams on the
+    ring-padded grid cart (npix, 3) / horizon (npix,); unit u pairs beams
+    idx_i[u], idx_j[u] at baseline uv3[u] ((nu, 3) float64).  ``pxarea``
+    is the pixel area 4 pi / (12 nside^2), not one over the padded length.
+    Returns (nu, npix) complex.  CPU tensors take the plain version; CUDA
+    tensors launch the Triton kernel (float32 or float64 grid).
+    """
+    if not backend.on_cuda(beams, idx_i, idx_j, uv3, cart, horizon):
+        return host_visibility_maps_ref(beams, idx_i, idx_j, uv3, cart, horizon, pxarea)
+    _require_host_args(beams, 2, idx_i, idx_j, uv3, cart, horizon)
+
+    from ..csrc import host_vis
+
+    out = torch.empty(
+        (idx_i.shape[0], cart.shape[0]), dtype=backend.complex_dtype(cart.dtype),
+        device=cart.device,
+    )
+    host_vis.launch(
+        cart, horizon, _real_view(beams), beams.is_complex(), idx_i, idx_j, uv3,
+        float(pxarea), torch.view_as_real(out),
+    )
+    K2_HOST.launches += 1
+    return out
+
+
+def host_stokes_maps_ref(beams, idx_i, idx_j, uv3, cart, horizon, pxarea, npol: int = 4):
+    """Plain PyTorch version of :func:`host_stokes_maps`."""
+    maps = stokes_visibility_map(beams[idx_i], beams[idx_j], uv3, cart, horizon, pxarea)
+    return maps[:, :npol]
+
+
+def host_stokes_maps(beams, idx_i, idx_j, uv3, cart, horizon, pxarea: float,
+                     npol: int = 4):
+    """Stokes visibility maps of a unit batch from host-evaluated field
+    patterns (K2).
+
+    Arguments as :func:`host_visibility_maps`, with beams (nb, npix, 2) in
+    the (theta_hat, phi_hat) basis.  Returns (nu, npol, npix) complex: the
+    first ``npol`` of Stokes I, Q, U, V.  CPU tensors take the plain
+    version; CUDA tensors launch the Triton kernel.
+    """
+    if not 1 <= npol <= 4:
+        raise ValueError(f"npol={npol}: Stokes maps have 1 to 4 components")
+    if not backend.on_cuda(beams, idx_i, idx_j, uv3, cart, horizon):
+        return host_stokes_maps_ref(beams, idx_i, idx_j, uv3, cart, horizon, pxarea, npol)
+    _require_host_args(beams, 3, idx_i, idx_j, uv3, cart, horizon)
+
+    from ..csrc import host_vis
+
+    out = torch.empty(
+        (idx_i.shape[0], npol, cart.shape[0]), dtype=backend.complex_dtype(cart.dtype),
+        device=cart.device,
+    )
+    host_vis.launch_stokes(
+        cart, horizon, _real_view(beams), beams.is_complex(), idx_i, idx_j, uv3,
+        float(pxarea), torch.view_as_real(out),
+    )
+    K2_HOST_STOKES.launches += 1
+    return out
+
+
+def _real_view(beams):
+    return torch.view_as_real(beams) if beams.is_complex() else beams
+
+
+def _require_host_args(beams, ndim, idx_i, idx_j, uv3, cart, horizon):
+    """Validate the arguments of the host-beam map kernels: beams of the
+    grid's real type or its complex counterpart."""
+    dt = cart.dtype
+    npix = cart.shape[0]
+    nu = idx_i.shape[0]
+    backend.require(cart, "cart", dtype=(torch.float32, torch.float64), shape=(npix, 3))
+    backend.require(horizon, "horizon", dtype=dt, shape=(npix,))
+    backend.require(beams, "beams", dtype=(dt, backend.complex_dtype(dt)), ndim=ndim)
+    if beams.shape[1] != npix or (ndim == 3 and beams.shape[2] != 2):
+        raise ValueError(
+            f"beams: shape {tuple(beams.shape)}, expected (nb, {npix})"
+            + (", 2)" if ndim == 3 else ")")
+        )
+    backend.require(idx_i, "idx_i", dtype=torch.int64, shape=(nu,))
+    backend.require(idx_j, "idx_j", dtype=torch.int64, shape=(nu,))
+    backend.require(uv3, "uv3", dtype=torch.float64, shape=(nu, 3))

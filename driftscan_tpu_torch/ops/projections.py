@@ -333,6 +333,22 @@ def triple_svd(bfm_w, npol: int, nl: int, polsvcut: float, device=None):
     )
 
 
+def simple_svd(bfm_w, device=None):
+    """Plain thin SVD compression of a batch of beams (K18b, lib).
+
+    bfm_w (batch, ntel, k).  Returns (ut (batch, kk, ntel) with ut = u^H,
+    sig (batch, kk)), kk = min(ntel, k), complex128 / float64 tensors:
+    the compression of ``BeamTransferTempSVD`` (Stokes I block) and
+    ``BeamTransferFullSVD`` (the whole beam).  JAX ``ops/linalg.py:403``
+    ``svd_simple_batched`` (a library SVD there too), through
+    ``torch.linalg.svd`` (cuSOLVER on the card).
+    """
+    u, sig, _ = torch.linalg.svd(
+        as_tensor(bfm_w, device, torch.complex128), full_matrices=False
+    )
+    return u.mH.contiguous().resolve_conj(), sig
+
+
 def _projected_factors(bsvd5, ls, lf, nc, compact):
     """Signal and foreground factors of a beam batch, scaled by nc^-1/2."""
     from ..parallel import mstep

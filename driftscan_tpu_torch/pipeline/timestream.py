@@ -188,7 +188,11 @@ class Timestream:
     def generate_mmodes_svd(self):
         """Project the m-modes into the telescope SVD basis: the per-m
         telescope -> SVD matvecs of a chunk of m as one device batch,
-        compacted to each m's retained modes at the file boundary."""
+        compacted to each m's retained modes at the file boundary.  A beam
+        transfer with its own projection (NoSVD) goes m by m through its
+        ``project_vector_telescope_to_svd``."""
+        from ..core import beamtransfer
+
         bt = self.beamtransfer
         tel = self.telescope
 
@@ -199,6 +203,20 @@ class Timestream:
         ]
         if len(todo) < tel.mmax + 1 - len(todo):
             logger.info("Some SVD m-mode files exist; generating %i", len(todo))
+
+        if (
+            type(bt).project_vector_telescope_to_svd
+            is not beamtransfer.BeamTransfer.project_vector_telescope_to_svd
+        ):
+            for mi in todo:
+                tm = self.mmode(mi).reshape(tel.nfreq, bt.ntel)
+                with store.File(self._svdfile(mi), "w") as f:
+                    f.create_dataset(
+                        "mmode_svd", data=bt.project_vector_telescope_to_svd(mi, tm)
+                    )
+                    f.attrs["m"] = mi
+            comm.barrier()
+            return
 
         for chunk in _chunks(todo):
             tm = np.stack([self.mmode(mi).reshape(tel.nfreq, bt.ntel) for mi in chunk])

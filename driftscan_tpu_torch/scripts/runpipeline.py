@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """drift-runpipeline of the port: run the timestream pipeline from a config.
 
-    python -m driftscan_tpu_torch.scripts.runpipeline run cfg.yaml [--device cpu]
+    python -m driftscan_tpu_torch.scripts.runpipeline run-config cfg.yaml [--device cpu]
 
-The ``run`` command is a thin ``click`` wrapper over :func:`run_config`,
-which programs call directly: simulate the configured timestreams, then
-m-modes -> SVD / KL modes -> power spectra and cross power -> maps.  The
-products load on the card unless another device is named.  The
-``interactive`` and ``queue`` commands of driftscan are not ported yet
-(ROADMAP.md, modules to port, item 8.2).
+The ``run-config`` command (also ``run``) is a thin ``click`` wrapper over
+:func:`run_config`, which programs call directly: simulate the configured
+timestreams, then m-modes -> SVD / KL modes -> power spectra and cross
+power -> maps.  The products load on the card unless another device is
+named.  The ``interactive-config`` and ``queue-config`` commands of
+driftscan are not ported yet (ROADMAP.md, modules to port, item 8.2).
 """
 
 _NOT_PORTED = (
@@ -40,7 +40,7 @@ def _cli():
     def cli():
         """Run a data-analysis pipeline on simulated or real timestreams."""
 
-    @cli.command()
+    @cli.command("run-config")
     @click.argument("configfile", type=path)
     @click.option("--device", default=None,
                   help="Device to run on (default: the CUDA card; 'cpu' for the host).")
@@ -49,17 +49,19 @@ def _cli():
         _setup_logging()
         run_config(configfile, device=device)
 
-    @cli.command()
+    cli.add_command(run, "run")
+
+    @cli.command("interactive-config")
     @click.argument("configfile", type=path)
     def interactive(configfile):
         """Load the pipeline config without running it (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED.format("interactive"))
+        raise NotImplementedError(_NOT_PORTED.format("interactive-config"))
 
-    @cli.command()
+    @cli.command("queue-config")
     @click.argument("configfile", type=path)
     def queue(configfile):
         """Queue a pipeline run as a batch job (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED.format("queue"))
+        raise NotImplementedError(_NOT_PORTED.format("queue-config"))
 
     return cli
 

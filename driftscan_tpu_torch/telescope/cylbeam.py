@@ -10,6 +10,11 @@ fused with the visibility map in
 :func:`driftscan_tpu_torch.ops.kernels.bank_visibility_maps` (K1+K2), or
 with the dipole pattern and the Stokes maps in
 :func:`driftscan_tpu_torch.ops.kernels.bank_stokes_maps`.
+
+The same beams as host functions of the compact (npix, 2) sky grid
+(:func:`beam_amp`, :func:`beam_x`, :func:`beam_y`, numpy float64) serve
+the cylinders whose beams are evaluated on the host: a subclass that
+overrides the beam physics, and every cylinder in double precision.
 """
 
 from __future__ import annotations
@@ -57,7 +62,67 @@ def fraunhofer_cylinder(fwhm_x: float, width: float, res: float = 1.0):
     )
 
 
-def _basis_np(zenith, rot=(0.0, 0.0, 0.0)):
+def polpattern(angpos, dipole):
+    """Unit polarisation vectors of a dipole at each position.
+
+    angpos (npix, 2) spherical; dipole (2,) spherical or (3,) cartesian.
+    Returns (npix, 2) numpy vectors in the (theta_hat, phi_hat) basis.
+    """
+    dipole = torch.as_tensor(np.asarray(dipole, dtype=np.float64))
+    if dipole.shape[0] == 2:
+        dipole = kernels.sph_to_cart(dipole)
+    cart = kernels.sph_to_cart(torch.as_tensor(np.asarray(angpos, dtype=np.float64)))
+    return kernels.polpattern(cart, dipole).numpy()
+
+
+def beam_dipole(theta, phi, squint):
+    """Beam of a dipole above a ground plane."""
+    return (1 - np.sin(theta) ** 2 * np.sin(phi) ** 2) ** (squint / 2) * np.sin(
+        0.5 * np.pi * np.cos(theta)
+    )
+
+
+def beam_exptan(sintheta, fwhm):
+    """ExpTan feed illumination model (see ops.kernels.beam_exptan)."""
+    return kernels.beam_exptan(torch.as_tensor(np.asarray(sintheta)), fwhm).numpy()
+
+
+def _cart(angpos):
+    return kernels.sph_to_cart(torch.as_tensor(np.asarray(angpos, dtype=np.float64))).numpy()
+
+
+def beam_amp(angpos, zenith, width, fwhm_x, fwhm_y, rot=(0.0, 0.0, 0.0)):
+    """Amplitude beam of a cylinder feed over the sky (host, float64).
+
+    E-W the Fraunhofer pattern of an ExpTan feed of ``fwhm_x`` on a
+    cylinder ``width`` wavelengths wide (linear interpolation of the
+    table); N-S an ExpTan of ``fwhm_y``; zero below the horizon.
+    """
+    xhat, yhat, _ = _basis(zenith, rot)
+    kx, fx = fraunhofer_cylinder(float(fwhm_x), float(width))
+    cvec = _cart(angpos)
+    horizon = (cvec @ _cart(zenith) > 0.0).astype(np.float64)
+    ew_amp = np.interp(cvec @ xhat, kx, fx)
+    ns_amp = beam_exptan(cvec @ yhat, fwhm_y)
+    return ew_amp * ns_amp * horizon
+
+
+def beam_x(angpos, zenith, width, fwhm_e, fwhm_h, rot=(0.0, 0.0, 0.0)):
+    """(npix, 2) polarised beam of the X (east-pointing) dipole."""
+    xhat, _, _ = _basis(zenith, rot)
+    amp = beam_amp(angpos, zenith, width, fwhm_e, fwhm_h, rot=rot)
+    return amp[:, None] * polpattern(angpos, xhat)
+
+
+def beam_y(angpos, zenith, width, fwhm_e, fwhm_h, rot=(0.0, 0.0, 0.0)):
+    """(npix, 2) polarised beam of the Y (north-pointing) dipole."""
+    _, yhat, _ = _basis(zenith, rot)
+    # swapped fwhm order: H-plane east-west, E-plane north-south
+    amp = beam_amp(angpos, zenith, width, fwhm_h, fwhm_e, rot=rot)
+    return amp[:, None] * polpattern(angpos, yhat)
+
+
+def _basis(zenith, rot=(0.0, 0.0, 0.0)):
     """Host (xhat, yhat, zhat) feed basis at the zenith, rotated by ``rot``."""
     z = torch.as_tensor(np.asarray(zenith, dtype=np.float64))
     that, phat = kernels.thetaphi_plane_cart(z)
@@ -70,7 +135,7 @@ def _bank_row(zenith, width, fwhm_ew, fwhm_ns, pol, rot=(0.0, 0.0, 0.0)):
     """Host (params (12,), fx (n,)) for one (freq, class)."""
     kx, fx = fraunhofer_cylinder(float(fwhm_ew), float(width))
     step = kx[1] - kx[0]
-    xhat, yhat, _ = _basis_np(zenith, rot)
+    xhat, yhat, _ = _basis(zenith, rot)
     dipole = yhat if pol == "y" else xhat
     par = np.concatenate([[kx[0], 1.0 / step, fwhm_ns], xhat, yhat, dipole])
     return par, fx

@@ -3,8 +3,16 @@
 Port of ``driftscan_tpu/telescope/cylinder.py`` (the unpolarised and the
 polarised cylinder): N-S oriented parabolic cylinders, regularly spaced
 feeds along each axis, optional exclusion of intra-cylinder baselines,
-and Fraunhofer beams evaluated from the device beam bank (cylbeam).  The
-config property names are the JAX package's.
+and Fraunhofer beams (cylbeam).  The config property names are the JAX
+package's.
+
+A cylinder takes its beams from the device beam bank (fused with the
+maps, K1+K2) only when its beam physics is the stock one and it runs in
+single precision (:meth:`CylinderTelescope._bank_beams_apply`, the JAX
+package's gate): a subclass that overrides ``beam``, ``beamx``, ``beamy``
+or ``_feed_beam`` (a YAML plugin included), and every double-precision
+cylinder, evaluates ``beam(feed, freq)`` on the host and takes the K2-host
+kernel, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -103,6 +111,32 @@ class CylinderTelescope(telescope.TransitTelescope):
             [self.feed_positions_cylinder(ci) for ci in range(self.num_cylinders)]
         )
 
+    def _feed_beam(self, pattern, freq, fwhm_ew, fwhm_ns):
+        """A cylbeam host pattern on the current sky grid at frequency
+        index ``freq`` (the cylinder's width in wavelengths)."""
+        return pattern(
+            self._angpos,
+            self.zenith,
+            self.cylinder_width / self.wavelengths[freq],
+            fwhm_ew,
+            fwhm_ns,
+        )
+
+    def _bank_beams_apply(self):
+        """The bank gate: single precision, and the beam methods and
+        ``_feed_beam`` all this package's own (JAX
+        ``telescope/cylinder.py:188-224``, ``:233-260``)."""
+        cls = type(self)
+        if not self.single_precision or cls._feed_beam is not CylinderTelescope._feed_beam:
+            return False
+        if self.num_pol_sky == 1:
+            return cls.beam is UnpolarisedCylinderTelescope.beam
+        return (
+            cls.beamx is PolarisedCylinderTelescope.beamx
+            and cls.beamy is PolarisedCylinderTelescope.beamy
+            and cls.beam is telescope.SimplePolarisedTelescope.beam
+        )
+
     _beam_bank = None
 
     def beam_bank_numpy(self):
@@ -140,6 +174,9 @@ class UnpolarisedCylinderTelescope(
     # the single beamclass 0 is bank row 0
     _bank_row_of_class = {0: 0}
 
+    def beam(self, feed, freq):
+        return self._feed_beam(cylbeam.beam_amp, freq, self.fwhm_h, self.fwhm_h)
+
 
 class PolarisedCylinderTelescope(CylinderTelescope, telescope.SimplePolarisedTelescope):
     """Polarised cylinder telescope with X/Y dipole feeds."""
@@ -147,3 +184,9 @@ class PolarisedCylinderTelescope(CylinderTelescope, telescope.SimplePolarisedTel
     # X feeds (beamclass 0) are bank row 0, Y feeds (1) row 1, whose
     # fwhm order is swapped (H-plane east-west)
     _bank_row_of_class = {0: 0, 1: 1}
+
+    def beamx(self, feed, freq):
+        return self._feed_beam(cylbeam.beam_x, freq, self.fwhm_e, self.fwhm_h)
+
+    def beamy(self, feed, freq):
+        return self._feed_beam(cylbeam.beam_y, freq, self.fwhm_e, self.fwhm_h)

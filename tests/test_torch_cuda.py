@@ -84,6 +84,99 @@ def test_k1k2_stokes_vis(cuda, skip, npol):
            lambda: kernels.bank_stokes_maps_ref(*args, npol=npol), 1e-5)
 
 
+def test_k1k2_repeats_bitwise(cuda):
+    """The solid angles are summed in a fixed order (no atomics): two
+    launches on the same inputs give the same bits."""
+    for pol in (False, True):
+        klass = cylinder.PolarisedCylinderTelescope if pol else cylinder.UnpolarisedCylinderTelescope
+        tel = klass.from_config(
+            dict(num_freq=2, freq_start=400.0, freq_end=410.0, num_cylinders=2,
+                 cylinder_width=3.0, num_feeds=3, feed_spacing=1.0, single_precision=True),
+            device=cuda,
+        )
+        bl = np.arange(tel.npairs)
+        fi = np.arange(tel.nfreq)
+        blg, fig = [x.ravel() for x in np.meshgrid(bl, fi, indexing="ij")]
+        tel._init_trans(tel._nside_for(tel.lmax))
+        a = tel._beam_map_batch(blg, fig)
+        b = tel._beam_map_batch(blg, fig)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def _host_inputs(device, dtype, cplx, stokes, npix, nb=3, nu=7, seed=5):
+    """Seeded unit vectors (a ragged pixel count), a horizon, beams and
+    unit pairs for the K2-host kernels."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((npix, 3))
+    cart = torch.as_tensor(v / np.linalg.norm(v, axis=1, keepdims=True), dtype=dtype,
+                           device=device)
+    hor = (cart[:, 2] > -0.2).to(dtype)
+    shape = (nb, npix, 2) if stokes else (nb, npix)
+    beams = rng.standard_normal(shape) + (1j * rng.standard_normal(shape) if cplx else 0)
+    cdt = backend.complex_dtype(dtype) if cplx else dtype
+    beams = torch.as_tensor(beams, device=device).to(cdt)
+    ii = torch.as_tensor(rng.integers(0, nb, nu), device=device)
+    jj = torch.as_tensor(rng.integers(0, nb, nu), device=device)
+    uv3 = torch.as_tensor(rng.uniform(-40.0, 40.0, (nu, 3)), device=device)
+    return beams, ii, jj, uv3, cart, hor, 4.0 * np.pi / npix
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("npix", [1000, 4093])
+def test_k2_host_vis(cuda, dtype, rtol, cplx, npix):
+    args = _host_inputs(cuda, dtype, cplx, False, npix)
+    _check(kernels.K2_HOST, lambda: kernels.host_visibility_maps(*args),
+           lambda: kernels.host_visibility_maps_ref(*args), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("npol", [1, 3, 4])
+def test_k2_host_stokes(cuda, dtype, rtol, cplx, npol):
+    args = _host_inputs(cuda, dtype, cplx, True, 3001)
+    _check(kernels.K2_HOST_STOKES, lambda: kernels.host_stokes_maps(*args, npol=npol),
+           lambda: kernels.host_stokes_maps_ref(*args, npol=npol), rtol)
+
+
+def test_k2_host_repeats_bitwise(cuda):
+    for stokes in (False, True):
+        args = _host_inputs(cuda, torch.float32, True, stokes, 5000)
+        fn = kernels.host_stokes_maps if stokes else kernels.host_visibility_maps
+        a, b = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_k2_host_rejects_mixed_types(cuda):
+    beams, ii, jj, uv3, cart, hor, px = _host_inputs(cuda, torch.float32, False, False, 999)
+    with pytest.raises(TypeError):
+        kernels.host_visibility_maps(beams.double(), ii, jj, uv3, cart, hor, px)
+    with pytest.raises(ValueError):
+        kernels.host_stokes_maps(beams, ii, jj, uv3, cart, hor, px)
+
+
+def test_double_precision_cylinder_runs_on_the_card(cuda):
+    """A cylinder at the default precision takes host beams and the
+    float64 K2-host kernel (once a dtype error at the bank kernel), and
+    its transfer matrices equal the CPU's."""
+    cfg = dict(num_freq=2, freq_start=400.0, freq_end=410.0, num_cylinders=2,
+               cylinder_width=3.0, num_feeds=2, feed_spacing=1.0)
+    for klass in (cylinder.UnpolarisedCylinderTelescope, cylinder.PolarisedCylinderTelescope):
+        tel = klass.from_config(cfg, device=cuda)
+        cpu = klass.from_config(cfg, device="cpu")
+        bl = np.arange(tel.npairs)
+        fi = np.arange(tel.nfreq)
+        blg, fig = [x.ravel() for x in np.meshgrid(bl, fi, indexing="ij")]
+        backend.reset_launch_counts()
+        got = tel.transfer_matrices(blg, fig)
+        host = kernels.K2_HOST_STOKES if klass is cylinder.PolarisedCylinderTelescope else kernels.K2_HOST
+        assert host.launches >= 1 and kernels.K1K2.launches == kernels.K1K2_STOKES.launches == 0
+        want = cpu.transfer_matrices(blg, fig)
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_k3k5_legendre_sht(cuda, dtype):
     g = healpix.ring_geometry(16)

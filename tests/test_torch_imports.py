@@ -34,8 +34,14 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.parallel.comm",
     "driftscan_tpu_torch.parallel.mstep",
     "driftscan_tpu_torch.parallel.resident",
+    "driftscan_tpu_torch.telescope.beamlib",
     "driftscan_tpu_torch.telescope.cylbeam",
     "driftscan_tpu_torch.telescope.cylinder",
+    "driftscan_tpu_torch.telescope.disharray",
+    "driftscan_tpu_torch.telescope.exotic_cylinder",
+    "driftscan_tpu_torch.telescope.focalplane",
+    "driftscan_tpu_torch.telescope.gmrt",
+    "driftscan_tpu_torch.telescope.restrictedcylinder",
     "driftscan_tpu_torch.util.util",
     "chip_smoke",
 ]

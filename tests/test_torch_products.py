@@ -527,8 +527,6 @@ def test_plugin_telescope_loads(tmp_path):
 
 @pytest.mark.parametrize("sections,match", [
     ({"config": {"resident": "never"}}, r"chunked streaming BTM generate.*ROADMAP\.md.*item 7\.3"),
-    ({"config": {"nosvd": True}}, r"BeamTransferNoSVD.*ROADMAP\.md.*item 7\.2"),
-    ({"config": {"fullsvd": True}}, r"BeamTransferFullSVD.*ROADMAP\.md.*item 7\.2"),
     ({"kltransform": {"engine": "topband"}}, r"topband.*ROADMAP\.md.*item 10"),
 ])
 def test_unported_options_name_their_roadmap_line(tmp_path, sections, match):
@@ -537,9 +535,38 @@ def test_unported_options_name_their_roadmap_line(tmp_path, sections, match):
         m.generate()
 
 
+@pytest.mark.parametrize("variant", ["nosvd", "fullsvd", "tempsvd"])
+def test_svd_variants_generate_their_files(tmp_path, variant):
+    """The SVD variants (once NotImplementedError, ROADMAP item 7.2) make
+    their products: nosvd and fullsvd from their config keys, TempSVD as a
+    class; NoSVD writes no SVD files, the others the four datasets."""
+    conf = _small(tmp_path / "out", config={"nosvd": variant == "nosvd",
+                                             "fullsvd": variant == "fullsvd"})
+    conf["config"]["psfisher"] = False
+    m = manager.ProductManager(device="cpu").apply_config(conf)
+    if variant == "tempsvd":
+        m.beamtransfer = beamtransfer.BeamTransferTempSVD(
+            m.beamtransfer.directory, telescope=m.telescope
+        )
+        m.kltransforms["kl"].beamtransfer = m.beamtransfer
+    want = {"nosvd": beamtransfer.BeamTransferNoSVD, "fullsvd": beamtransfer.BeamTransferFullSVD,
+            "tempsvd": beamtransfer.BeamTransferTempSVD}[variant]
+    assert type(m.beamtransfer) is want
+    m.generate()
+    bt = m.beamtransfer
+    ntel = 2 * m.telescope.npairs
+    for mi in range(m.telescope.mmax + 1):
+        assert os.path.exists(bt._mfile(mi))
+        if variant == "nosvd":
+            assert not os.path.exists(bt._svdfile(mi)) and bt.ndof(mi) == ntel * bt.nfreq
+        else:
+            with h5py.File(bt._svdfile(mi), "r") as f:
+                assert set(f) == {"beam_svd", "invbeam_svd", "beam_ut", "singularvalues"}
+                assert f["beam_ut"].shape == (bt.nfreq, bt.svd_len, ntel)
+    assert os.path.exists(m.kltransforms["kl"].evdir + "/evals.hdf5")
+
+
 def test_unported_calls_name_their_roadmap_line(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 7\.2"):
-        beamtransfer.BeamTransferTempSVD(str(tmp_path))
     # projecting a sky map works now; the forward SHT's refinement is not ported
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 8\.1"):
         sht.sphtrans_sky(np.zeros((2, 1, 12 * 4**2)), iters=1, device="cpu")

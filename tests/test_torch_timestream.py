@@ -8,7 +8,7 @@ BeamTransfer, a KLTransform with its inverse, a Full estimator); product
 directories load in both packages, so both pipelines see the same SVD and
 KL bases (which separate runs need not give alike).  The JAX package runs its
 ``drift-runpipeline run-config`` and the port its ``python -m
-driftscan_tpu_torch.scripts.runpipeline run cfg.yaml --device cpu``, each
+driftscan_tpu_torch.scripts.runpipeline run-config cfg.yaml --device cpu``, each
 into a directory of its own: ts1 noiseless from a seeded sky map, ts2 with
 the telescope's noise from a seed (numpy in both, so the same draw), and a
 cross power spectrum of the two.  Every dataset is held at rel 1e-10 of its
@@ -142,7 +142,7 @@ def runs(tmp_path_factory):
     env = dict(os.environ, OMP_NUM_THREADS="2")
     env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
     res = subprocess.run(
-        [sys.executable, "-m", "driftscan_tpu_torch.scripts.runpipeline", "run",
+        [sys.executable, "-m", "driftscan_tpu_torch.scripts.runpipeline", "run-config",
          out["torch"][1], "--device", "cpu"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
     )
@@ -296,7 +296,7 @@ def test_timestream_pickle(runs):
 
 
 def test_cli_commands_not_ported(runs):
-    for command in ("interactive", "queue"):
+    for command in ("interactive-config", "queue-config"):
         res = CliRunner().invoke(runpipeline._cli(), [command, runs["torch"][1]])
         assert isinstance(res.exception, NotImplementedError), command
         assert "ROADMAP.md" in str(res.exception)
