@@ -23,11 +23,18 @@ script exits non-zero:
    the median time (CUDA events) of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call
    (``library_ms``: ``torch.matmul(a, a.mH)`` of the pre-formed factor for
-   K9 and K13); ``bound_ms`` is the larger of the bytes moved over 3.35
-   TB/s and the operations over the peak of the units that run them
+   K9 and K13; the JAX line's einsum for K15a; for K3+K5 and K14 one
+   einsum a plane over the JAX package's lambda table, which is built once
+   and timed apart); ``bound_ms`` is the larger of the bytes moved over
+   3.35 TB/s and the operations over the peak of the units that run them
    (67 TFLOP/s float32 on the CUDA cores; 67 TFLOP/s float64, the card's
-   float64 peak, on its tensor cores; the Grams' 3xTF32 products, three
-   tf32 products each, at 495 TFLOP/s), from the shapes;
+   float64 peak, on its tensor cores; 3xTF32 products -- the Grams', and
+   K3+K5's in complex64 -- three tf32 products each, at 495 TFLOP/s; a
+   Legendre recurrence, 12 float64 flops a lambda, on the 34 TFLOP/s
+   float64 CUDA cores), from the shapes; K15a and K3+K5 (also at the
+   ``[dish]`` path's complex128 chunk) are launched twice and must repeat
+   bit for bit, and K3+K5 in complex64 must lie no farther than its
+   float32 plain version from the float64 truth on the same inputs;
 4. slice -- the bench telescope (``bench.build_telescope``'s full config)
    through ``btm_resident`` and ``product_all_resident`` with the fused
    Fisher over all m;
@@ -78,7 +85,10 @@ script exits non-zero:
    ``simple_svd`` (K18b, a library SVD) on the same beams;
 9. probe -- the ports of the two Pallas probes of
    ``scratch/pallas_probe.py`` (o = 2 x; a 1024^3 matmul, float32 and
-   bfloat16 inputs) against their plain versions, with Tflop/s.
+   bfloat16 inputs) against their plain versions, with Tflop/s;
+10. svd cut -- the bench cylinder's SVD mode count from its BTM made by
+   the kernels, with K3+K5's plain version in its place, and in float64
+   (:func:`svd_cut_phase`; printed, not gated).
 
 Each path (4-9) runs with every launch count set to 0 just before it and
 read just after, and fails unless every kernel of that path launched; in
@@ -95,6 +105,7 @@ line before that one the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -160,9 +171,10 @@ NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
 # Published H100 SXM peaks (NVIDIA's H100 datasheet, dense): device
 # memory, float32 outside the tensor cores, float64, tf32 and bfloat16 on
 # the tensor cores, at the 700 W power limit.  The Gram kernels (K9, K13)
-# take each float32 product as three tf32 products (3xTF32).  Float64 work
-# is bounded at the card's float64 peak, which its tensor cores give; the
-# sandwich runs on the CUDA cores, whose float64 rate is printed beside it.
+# take each float32 product as three tf32 products (3xTF32), as K3+K5 does
+# in complex64.  Float64 work is bounded at the card's float64 peak, which
+# its tensor cores give; the Legendre recurrences run on the float64 CUDA
+# cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 67e12
@@ -277,7 +289,8 @@ def compare(name, kernel_fn, plain_fn, rtol, work, library_fn=None, reps=10,
     if bitwise:
         again = kernel_fn()
         torch.cuda.synchronize()
-        if not torch.equal(got, again):
+        pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+        if not all(torch.equal(a, b) for a, b in pairs):
             raise AssertionError(f"{name}: two launches on the same inputs differ")
         log(f"[{tag}] {name}: two launches repeat bitwise")
         del again
@@ -386,20 +399,7 @@ def kernel_phases(tel, ptel):
         nm = sub_lmax + 1
         F = crandn((B, nm, g.nring))
         G = crandn((B, nm, g.nring))
-        cos_t = torch.as_tensor(g.cos_theta, device=dev)
-        sin_t = torch.as_tensor(g.sin_theta, device=dev)
-        area = 4.0 * np.pi / g.npix
-        # a complex x real multiply-add (4 flops) per (unit, l >= m, m, ring),
-        # for each of pos and neg; outputs (B, lmax + 1, nm) twice
-        pairs = nm * (nm + 1) // 2
-        keep("k3k5_legendre_sht", compare(
-            f"k3k5_legendre_sht (B {B}, lmax {sub_lmax}, nring {g.nring})",
-            lambda: sht.legendre_contract(F, G, cos_t, sin_t, sub_lmax, area),
-            lambda: sht.legendre_contract_ref(F, G, cos_t, sin_t, sub_lmax, area),
-            rtol=1e-4, reps=5,
-            work=(nbytes(F, G, cos_t, sin_t) + 2 * B * nm * nm * 8,
-                  [(2 * 4.0 * B * pairs * g.nring, F32_FLOPS)]),
-        ))
+        keep("k3k5_legendre_sht", k3k5_compare(F, G, g, sub_lmax, 1e-4, f"B {B}"))
         del F, G
 
         # K9: an m-batch of sky->SVD beams (8, F, S, npol, nl) and a signal
@@ -464,7 +464,8 @@ def k14_compare(tel, rng, tag="kernels"):
     nlam = nl * (nl + 1) // 2 * g.nring
     log(f"[{tag}] k14_legendre_synth: {nlam:.4e} lambda (B {B}, lmax {lmax}, nside {g.nside})")
     rec = None
-    for dtype, rtol in ((torch.complex128, 1e-10), (torch.complex64, 1e-5)):
+    # complex128 last: the input map's K3+K5 below reuses its lambda table
+    for dtype, rtol in ((torch.complex64, 1e-5), (torch.complex128, 1e-10)):
         pos = _crandn(rng, (B, nl, nl), dtype, dev)
         neg = _crandn(rng, (B, nl, lmax), dtype, dev)
         for form, nb in (("real", None), ("complex", neg)):
@@ -477,20 +478,144 @@ def k14_compare(tel, rng, tag="kernels"):
                 lambda: sht.legendre_synth(pos, nb, ct, st)[:k],
                 lambda: sht.legendre_synth_ref(pos, nb, ct, st)[:k],
                 rtol=rtol, reps=5, tag=tag, work=(moved, ops),
+                library_fn=synth_library(pos, nb, legendre_table_lib(nl, g.nside, lmax, dtype)),
             )
-            rec = rec or r
+            if dtype == torch.complex128 and nb is None:
+                rec = r
     F = _crandn(rng, (B, nl, g.nring), torch.complex128, dev)
     G = _crandn(rng, (B, nl, g.nring), torch.complex128, dev)
+    k3k5_compare(F, G, g, lmax, 1e-10, f"input map: B {B}", tag=tag)
+    return rec
+
+
+@functools.lru_cache(maxsize=1)
+def legendre_table_lib(nm, nside, lmax, dtype):
+    """The JAX package's lambda table (ops/sht.py's ``legendre_table``, the
+    plain versions' recurrence), (lmax + 1, nm, nring) on the card in the
+    real type of ``dtype``: the operand of the library form of K3+K5 and
+    K14.  Built once per key (the last one kept) and timed apart (host
+    clock around a synchronised build), never inside ``library_ms``."""
+    import torch
+
+    from driftscan_tpu_torch.ops import healpix, sht
+
+    g = healpix.ring_geometry(nside)
+    ct = torch.as_tensor(g.cos_theta, device="cuda")
+    st = torch.as_tensor(g.sin_theta, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mvals = torch.arange(nm, device="cuda")
+    logpref = torch.as_tensor(sht._log_lambda_mm_prefactor(lmax), device="cuda")
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    lam = sht.legendre_table(mvals, ct, st, lmax, logpref).to(rdt)
+    torch.cuda.synchronize()
+    log(f"[lambda table] {tuple(lam.shape)} {rdt} for the library calls: built in "
+        f"{(time.time() - t0) * 1e3:.1f} ms (not in library_ms)")
+    return lam
+
+
+def _sign_m(nm, rdt, scale=1.0):
+    """scale * (-1)^m for m < nm, on the card."""
+    import torch
+
+    m = torch.arange(nm, device="cuda")
+    return (scale * torch.where(m % 2 == 0, 1.0, -1.0)).to(rdt)
+
+
+def synth_library(pos, neg, lam):
+    """K14 as one einsum a plane over the cached lambda table."""
+    import torch
+
+    pr = torch.view_as_real(pos)
+    if neg is None:
+        return lambda: torch.einsum("lmr,blmc->bmrc", lam, pr)
+    shifted = torch.view_as_real(torch.cat([torch.zeros_like(pos[..., :1]), neg], dim=-1))
+    sgn = _sign_m(lam.shape[1], lam.dtype)
+    return lambda: (torch.einsum("lmr,blmc->bmrc", lam, pr),
+                    torch.einsum("lmr,blmc,m->bmrc", lam, shifted, sgn))
+
+
+def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
+    """K3+K5 against its plain version on phase-stage outputs F, G (B, nm,
+    nring) at the rings of ``g``, with a bitwise repeat; library: one
+    einsum a plane over the cached lambda table (the JAX package's form).
+    Bound: ~12 float64 flops of recurrence a lambda on the CUDA cores, and
+    8 B flops a lambda for the two planes' products, on the tensor cores
+    (float64; complex64 as 3xTF32 at 495 / 3 TFLOP/s, as the Grams are
+    counted); the CUDA-core bound (the products alone at 67 TFLOP/s
+    float32, no recurrence) is printed beside it.  In complex64 the kernel
+    and the plain version are also held against the float64 truth, and
+    the kernel must be no farther from it."""
+    import torch
+
+    from driftscan_tpu_torch.ops import sht
+
+    B, nm, nring = F.shape
+    ct = torch.as_tensor(g.cos_theta, device=F.device)
+    st = torch.as_tensor(g.sin_theta, device=F.device)
     area = 4.0 * np.pi / g.npix
-    compare(
-        f"k3k5_legendre_sht (input map: B {B}, lmax {lmax}, nring {g.nring}, complex128)",
+    nlam = sum(lmax + 1 - m for m in range(nm)) * nring
+    c128 = F.dtype == torch.complex128
+    ops = [(12.0 * nlam, F64_CUDA_CORE_FLOPS), (8.0 * B * nlam, F64_FLOPS if c128 else GRAM_FLOPS)]
+    moved = nbytes(F, G, ct, st) + 2 * B * (lmax + 1) * nm * F.element_size()
+    if not c128:
+        cuda_core_ms = bound(moved, [(8.0 * B * nlam, F32_FLOPS)])[0]
+        log(f"[{tag}] k3k5_legendre_sht ({what}): the CUDA-core bound (the products alone "
+            f"at 67 TFLOP/s float32, no recurrence) {cuda_core_ms:.4f} ms")
+    lam = legendre_table_lib(nm, g.nside, lmax, F.dtype)
+    fr, gr = torch.view_as_real(F), torch.view_as_real(G)
+    w_pos = torch.full((nm,), area, dtype=lam.dtype, device="cuda")
+    w_neg = _sign_m(nm, lam.dtype, area)
+
+    def library():
+        return (torch.einsum("lmr,bmrc,m->blmc", lam, fr, w_pos),
+                torch.einsum("lmr,bmrc,m->blmc", lam, gr, w_neg))
+
+    rec = compare(
+        f"k3k5_legendre_sht ({what}, lmax {lmax}, nring {nring}, {F.dtype})",
         lambda: sht.legendre_contract(F, G, ct, st, lmax, area),
         lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, area),
-        rtol=1e-10, reps=5, tag=tag,
-        work=(nbytes(F, G, ct, st) + 2 * B * nl * nl * 16,
-              [(12.0 * nlam, F64_CUDA_CORE_FLOPS), (8.0 * B * nlam, F64_FLOPS)]),
+        rtol=rtol, reps=reps, tag=tag, work=(moved, ops), library_fn=library, bitwise=True,
     )
+    del lam
+    if not c128:
+        # the plain version rounds lambda and its sums to float32 too: the
+        # kernel and it against the float64 truth on the same inputs, and
+        # the kernel no farther from it
+        wide = [x.to(torch.complex128) for x in (F, G)]
+        truth = sht.legendre_contract_ref(*wide, ct, st, lmax, area)
+        del wide
+        errs = []
+        for fn in (sht.legendre_contract, sht.legendre_contract_ref):
+            out = fn(F, G, ct, st, lmax, area)
+            errs.append(max(float((o.to(torch.complex128) - t).abs().max())
+                            for o, t in zip(out, truth)))
+            del out
+        log(f"[{tag}] k3k5_legendre_sht ({what}): max error against the float64 truth: kernel "
+            f"{errs[0]:.6e}, plain {errs[1]:.6e}")
+        if not errs[0] <= errs[1]:
+            raise AssertionError(f"k3k5_legendre_sht ({what}): the kernel is farther from the "
+                                 f"float64 truth ({errs[0]:.3e}) than the plain version "
+                                 f"({errs[1]:.3e})")
+        del truth
     return rec
+
+
+def k3k5_dish_compare(dtel, rng):
+    """K3+K5 at the ``[dish]`` path's first BTM chunk: complex128, its
+    largest band limit (494) on the rings of nside 512."""
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import healpix
+
+    ns, blc, _, sub_lmax = first_chunk(dtel)
+    g = healpix.ring_geometry(ns)
+    B = len(blc) * (dtel._npol_transform if dtel.num_pol_sky > 1 else 1)
+    nm = sub_lmax + 1
+    dtype = backend.complex_dtype(dtel.real_dtype)
+    F = _crandn(rng, (B, nm, g.nring), dtype, dtel.device)
+    G = _crandn(rng, (B, nm, g.nring), dtype, dtel.device)
+    k3k5_compare(F, G, g, sub_lmax, 1e-10, f"[dish] chunk: B {B}", tag="host kernels", reps=3)
+    legendre_table_lib.cache_clear()  # its float64 table is ~4 GB
 
 
 def k13_compare(t, M, k, rng, tag="kernels"):
@@ -561,14 +686,11 @@ def sandwich_band_compare(t, nkl, rng, dtype=None, tag="kernels"):
     )
     clc = cl.to(dtype)
     flops = NBANDS * nl * (4.0 * nkl * F * F + 8.0 * nkl * nkl * F)
-    if dtype == torch.complex128:
-        log(f"[{tag}] k15a_sandwich band form nkl {nkl}: {flops:.4e} flop; at the float64 "
-            f"CUDA cores' 34 TFLOP/s {flops / F64_CUDA_CORE_FLOPS * 1e3:.4f} ms")
     return compare(
         f"k15a_sandwich band form (nkl {nkl}, F {F}, nl {nl}, nb {NBANDS}, {dtype})",
         lambda: projections.band_covariance_projection(g, cl),
         lambda: projections.sandwich_ref(g[None], g[None], cl),
-        rtol=1e-12 if dtype == torch.complex128 else 1e-5, tag=tag,
+        rtol=1e-12 if dtype == torch.complex128 else 1e-5, tag=tag, bitwise=True,
         work=(nbytes(g, cl) + NBANDS * nkl * nkl * g.element_size(), [(flops, _rate(dtype))]),
         library_fn=lambda: torch.einsum("kfl,blfh,qhl->bkq", g, clc, g.conj()),
     )
@@ -588,22 +710,19 @@ def sandwich_sky_compare(t, rng, tag="kernels"):
     beam = _crandn(rng, (F, S, 1, nl), torch.complex128, t.device)
     cl = torch.as_tensor(rng.standard_normal((1, 1, nl, F, F)), device=t.device)
     c = cl.permute(3, 4, 2, 0, 1).reshape(F * F, nl, 1, 1).contiguous()
-    fi = torch.arange(F).repeat_interleave(F)
-    gi = torch.arange(F).repeat(F)
-    ci = torch.arange(F * F)
+    # the sky form's own operand indices, on the card (sky_covariance_projection's)
+    fi, gi, ci = projections.sky_pair_index(1, F, t.device)
     clc = cl.to(beam.dtype)
     lib = lambda: torch.einsum("fapl,pqlfg,gbql->fagb", beam, clc, beam.conj())
     got = projections.sky_covariance_projection(beam, cl)
     if not float((got - lib()).abs().max()) <= 1e-12 * float(got.abs().max()):
         raise AssertionError("sky_covariance_projection disagrees with its einsum")
     flops = F * F * nl * (4.0 * S + 8.0 * S * S)
-    log(f"[{tag}] k15a_sandwich sky form: {flops:.4e} flop; at the float64 CUDA cores' "
-        f"34 TFLOP/s {flops / F64_CUDA_CORE_FLOPS * 1e3:.4f} ms")
     return compare(
         f"k15a_sandwich sky form ({F * F} pairs, S {S}, npol 1, nl {nl}, complex128)",
         lambda: projections.sandwich(beam, beam, c, fi, gi, ci),
         lambda: projections.sandwich_ref(beam, beam, c, fi, gi, ci),
-        rtol=1e-12, tag=tag,
+        rtol=1e-12, tag=tag, bitwise=True,
         work=(nbytes(beam, c) + F * F * S * S * 16, [(flops, F64_FLOPS)]),
         library_fn=lib,
     )
@@ -1651,6 +1770,56 @@ def precision_gate_phase(tag, klass, params, nunits=4):
     return launches
 
 
+def svd_cut_phase(tag, tel, params, svcut=1e-6):
+    """Where ``[slice]``'s SVD mode count sits against its cut: the bench
+    cylinder's BTM from the path's kernels, with K3+K5's plain version in
+    the kernel's place, and in float64, each through the product step's
+    SVD cut (``mstep.kl_product_step`` at npol 1: the singular values of
+    the l >= m masked, noise-weighted beams of each (m, f) above
+    ``SVD_FLOOR`` of their top and ``svcut`` of their m's top).  Prints
+    each count, and how far the singular values within a factor 2 of the
+    cut lie from the float64 ones."""
+    from unittest import mock
+
+    import torch
+
+    from driftscan_tpu_torch.ops import linalg, sht
+    from driftscan_tpu_torch.parallel import resident
+
+    def spectra(t):
+        nm, nl = t.mmax + 1, t.lmax + 1
+        pos, neg = resident.btm_resident(t, *units(t))
+        noisew = torch.as_tensor(covariances(t)[2], device="cuda").double()
+        svs, cuts = [], []
+        for s in range(0, nm, 8):
+            mv = torch.arange(s, min(s + 8, nm), device="cuda")
+            beam = resident._build_beam_batch(pos, neg, mv, t.npairs, t.nfreq, 1, nl)
+            lmask = (torch.arange(nl, device="cuda")[None, :] >= mv[:, None]).double()
+            bw = beam.to(torch.complex128) * lmask[:, None, None, :] * noisew[None, :, :, None]
+            sv = torch.linalg.svd(bw, full_matrices=False)[1]  # (M, F, k)
+            top_m = sv[..., 0].amax(-1)
+            cut = torch.maximum(sv[..., :1] * linalg.SVD_FLOOR, top_m[:, None, None] * svcut)
+            svs.append(sv)
+            cuts.append(cut.expand_as(sv))
+        return torch.cat(svs), torch.cat(cuts)
+
+    res = {"kernel": spectra(tel)}
+    with mock.patch.object(sht, "legendre_contract", sht.legendre_contract_ref):
+        res["plain K3+K5"] = spectra(tel)
+    tel64 = type(tel).from_config(dict(params, single_precision=False), device="cuda")
+    res["float64"] = spectra(tel64)
+    sv64, cut64 = res["float64"]
+    near = (sv64 > cut64 / 2) & (sv64 < cut64 * 2)
+    kept64 = (sv64 > cut64).sum(-1)
+    for name, (sv, cut) in res.items():
+        kept = (sv > cut).sum(-1)
+        dev = float((sv / sv64 - 1).abs()[near].max()) if bool(near.any()) else 0.0
+        log(f"[{tag}] {name} BTM: svd modes {int(kept.sum())}; (m, f) whose count differs "
+            f"from float64's {int((kept != kept64).sum())}; of the {int(near.sum())} float64 "
+            f"singular values within a factor 2 of the cut, largest |sv / sv_float64 - 1| "
+            f"{dev:.3e}")
+
+
 def example_phase(workdir):
     """The repository's example (``examples/disharray``: DishArray with
     ``nosvd``, a KL filter with an inverse; then a timestream and maps),
@@ -1820,6 +1989,7 @@ def main():
     perf = kernel_phases(tel, ptel)
     perf.update(host_kernel_phases(
         {"restricted": rtel, "restricted pol": rptel, "dish": dtel}))
+    k3k5_dish_compare(dtel, np.random.default_rng(SEED + 3))
     counted = {}
     for tag, t_, ps in (("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD),
                         ("dish", dtel, None), ("restricted", rtel, None),
@@ -1873,6 +2043,8 @@ def main():
     perf.update(probe_perf)
     for name in PROBE_KERNELS:
         counted[name] = launches[name]
+    # last, so that its float64 telescope and BTMs precede no timed phase
+    svd_cut_phase("svd cut", tel, BENCH_PARAMS)
     if profiling:
         profile_paths((("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD)))
         profile_products()

@@ -60,9 +60,9 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
 def on_cuda(*tensors) -> bool:
     """True if every tensor lies on a CUDA device, False if every one
     lies on the CPU; raises on a mix or any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if all(t.is_cuda for t in tensors):
         return True
+    kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")

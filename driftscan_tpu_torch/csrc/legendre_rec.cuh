@@ -39,6 +39,9 @@ struct State {
   double u0 = 0.0, u1 = 0.0, s = -1e6, sc = 0.0;
 };
 
+// exp(s), or 0 where it underflows: the factor a state's mantissa carries.
+__device__ __forceinline__ double scale(double s) { return (s > kExpFloor) ? exp(s) : 0.0; }
+
 // lambda_lm(theta) for l >= m, advancing `st` from l - 1 to l.  x = cos
 // theta, sin_r = sin theta; sgn = (-1)^m and sq = sqrt(2m + 3); a, b the
 // coefficients of step l (used for l >= m + 2); logpref[m] the log of
@@ -71,7 +74,7 @@ __device__ __forceinline__ double step(State& st, int l, int m, double mf,
   }
   st.u0 = st.u1 * factor;
   st.u1 = u_new * factor;
-  if (refresh) st.sc = (st.s > kExpFloor) ? exp(st.s) : 0.0;
+  if (refresh) st.sc = scale(st.s);
   const double lam = st.u1 * st.sc;
   return fabs(lam) <= kTiny ? 0.0 : lam;
 }

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -91,20 +92,38 @@ def _default_index(nb: int, size: int, device: torch.device) -> torch.Tensor:
     return i.to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def sky_pair_index(nm: int, nf: int, device: torch.device):
+    """(ix, iy, ic) int32 on ``device`` for the sky forms: batch item
+    (mi, f, g), in that order, takes X = beam[mi * nf + f], Y = beam[mi * nf
+    + g] and C = c[f * nf + g].  Built once per (nm, nf, device)."""
+    mi, f, g = (a.ravel() for a in np.meshgrid(
+        np.arange(nm), np.arange(nf), np.arange(nf), indexing="ij"))
+    return tuple(
+        torch.as_tensor(a.astype(np.int32), device=device)
+        for a in (mi * nf + f, mi * nf + g, f * nf + g)
+    )
+
+
 def _sandwich_indices(x, y, c, ix, iy, ic):
-    """The three (B,) int32 operand indices on the operands' device; given
-    ones are range-checked on the host."""
+    """The three (B,) int32 operand indices on the operands' device.  An
+    index tensor already on that device is used as it is; a host array or
+    list is range-checked with numpy and uploaded once."""
     nb = max(x.shape[0], y.shape[0], c.shape[0]) if ix is None else len(ix)
 
     def idx(name, i, size):
         if i is None:
             return _default_index(nb, size, x.device)
-        i = torch.as_tensor(i).cpu()
-        if i.shape != (nb,):
-            raise ValueError(f"{name}: shape {tuple(i.shape)}, expected ({nb},)")
-        if nb and not (0 <= int(i.min()) and int(i.max()) < size):
+        if isinstance(i, torch.Tensor) and i.device == x.device:
+            if tuple(i.shape) != (nb,):
+                raise ValueError(f"{name}: shape {tuple(i.shape)}, expected ({nb},)")
+            return i.to(torch.int32).contiguous()
+        a = np.asarray(i.cpu() if isinstance(i, torch.Tensor) else i)
+        if a.shape != (nb,):
+            raise ValueError(f"{name}: shape {a.shape}, expected ({nb},)")
+        if nb and not (0 <= a.min() and a.max() < size):
             raise ValueError(f"{name} out of range for a batch of {size}")
-        return i.to(device=x.device, dtype=torch.int32).contiguous()
+        return torch.as_tensor(a.astype(np.int32), device=x.device)
 
     return idx("ix", ix, x.shape[0]), idx("iy", iy, y.shape[0]), idx("ic", ic, c.shape[0])
 
@@ -117,20 +136,47 @@ def sandwich_ref(x, y, c, ix=None, iy=None, ic=None):
     return torch.einsum("bidl,bjdl->bij", t, y[iy.long()].conj())
 
 
-SANDWICH_TILE = 64  # output tile edge of csrc/sandwich.cu
-SANDWICH_KC = 16  # l per chunk there
+# csrc/sandwich.cu: contraction slots (d, l) per chunk, the largest cluster
+# that shares a tile's chunks, and the blocks an SM holds at once, of
+# either tile edge (its MIN_BLOCKS launch bound)
+SANDWICH_KC = 16
+SANDWICH_MAX_SPLIT = 8
+SANDWICH_BLOCKS_PER_SM = 2
+_SANDWICH_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
-def sandwich_split(nb: int, n: int, m: int, cd: int, nl: int, sms: int) -> tuple[int, int]:
-    """(nsplit, chunks per split) of one sandwich launch: the kernel's
-    cd * ceil(nl / 16) chunks are shared among nsplit blocks per output
-    tile so that a launch has about two blocks per SM (the KL bases of the
-    product files give few tiles), with at least 4 chunks a block."""
-    tiles = nb * -(-n // SANDWICH_TILE) * -(-m // SANDWICH_TILE)
-    nch = cd * -(-nl // SANDWICH_KC)
-    nsplit = max(1, min(2 * sms // max(tiles, 1), nch // 4, 65535 // max(nb, 1)))
-    cps = -(-nch // nsplit)
-    return -(-nch // cps), cps
+class SandwichPlan(NamedTuple):
+    tile: int  # output tile edge, 32 or 64
+    dc: int  # d values per chunk (16 // dc values of l)
+    nchunks: int
+    nsplit: int  # blocks of a cluster sharing one tile's chunks
+    cps: int  # chunks per split
+
+
+@functools.lru_cache(maxsize=256)
+def sandwich_plan(nb: int, n: int, m: int, cd: int, nl: int, sms: int) -> SandwichPlan:
+    """The launch plan of one sandwich call.
+
+    The output tile edge is 32 where n and m are at most 64 (a 44 x 44 or
+    52 x 52 KL block: more blocks, and the sub-tiles past the edge skipped)
+    and 64 otherwise.  A chunk holds dc = min(cd, 16) values of d times
+    16 // dc values of l.  The chunks of a tile are shared among the nsplit
+    blocks of a cluster so as to minimise rounds x (chunks per block + 2),
+    the launch's critical path with a block's staging and epilogue counted
+    as two chunks (the smallest split on a tie).
+    """
+    tile = 32 if max(n, m) <= 64 else 64
+    dc = min(cd, SANDWICH_KC)
+    nchunks = -(-nl // (SANDWICH_KC // dc)) * -(-cd // dc)
+    tiles = max(nb * -(-n // tile) * -(-m // tile), 1)
+    slots = sms * SANDWICH_BLOCKS_PER_SM
+
+    def cost(s):
+        return -(-tiles * s // slots) * (-(-nchunks // s) + 2)
+
+    nsplit = min(range(1, min(SANDWICH_MAX_SPLIT, nchunks) + 1), key=lambda s: (cost(s), s))
+    cps = -(-nchunks // nsplit)
+    return SandwichPlan(tile, dc, nchunks, -(-nchunks // cps), cps)
 
 
 def sandwich(x, y, c, ix=None, iy=None, ic=None):
@@ -139,11 +185,14 @@ def sandwich(x, y, c, ix=None, iy=None, ic=None):
     x (Nx, n, Cc, nl) and y (Ny, m, Cd, nl) complex64 or complex128,
     c (Nc, nl, Cc, Cd) real; batch item b takes x[ix[b]], y[iy[b]] and
     c[ic[b]] (an index left None is the identity, or all zeros for a batch
-    of one).  Returns (B, n, m) complex: out[b, i, j] = sum_{l, c, d}
+    of one; index tensors on the operands' device are used as they are,
+    unchecked).  Returns (B, n, m) complex: out[b, i, j] = sum_{l, c, d}
     x[i, c, l] C[l, c, d] conj(y[j, d, l]).  CPU tensors take the plain
     version; CUDA tensors launch the kernel.
     """
-    c = c.to(backend.real_dtype(x.dtype))
+    rdt = backend.real_dtype(x.dtype)
+    if c.dtype != rdt:
+        c = c.to(rdt)
     if not backend.on_cuda(x, y, c):
         return sandwich_ref(x, y, c, ix, iy, ic)
     _, n, cc, nl = x.shape
@@ -152,27 +201,24 @@ def sandwich(x, y, c, ix=None, iy=None, ic=None):
     backend.require(y, "y", dtype=x.dtype, shape=(y.shape[0], m, cd, nl))
     if c.dim() != 4 or tuple(c.shape[1:]) != (nl, cc, cd):
         raise ValueError(f"c: shape {tuple(c.shape)}, expected (Nc, {nl}, {cc}, {cd})")
+    c = c.contiguous()  # the kernel reads C in this layout
     ix, iy, ic = _sandwich_indices(x, y, c, ix, iy, ic)
     nb = len(ix)
     if nb > 65535:
         raise ValueError(f"sandwich batch {nb} exceeds the launch grid's 65535")
-    # every operand contiguous along l: C as (Nc, Cd, Cc, nl)
-    ct = c.permute(0, 3, 2, 1).contiguous()
+    if not (nb and n and m and nl and cc and cd):
+        return torch.zeros((nb, n, m), dtype=x.dtype, device=x.device)
     out = torch.empty((nb, n, m), dtype=x.dtype, device=x.device)
-    nsplit, cps = sandwich_split(nb, n, m, cd, nl, backend.sm_count(x.device))
-    part = None
-    if nsplit > 1:
-        part = torch.empty((nsplit, nb, n, m), dtype=x.dtype, device=x.device)
+    plan = sandwich_plan(nb, n, m, cd, nl, backend.sm_count(x.device))
     fn = K15A.entry(
-        "sandwich_c64" if x.dtype == torch.complex64 else "sandwich_c128",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        "sandwich_c64" if x.dtype == torch.complex64 else "sandwich_c128", _SANDWICH_ARGS
     )
     backend.check(
         fn(
-            x.data_ptr(), y.data_ptr(), ct.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(),
+            x.data_ptr(), y.data_ptr(), c.data_ptr(), out.data_ptr(),
             ix.data_ptr(), iy.data_ptr(), ic.data_ptr(),
-            nb, n, m, cc, cd, nl, nsplit, cps, backend.stream_ptr(x.device),
+            nb, n, m, cc, cd, nl, plan.tile, plan.dc, plan.nsplit, plan.cps,
+            backend.stream_ptr(x.device),
         ),
         K15A.name,
     )
@@ -206,9 +252,7 @@ def sky_covariance_projection(beam4, cl, device=None):
     conj(B[g, b, q, l]); beam4 (F, A, P, nl) complex, cl real."""
     beam4 = as_tensor(beam4, device).contiguous()
     c, nf = _sky_cl(cl, beam4)
-    fi = torch.arange(nf).repeat_interleave(nf)
-    gi = torch.arange(nf).repeat(nf)
-    out = sandwich(beam4, beam4, c, ix=fi, iy=gi, ic=torch.arange(nf * nf))
+    out = sandwich(beam4, beam4, c, *sky_pair_index(1, nf, beam4.device))
     na = beam4.shape[1]
     return out.reshape(nf, nf, na, na).permute(0, 2, 1, 3)
 
@@ -218,14 +262,8 @@ def sky_covariance_projection_m(beam5, cl, device=None):
     beam5 = as_tensor(beam5, device).contiguous()
     nm, nf, ns = beam5.shape[:3]
     c, _ = _sky_cl(cl, beam5)
-    mi = torch.arange(nm).repeat_interleave(nf * nf)
-    fi = torch.arange(nf).repeat_interleave(nf).repeat(nm)
-    gi = torch.arange(nf).repeat(nf * nm)
-    out = sandwich(
-        beam5.reshape((nm * nf,) + tuple(beam5.shape[2:])),
-        beam5.reshape((nm * nf,) + tuple(beam5.shape[2:])),
-        c, ix=mi * nf + fi, iy=mi * nf + gi, ic=fi * nf + gi,
-    )
+    flat = beam5.reshape((nm * nf,) + tuple(beam5.shape[2:]))
+    out = sandwich(flat, flat, c, *sky_pair_index(nm, nf, beam5.device))
     return out.reshape(nm, nf, nf, ns, ns).permute(0, 1, 3, 2, 4)
 
 

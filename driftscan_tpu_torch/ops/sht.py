@@ -171,6 +171,27 @@ def legendre_contract_ref(F, G, cos_t, sin_t, lmax: int, pixarea: float):
     return pos, neg
 
 
+def m_schedule(nm: int) -> np.ndarray:
+    """The m values each block of the Legendre kernel takes: (ceil(nm / 2),
+    2) int32 rows (m, nm - 1 - m), the second -1 where the middle m of an
+    odd nm stands alone.  A block then walks 2 (lmax + 1) - (nm - 1)
+    multipoles whatever its row, so no block runs twice the mean (m = 0
+    alone would)."""
+    first = np.arange((nm + 1) // 2)
+    second = nm - 1 - first
+    second[second == first] = -1
+    return np.stack([first, second], axis=1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _legendre_tables(lmax: int, nm: int, device: torch.device):
+    """(logpref, schedule) on ``device``, uploaded once per (lmax, nm)."""
+    return (
+        torch.as_tensor(_log_lambda_mm_prefactor(lmax), device=device),
+        torch.as_tensor(m_schedule(nm), device=device),
+    )
+
+
 def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float):
     """Legendre stage of the analysis (K3+K5).
 
@@ -179,7 +200,8 @@ def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float):
     (pos, neg), each (B, lmax+1, nm) complex:
     ``pos[b, l, m] = Omega sum_r lambda_lm(theta_r) F[b, m, r]`` and
     ``neg[b, l, m] = Omega (-1)^m sum_r lambda_lm(theta_r) G[b, m, r]``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel and
+    get transposed views of (B, nm, lmax+1) tensors.
     """
     if not backend.on_cuda(F, G, cos_t, sin_t):
         return legendre_contract_ref(F, G, cos_t, sin_t, lmax, pixarea)
@@ -191,26 +213,28 @@ def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float):
     if nm > lmax + 1:
         raise ValueError(f"nm={nm} exceeds lmax+1={lmax + 1}")
     dev = F.device
-    logpref = torch.as_tensor(_log_lambda_mm_prefactor(lmax), device=dev)
-    nl = lmax + 1
-    pos = torch.empty((B, nl, nm), dtype=F.dtype, device=dev)
+    # the kernel writes (B, nm, lmax + 1), contiguous along l, so that a
+    # block's stores for its m run along l; the results are its transposes
+    pos = torch.empty((B, nm, lmax + 1), dtype=F.dtype, device=dev)
     neg = torch.empty_like(pos)
+    if B == 0 or nm == 0 or nring == 0:
+        return pos.zero_().transpose(1, 2), neg.zero_().transpose(1, 2)
+    logpref, sched = _legendre_tables(lmax, nm, dev)
     fn = K3K5.entry(
         "legendre_sht_c64" if F.dtype == torch.complex64 else "legendre_sht_c128",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        + [ctypes.c_double, ctypes.c_void_p],
     )
-    nblk = int(K3K5.lib().legendre_sht_state_blocks(ctypes.c_int(B), ctypes.c_int(nm)))
-    state = torch.empty((nblk, nring, 4), dtype=torch.float64, device=dev)
     backend.check(
         fn(
             F.data_ptr(), G.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-            logpref.data_ptr(), state.data_ptr(), pos.data_ptr(), neg.data_ptr(),
-            B, nm, nring, lmax, float(pixarea), backend.stream_ptr(dev),
+            logpref.data_ptr(), sched.data_ptr(), sched.shape[0], pos.data_ptr(),
+            neg.data_ptr(), B, nm, nring, lmax, float(pixarea), backend.stream_ptr(dev),
         ),
         K3K5.name,
     )
     K3K5.launches += 1
-    return pos, neg
+    return pos.transpose(1, 2), neg.transpose(1, 2)
 
 
 _PHASE_CACHE = {}

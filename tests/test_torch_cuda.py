@@ -190,6 +190,65 @@ def test_k3k5_legendre_sht(cuda, dtype):
            lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, 0.01), 1e-4)
 
 
+# (nside, lmax, nm, B, dtype): lmax below the multipole tile (64 complex64,
+# 32 complex128), nm < lmax + 1 (odd and even: the (m, nm - 1 - m) pairs),
+# ring counts that are not a multiple of the 512-ring or 32-ring tiles (31,
+# 63, 1023), B = 1, 8, 64 (one block of units in complex64) and 256 (four),
+# 33 (three blocks in complex128), the [dish] shape (nside 512, lmax 494,
+# complex128) and nside 1024, whose 4095 rings exceed the ring states one
+# block holds (ring ranges)
+K3K5_EDGES = [
+    (8, 10, 11, 1, torch.complex64), (16, 20, 7, 8, torch.complex64),
+    (16, 20, 8, 3, torch.complex128), (64, 120, 121, 64, torch.complex64),
+    (32, 47, 48, 256, torch.complex64), (32, 47, 30, 33, torch.complex128),
+    (256, 229, 230, 8, torch.complex128), (512, 494, 495, 2, torch.complex128),
+    (1024, 40, 41, 2, torch.complex64), (1024, 40, 41, 1, torch.complex128),
+]
+
+
+@pytest.mark.parametrize("shape", K3K5_EDGES, ids=lambda s: "x".join(map(str, s[:4])) + str(s[4])[-3:])
+def test_k3k5_legendre_sht_edges(cuda, shape):
+    """The kernel against its plain version (rel 1e-4 in complex64, 1e-10 in
+    complex128), and two launches bitwise equal."""
+    nside, lmax, nm, B, dtype = shape
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(nside + lmax + B)
+    F = _crandn(rng, (B, nm, g.nring), cuda).to(dtype)
+    G = _crandn(rng, (B, nm, g.nring), cuda).to(dtype)
+    ct = torch.as_tensor(g.cos_theta, device=cuda)
+    st = torch.as_tensor(g.sin_theta, device=cuda)
+    area = 4 * np.pi / g.npix
+    rtol = 1e-4 if dtype == torch.complex64 else 1e-10
+    _check(sht.K3K5, lambda: sht.legendre_contract(F, G, ct, st, lmax, area),
+           lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, area), rtol)
+    a = sht.legendre_contract(F, G, ct, st, lmax, area)
+    b = sht.legendre_contract(F, G, ct, st, lmax, area)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("nside,lmax,B", [(64, 120, 64), (128, 229, 16)])
+def test_k3k5_complex64_no_farther_from_float64_than_plain(cuda, nside, lmax, B):
+    """In complex64 the 3xTF32 products (tf32 parts rounded to nearest,
+    summed outside the tensor cores every 8 rings) land no farther from the
+    float64 truth than the plain version's float32 lambda and sums."""
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(lmax + B)
+    F = _crandn(rng, (B, lmax + 1, g.nring), cuda)
+    G = _crandn(rng, (B, lmax + 1, g.nring), cuda)
+    ct = torch.as_tensor(g.cos_theta, device=cuda)
+    st = torch.as_tensor(g.sin_theta, device=cuda)
+    area = 4 * np.pi / g.npix
+    truth = sht.legendre_contract_ref(F.to(torch.complex128), G.to(torch.complex128), ct, st,
+                                      lmax, area)
+
+    def err(out):
+        return max(float((o.to(torch.complex128) - t).abs().max()) for o, t in zip(out, truth))
+
+    kernel = err(sht.legendre_contract(F, G, ct, st, lmax, area))
+    assert kernel <= err(sht.legendre_contract_ref(F, G, ct, st, lmax, area))
+
+
 # (nside, lmax, B): an odd unit count over one and two unit tiles, ring counts
 # (63, 255) that are not a multiple of the 128-ring tile, m above the polar
 # rings' length, and the path's lmax at an nside of the same ring tiling
@@ -366,19 +425,68 @@ def test_k15a_sandwich_index_arrays(cuda):
 
 def test_k15a_sandwich_split_plan(cuda, monkeypatch):
     """Split and unsplit launches agree; a plan that leaves chunks
-    uncovered is refused at launch."""
+    uncovered, or a cluster wider than 8, is refused at launch."""
     rng = np.random.default_rng(19)
     g = _crandn(rng, (52, 8, 230), cuda).to(torch.complex128)
     cl = torch.as_tensor(rng.standard_normal((4, 230, 8, 8)), device=cuda)
-    nsplit, cps = projections.sandwich_split(4, 52, 52, 8, 230, backend.sm_count(cuda))
-    assert nsplit > 1
+    plan = projections.sandwich_plan(4, 52, 52, 8, 230, backend.sm_count(cuda))
+    assert plan.nsplit > 1
     split = projections.band_covariance_projection(g, cl)
-    monkeypatch.setattr(projections, "sandwich_split", lambda *a: (1, 8 * 15))
-    whole = projections.band_covariance_projection(g, cl)
-    assert float((split - whole).abs().max()) <= 1e-12 * float(whole.abs().max())
-    monkeypatch.setattr(projections, "sandwich_split", lambda *a: (2, 8 * 15 // 2 - 1))
-    with pytest.raises(RuntimeError):
-        projections.band_covariance_projection(g, cl)
+    for tile in (32, 64):
+        whole = projections.SandwichPlan(tile, 8, 115, 1, 115)
+        monkeypatch.setattr(projections, "sandwich_plan", lambda *a: whole)
+        got = projections.band_covariance_projection(g, cl)
+        assert float((split - got).abs().max()) <= 1e-12 * float(got.abs().max())
+    for bad in (projections.SandwichPlan(32, 8, 115, 2, 115 // 2 - 1),
+                projections.SandwichPlan(32, 8, 115, 9, 13)):
+        monkeypatch.setattr(projections, "sandwich_plan", lambda *a: bad)
+        with pytest.raises(RuntimeError):
+            projections.band_covariance_projection(g, cl)
+
+
+# (B, n, m, Cc, Cd, nl, Nx, Ny, Nc): n = m = 1; n and m off the tile edges;
+# Cc != Cd, Cd above 16 (two d groups a chunk row) and Cd = 3 (a chunk of
+# 15 slots); a batch of 4096 one-element outputs; a 130 x 129 output (64
+# tiles, split)
+K15A_EDGES = [
+    (1, 1, 1, 1, 1, 1, 1, 1, 1), (3, 33, 70, 3, 5, 19, 2, 4, 3),
+    (2, 65, 31, 2, 17, 7, 2, 2, 1), (4096, 5, 3, 2, 1, 4, 7, 5, 3),
+    (2, 130, 129, 1, 3, 40, 3, 1, 2),
+]
+
+
+@pytest.mark.parametrize("where", ["host", "device"])
+@pytest.mark.parametrize("dtype,rtol", K15_DTYPES)
+@pytest.mark.parametrize("shape", K15A_EDGES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_k15a_sandwich_edges(cuda, shape, dtype, rtol, where):
+    """The kernel against its plain version with index arrays given on the
+    host (range-checked, uploaded) or on the card (used as they are), and
+    two launches bitwise equal."""
+    B, n, m, cc, cd, nl, nx, ny, nc = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _crandn(rng, (nx, n, cc, nl), cuda).to(dtype)
+    y = _crandn(rng, (ny, m, cd, nl), cuda).to(dtype)
+    c = torch.as_tensor(rng.standard_normal((nc, nl, cc, cd)), device=cuda).to(
+        backend.real_dtype(dtype)
+    )
+    idx = [rng.integers(0, k, B) for k in (nx, ny, nc)]
+    if where == "device":
+        idx = [torch.as_tensor(i.astype(np.int32), device=cuda) for i in idx]
+    _check(projections.K15A, lambda: projections.sandwich(x, y, c, *idx),
+           lambda: projections.sandwich_ref(x, y, c, *idx), rtol)
+    a = projections.sandwich(x, y, c, *idx)
+    b = projections.sandwich(x, y, c, *idx)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_k15a_sandwich_empty_basis(cuda):
+    """nkl = 0 (an m with no KL modes): an empty result and no launch."""
+    g = torch.zeros((0, 8, 230), dtype=torch.complex128, device=cuda)
+    cl = torch.ones((4, 230, 8, 8), dtype=torch.float64, device=cuda)
+    before = projections.K15A.launches
+    out = projections.band_covariance_projection(g, cl)
+    assert out.shape == (4, 0, 0) and projections.K15A.launches == before
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.complex128, 1e-12), (torch.complex64, 1e-6)])

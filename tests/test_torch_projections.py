@@ -84,20 +84,83 @@ def test_sandwich_takes_distinct_operands_and_indices():
 
 @pytest.mark.parametrize("shape", [
     (4, 52, 52, 8, 230), (4, 352, 352, 8, 230), (64, 44, 44, 1, 230), (1, 1, 1, 1, 3),
-    (40000, 5, 5, 2, 100),
+    (40000, 5, 5, 2, 100), (2, 65, 31, 17, 7), (3, 33, 70, 3, 19),
 ])
 def test_sandwich_split_covers_every_chunk(shape):
-    """The launch plan of the sandwich kernel: nsplit blocks of cps chunks
-    cover the cd * ceil(nl / 16) chunks with no empty block, at least 4
-    chunks a block when split, and a grid within 65535 in z."""
+    """The launch plan of the sandwich kernel: chunks of at most 16 (d, l)
+    slots tile the contraction, nsplit blocks of cps chunks cover them with
+    no empty block, the cluster is at most 8 wide, and the tile edge is 32
+    for outputs of at most 64 x 64 (so 44 x 44 and 52 x 52 do not pay for
+    64 x 64 tiles) and 64 above."""
     nb, n, m, cd, nl = shape
-    nsplit, cps = TP.sandwich_split(nb, n, m, cd, nl, 132)
-    nch = cd * -(-nl // TP.SANDWICH_KC)
-    assert nsplit >= 1 and nsplit * cps >= nch > (nsplit - 1) * cps
-    assert nsplit == 1 or cps >= 4
-    assert nb * nsplit <= 65535
+    plan = TP.sandwich_plan(nb, n, m, cd, nl, 132)
+    assert plan.tile == (32 if max(n, m) <= 64 else 64)
+    lc = TP.SANDWICH_KC // plan.dc
+    assert plan.dc == min(cd, 16) and plan.dc * lc <= 16
+    assert plan.nchunks == -(-nl // lc) * -(-cd // plan.dc)
+    assert 1 <= plan.nsplit <= TP.SANDWICH_MAX_SPLIT
+    assert plan.nsplit * plan.cps >= plan.nchunks > (plan.nsplit - 1) * plan.cps
     if shape == (4, 52, 52, 8, 230):
-        assert nsplit > 1  # few tiles: the chunks are shared out
+        assert plan.nsplit > 1  # few tiles: the chunks are shared out
+    if shape == (40000, 5, 5, 2, 100):
+        assert plan.nsplit == 1  # the batch alone fills the card
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+def test_sandwich_plan_never_lengthens_the_critical_path(sms):
+    """The split taken is no slower, by the planner's own cost (rounds of
+    blocks x (chunks a block + 2)), than the unsplit launch."""
+    for nb, n, m, cd, nl in [(4, 352, 352, 8, 230), (4, 52, 52, 8, 230), (64, 44, 44, 1, 230)]:
+        plan = TP.sandwich_plan(nb, n, m, cd, nl, sms)
+        tiles = nb * -(-n // plan.tile) * -(-m // plan.tile)
+        slots = sms * TP.SANDWICH_BLOCKS_PER_SM
+
+        def cost(s, cps):
+            return -(-tiles * s // slots) * (cps + 2)
+
+        assert cost(plan.nsplit, plan.cps) <= cost(1, plan.nchunks)
+
+
+@pytest.mark.parametrize("nm,nf", [(1, 1), (1, 8), (3, 5)])
+def test_sky_pair_index_is_cached_and_ordered(nm, nf):
+    """The sky forms' operand indices: item (mi, f, g) in that order takes
+    beam[mi * nf + f], beam[mi * nf + g] and c[f * nf + g]; one build per
+    (nm, nf, device)."""
+    ix, iy, ic = TP.sky_pair_index(nm, nf, torch.device("cpu"))
+    items = [(mi, f, g) for mi in range(nm) for f in range(nf) for g in range(nf)]
+    assert ix.tolist() == [mi * nf + f for mi, f, g in items]
+    assert iy.tolist() == [mi * nf + g for mi, f, g in items]
+    assert ic.tolist() == [f * nf + g for mi, f, g in items]
+    assert ix.dtype == torch.int32
+    assert TP.sky_pair_index(nm, nf, torch.device("cpu"))[0] is ix
+
+
+def test_sandwich_indices_checks():
+    """Host index arrays are shape- and range-checked before their upload;
+    index tensors on the operands' device are taken as they are (int32,
+    no copy when already int32); a missing index broadcasts or raises."""
+    x = torch.zeros((2, 3, 1, 4), dtype=torch.complex128)
+    y = torch.zeros((3, 3, 1, 4), dtype=torch.complex128)
+    c = torch.zeros((4, 4, 1, 1), dtype=torch.float64)
+    ix, iy, ic = TP._sandwich_indices(x, y, c, [1, 0], np.array([2, 2]), (3, 0))
+    assert [t.tolist() for t in (ix, iy, ic)] == [[1, 0], [2, 2], [3, 0]]
+    assert all(t.dtype == torch.int32 for t in (ix, iy, ic))
+    dev = torch.tensor([1, 1], dtype=torch.int32)
+    assert TP._sandwich_indices(x, y, c, dev, dev, dev)[0] is dev
+    assert TP._sandwich_indices(x, y, c, dev.long(), dev, dev)[0].dtype == torch.int32
+    with pytest.raises(ValueError, match="out of range"):
+        TP._sandwich_indices(x, y, c, [2, 0], [0, 0], [0, 0])
+    with pytest.raises(ValueError, match="out of range"):
+        TP._sandwich_indices(x, y, c, [0, 0], [0, -1], [0, 0])
+    with pytest.raises(ValueError, match="shape"):
+        TP._sandwich_indices(x, y, c, [0, 0], [0], [0, 0])
+    with pytest.raises(ValueError, match="shape"):
+        TP._sandwich_indices(x, y, c, dev, torch.tensor([0]), dev)
+    with pytest.raises(ValueError, match="broadcast"):
+        TP._sandwich_indices(x, y, c, None, None, None)
+    one = torch.zeros((1, 3, 1, 4), dtype=torch.complex128)
+    bx, by, bc = TP._sandwich_indices(x, one, c[:1], None, None, None)
+    assert bx.tolist() == [0, 1] and by.tolist() == [0, 0] and bc.tolist() == [0, 0]
 
 
 @pytest.mark.parametrize("dtype,rtol", DTYPES)

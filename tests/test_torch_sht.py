@@ -60,3 +60,30 @@ def test_legendre_table_matches_jax(nside, lmax):
         torch.as_tensor(g.sin_theta), lmax, torch.as_tensor(logpref),
     )
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("nm", [1, 2, 7, 8, 121, 230])
+def test_m_schedule_covers_each_m_once(nm):
+    """The Legendre kernel's block schedule: rows (m, nm - 1 - m) take every
+    m exactly once, for odd and even nm, and every row walks the same
+    number of multipoles (lmax + 1 - m summed over its m's) but for the
+    lone middle m of an odd nm."""
+    sched = sht.m_schedule(nm)
+    assert sched.dtype == np.int32 and sched.shape == ((nm + 1) // 2, 2)
+    taken = sched[sched >= 0]
+    assert sorted(taken.tolist()) == list(range(nm))
+    lmax = nm + 5
+    walks = [sum(lmax + 1 - m for m in row if m >= 0) for row in sched]
+    full = [w for row, w in zip(sched, walks) if (row >= 0).all()]
+    assert len(set(full)) <= 1
+    assert max(walks) <= 2 * (lmax + 1)
+
+
+def test_legendre_tables_upload_once():
+    """The prefactor of lambda_mm and the schedule go to the device once
+    per (lmax, nm, device)."""
+    dev = torch.device("cpu")
+    a = sht._legendre_tables(40, 41, dev)
+    assert sht._legendre_tables(40, 41, dev)[0] is a[0]
+    np.testing.assert_array_equal(a[0].numpy(), sht._log_lambda_mm_prefactor(40))
+    np.testing.assert_array_equal(a[1].numpy(), sht.m_schedule(41))
