@@ -90,6 +90,12 @@ script exits non-zero:
    the kernels, with K3+K5's plain version in its place, and in float64
    (:func:`svd_cut_phase`; printed, not gated).
 
+K2-host (each form) and K15b (every shape) also give their per-launch
+device time: CUDA events around 50 back-to-back calls over the count
+(``launch_ms``), and for K15b the same over one CUDA graph of 50 calls
+(``graph_ms``: no host time between launches), for its one-stack form
+and its general form on a copy of the stack, which must agree.
+
 Each path (4-9) runs with every launch count set to 0 just before it and
 read just after, and fails unless every kernel of that path launched; in
 8 that window holds ``run_config`` alone, not the making of its input.
@@ -262,6 +268,50 @@ def median_ms(fn, reps=10):
     return float(np.median(times))
 
 
+def launch_ms(fn, n=50):
+    """Per-launch time of fn() in ms: CUDA events around n back-to-back
+    calls, over n, after one warm-up call (host time shows where a call's
+    host path outlasts its kernel)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def graph_ms(fn, n=50):
+    """Per-launch device time of fn() in ms: n calls captured into one CUDA
+    graph, events around a replay, over n (no host time between launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / n
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -277,12 +327,13 @@ def bound(nbytes_moved, ops):
 
 
 def compare(name, kernel_fn, plain_fn, rtol, work, library_fn=None, reps=10,
-            tag="kernels", bitwise=False):
+            tag="kernels", bitwise=False, per_launch=False, graph=False):
     """Kernel vs plain on the same inputs: max error, tolerance, times; the
     bound of ``work`` = (bytes, [(flops, rate), ...]) and the time of one
     PyTorch call computing the same function (``library_fn``), if any.
     With ``bitwise`` a second kernel call must repeat the first bit for
-    bit."""
+    bit.  ``per_launch`` adds launch_ms (and graph_ms with ``graph``) to
+    the log."""
     import torch
 
     got = kernel_fn()
@@ -311,11 +362,17 @@ def compare(name, kernel_fn, plain_fn, rtol, work, library_fn=None, reps=10,
     library_ms = None if library_fn is None else median_ms(library_fn, reps)
     bound_ms, bound_by = bound(*work)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    extra = ""
+    if per_launch:
+        per = launch_ms(kernel_fn)
+        extra = f"; per launch {per:.4f} ms ({bound_ms / per:.4f} of bound)"
+        if graph:
+            extra += f", in a graph {graph_ms(kernel_fn):.4f} ms"
     log(
         f"[{tag}] {name}: max_abs_err {err:.6e} (max|plain| {scale:.6e}, "
         f"rel tol {rtol:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
         f"library {lib} bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{bound_ms / ms:.4f} of bound)"
+        f"{bound_ms / ms:.4f} of bound){extra}"
     )
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -750,15 +807,34 @@ def trace_compare(k, rng, dtype=None, M=None, tag="kernels"):
     # one pass over the stack (C_a and C_b are the same tensor on every
     # path); per term a complex product, the weight and the sum, in float64
     nitem = M or 1
-    return compare(
-        f"k15b_fisher_trace (M {M}, nb {NBANDS}, k {k}, {dtype})",
+    name = f"k15b_fisher_trace (M {M}, nb {NBANDS}, k {k}, {dtype})"
+    # float64 sums whatever the input type: 1e-12 for complex64 too
+    rtol = 1e-12
+    rec = compare(
+        name,
         lambda: projections.fisher_trace(c, c, w),
         lambda: projections.fisher_trace_ref(c, c, w),
-        rtol=1e-12 if dtype == torch.complex128 else 1e-6, tag=tag,
+        rtol=rtol, tag=tag,
         work=(nbytes(c, w) + nitem * NBANDS * NBANDS * 16,
               [(10.0 * nitem * NBANDS * NBANDS * k * k, F64_FLOPS)]),
-        library_fn=library,
+        library_fn=library, bitwise=True, per_launch=True, graph=True,
     )
+    # the general form (C_b another tensor, as PSExact's cross-chunk trace
+    # passes it) on the same values, against the plain version, and both
+    # forms' per-launch times in a graph, one stack, general, general, one
+    # stack
+    cb = c.clone()
+    ref = projections.fisher_trace_ref(c, c, w)
+    err = float((projections.fisher_trace(c, cb, w) - ref).abs().max())
+    if not err <= rtol * float(ref.abs().max()):
+        raise AssertionError(f"{name}: general form off by {err:.3e}")
+    forms = (lambda: projections.fisher_trace(c, c, w),
+             lambda: projections.fisher_trace(c, cb, w))
+    times = [graph_ms(forms[f]) for f in (0, 1, 1, 0)]
+    log(f"[{tag}] {name} general form (C_b a copy): max_abs_err {err:.6e}; in a graph "
+        f"one stack {times[0]:.4f}, {times[3]:.4f} ms, general {times[1]:.4f}, "
+        f"{times[2]:.4f} ms ({card_line()})")
+    return rec
 
 
 def path_k13(tag, tel, evals, ps_threshold, mb, launches):
@@ -1683,7 +1759,7 @@ def host_kernel_phases(tels):
                 f"k2_host_stokes {what}",
                 lambda: kernels.host_stokes_maps(*args, npol=npol),
                 lambda: kernels.host_stokes_maps_ref(*args, npol=npol),
-                rtol=rtol, work=(nbytes(maps, *args[:6]), []), bitwise=True,
+                rtol=rtol, work=(nbytes(maps, *args[:6]), []), bitwise=True, per_launch=True,
             )
             res.setdefault("k2_host_stokes", rec)
         else:
@@ -1692,7 +1768,7 @@ def host_kernel_phases(tels):
                 f"k2_host_vis {what}",
                 lambda: kernels.host_visibility_maps(*args),
                 lambda: kernels.host_visibility_maps_ref(*args),
-                rtol=rtol, work=(nbytes(maps, *args[:6]), []), bitwise=True,
+                rtol=rtol, work=(nbytes(maps, *args[:6]), []), bitwise=True, per_launch=True,
             )
             if not t.single_precision:
                 res["k2_host_vis"] = rec
@@ -1956,7 +2032,17 @@ def svd_variants_phase(workdir):
         for mi in range(min(bt.svd_mbatch, tel.mmax + 1))
     ]).reshape(-1, bt.ntel, npol * nl), device="cuda")
     ms_svd = median_ms(lambda: projections.simple_svd(batch), reps=5)
-    log(f"[{tag}] simple_svd (lib, complex128) of {tuple(batch.shape)}: {ms_svd:.4f} ms")
+    # bound: U1, sigma and V of each (m, n) matrix, the smaller of Golub and
+    # Van Loan's Golub-Reinsch (14 m n^2 + 8 n^3) and R-SVD (6 m n^2 +
+    # 20 n^3) counts, four real flops a complex one, at the float64 peak;
+    # bytes: the batch read, U1, sigma and V written
+    nb_, m_, n_ = batch.shape
+    m_, n_ = max(m_, n_), min(m_, n_)
+    flops = 4.0 * nb_ * min(14 * m_ * n_**2 + 8 * n_**3, 6 * m_ * n_**2 + 20 * n_**3)
+    moved = nbytes(batch) * 2 + nb_ * n_ * (8 + 16 * n_)
+    bound_ms, bound_by = bound(moved, [(flops, F64_FLOPS)])
+    log(f"[{tag}] simple_svd (lib, complex128) of {tuple(batch.shape)}: {ms_svd:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
 
 
 def main():

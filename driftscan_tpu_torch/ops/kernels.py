@@ -20,12 +20,13 @@ maps of each feed pair instead: :func:`bank_stokes_maps` (Triton) and
 
 Telescopes whose beams are evaluated on the host (any beam that is not a
 cylinder bank row) hand the batch's unique beam arrays to
-:func:`host_visibility_maps` / :func:`host_stokes_maps` (K2 alone, Triton;
+:func:`host_visibility_maps` / :func:`host_stokes_maps` (K2 alone, CUDA C++;
 plain versions :func:`host_visibility_maps_ref` / :func:`host_stokes_maps_ref`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -52,18 +53,29 @@ K1K2_STOKES = backend.register(
 # K2 on host-evaluated beams: solid angles + normalised visibility maps.
 K2_HOST = backend.register(
     "k2_host_vis",
-    "triton",
-    "driftscan_tpu_torch/csrc/host_vis.py",
+    "cuda",
+    "driftscan_tpu_torch/csrc/host_vis.cu",
     "driftscan_tpu/ops/kernels.py:189 (+ :41, :72, :84)",
 )
 
 # Its Stokes form: solid angles + Stokes I/Q/U/V maps of field patterns.
 K2_HOST_STOKES = backend.register(
     "k2_host_stokes",
-    "triton",
-    "driftscan_tpu_torch/csrc/host_vis.py",
+    "cuda",
+    "driftscan_tpu_torch/csrc/host_vis.cu",
     "driftscan_tpu/ops/kernels.py:196 (+ :41, :72, :101)",
 )
+
+# The map pass of csrc/host_vis.cu: pixels a block, and the pixels a block
+# of its solid-angle pass sums (the partials' scratch is sized from it).
+# A block stages its pixels of as many unique beams as HOST_VIS_STAGE_BYTES
+# of shared memory hold (two blocks an SM), and more in groups of that many.
+HOST_VIS_TILE = 512
+HOST_VIS_OMEGA_TILE = 1024
+HOST_VIS_STAGE_BYTES = 96 * 1024
+_HOST_VIS_ARGS = (ctypes.c_void_p,) * 8 + (
+    ctypes.c_longlong, ctypes.c_double, ctypes.c_longlong,
+) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 # Bank parameter row layout (see telescope.cylbeam.build_beam_bank).
 PAR_LEN = 12  # kx0, inv_step, fwhm_ns, xhat(3), yhat(3), dipole(3)
@@ -372,23 +384,16 @@ def host_visibility_maps(beams, idx_i, idx_j, uv3, cart, horizon, pxarea: float)
     idx_i[u], idx_j[u] at baseline uv3[u] ((nu, 3) float64).  ``pxarea``
     is the pixel area 4 pi / (12 nside^2), not one over the padded length.
     Returns (nu, npix) complex.  CPU tensors take the plain version; CUDA
-    tensors launch the Triton kernel (float32 or float64 grid).
+    tensors launch the kernel (float32 or float64 grid).
     """
     if not backend.on_cuda(beams, idx_i, idx_j, uv3, cart, horizon):
         return host_visibility_maps_ref(beams, idx_i, idx_j, uv3, cart, horizon, pxarea)
     _require_host_args(beams, 2, idx_i, idx_j, uv3, cart, horizon)
-
-    from ..csrc import host_vis
-
     out = torch.empty(
         (idx_i.shape[0], cart.shape[0]), dtype=backend.complex_dtype(cart.dtype),
         device=cart.device,
     )
-    host_vis.launch(
-        cart, horizon, _real_view(beams), beams.is_complex(), idx_i, idx_j, uv3,
-        float(pxarea), torch.view_as_real(out),
-    )
-    K2_HOST.launches += 1
+    _host_launch(K2_HOST, beams, 1, 1, idx_i, idx_j, uv3, cart, horizon, pxarea, out)
     return out
 
 
@@ -406,30 +411,52 @@ def host_stokes_maps(beams, idx_i, idx_j, uv3, cart, horizon, pxarea: float,
     Arguments as :func:`host_visibility_maps`, with beams (nb, npix, 2) in
     the (theta_hat, phi_hat) basis.  Returns (nu, npol, npix) complex: the
     first ``npol`` of Stokes I, Q, U, V.  CPU tensors take the plain
-    version; CUDA tensors launch the Triton kernel.
+    version; CUDA tensors launch the kernel.
     """
     if not 1 <= npol <= 4:
         raise ValueError(f"npol={npol}: Stokes maps have 1 to 4 components")
     if not backend.on_cuda(beams, idx_i, idx_j, uv3, cart, horizon):
         return host_stokes_maps_ref(beams, idx_i, idx_j, uv3, cart, horizon, pxarea, npol)
     _require_host_args(beams, 3, idx_i, idx_j, uv3, cart, horizon)
-
-    from ..csrc import host_vis
-
     out = torch.empty(
         (idx_i.shape[0], npol, cart.shape[0]), dtype=backend.complex_dtype(cart.dtype),
         device=cart.device,
     )
-    host_vis.launch_stokes(
-        cart, horizon, _real_view(beams), beams.is_complex(), idx_i, idx_j, uv3,
-        float(pxarea), torch.view_as_real(out),
-    )
-    K2_HOST_STOKES.launches += 1
+    _host_launch(K2_HOST_STOKES, beams, 2, npol, idx_i, idx_j, uv3, cart, horizon, pxarea, out)
     return out
 
 
-def _real_view(beams):
-    return torch.view_as_real(beams) if beams.is_complex() else beams
+def host_vis_stage(nb: int, ncomp: int, elem_bytes: int) -> int:
+    """Unique beams a block of the K2-host map pass stages at once: as many
+    of the batch's ``nb`` beams (``ncomp`` components of ``elem_bytes`` a
+    pixel) as HOST_VIS_STAGE_BYTES hold over a pixel tile, at least one."""
+    per_beam = HOST_VIS_TILE * ncomp * elem_bytes
+    return max(1, min(nb, HOST_VIS_STAGE_BYTES // per_beam))
+
+
+def _host_launch(kernel, beams, ncomp, npol, idx_i, idx_j, uv3, cart, horizon, pxarea, out):
+    """One call of csrc/host_vis.cu (solid angles, then the maps) on the
+    current stream; arguments validated by the caller."""
+    npix, nu, nb = cart.shape[0], idx_i.shape[0], beams.shape[0]
+    if npix == 0 or nu == 0:
+        return
+    scratch = torch.empty(
+        nb * (-(-npix // HOST_VIS_OMEGA_TILE) + 1), dtype=cart.dtype, device=cart.device
+    )
+    elem = beams.element_size()  # one (re, im) pair for a complex beam
+    fn = kernel.entry(
+        "host_maps_f32" if cart.dtype == torch.float32 else "host_maps_f64", _HOST_VIS_ARGS
+    )
+    backend.check(
+        fn(
+            cart.data_ptr(), horizon.data_ptr(), beams.data_ptr(), idx_i.data_ptr(),
+            idx_j.data_ptr(), uv3.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), float(pxarea), npix, nu, nb, ncomp, int(beams.is_complex()),
+            npol, host_vis_stage(nb, ncomp, elem), backend.stream_ptr(cart.device),
+        ),
+        kernel.name,
+    )
+    kernel.launches += 1
 
 
 def _require_host_args(beams, ndim, idx_i, idx_j, uv3, cart, horizon):

@@ -11,7 +11,7 @@ Two of the programs are hand-written kernels:
 * :func:`sandwich` (K15a, CUDA C++): out = sum_l X_l C_l Y_l^H per batch
   item, behind :func:`band_covariance_projection` and
   :func:`sky_covariance_projection` / :func:`sky_covariance_projection_m`;
-* :func:`fisher_trace` (K15b, Triton): F_ab = sum_ij w_i w_j C_a[i,j]
+* :func:`fisher_trace` (K15b, CUDA C++): F_ab = sum_ij w_i w_j C_a[i,j]
   C_b[j,i], behind :func:`fisher_trace_block` and ``mstep.fisher_step``.
 
 Each has a plain PyTorch version (``*_ref``) that the wrapper takes for
@@ -41,8 +41,8 @@ K15A = backend.register(
 
 K15B = backend.register(
     "k15b_fisher_trace",
-    "triton",
-    "driftscan_tpu_torch/csrc/fisher_trace.py",
+    "cuda",
+    "driftscan_tpu_torch/csrc/fisher_trace.cu",
     "driftscan_tpu/ops/projections.py:352",
 )
 
@@ -280,6 +280,49 @@ def fisher_trace_ref(ca, cb, w):
     return torch.einsum("...aij,...bji->...ab", d, cb.to(torch.complex128))
 
 
+# The launch plan of csrc/fisher_trace.cu: (i, j) tiles of TRACE_TILE a side,
+# one job a warp at a time, TRACE_WARPS warps a block, band tiles of
+# TRACE_BANDS a side per block, and at most TRACE_MAX_SPLIT blocks (a
+# portable cluster) sharing one m's tiles.
+TRACE_TILE = 8
+TRACE_WARPS = 8
+TRACE_BANDS = 4
+TRACE_MAX_SPLIT = 8
+_TRACE_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_TRACE_FNS = {
+    (torch.complex64, torch.float32): "fisher_trace_c64_w32",
+    (torch.complex64, torch.float64): "fisher_trace_c64_w64",
+    (torch.complex128, torch.float32): "fisher_trace_c128_w32",
+    (torch.complex128, torch.float64): "fisher_trace_c128_w64",
+}
+
+
+class TracePlan(NamedTuple):
+    nt: int  # (i, j) tiles a side
+    njobs: int  # tiles of one m: nt^2, or nt (nt + 1) / 2 for one stack
+    pairs: int  # band-tile pairs (blocks of one m and one rank)
+    split: int  # blocks of a cluster sharing an m's tiles
+
+
+@functools.lru_cache(maxsize=256)
+def fisher_trace_plan(nm: int, na: int, nb: int, k: int, sym: bool, sms: int) -> TracePlan:
+    """The launch plan of one Fisher trace call.
+
+    A job is one TRACE_TILE x TRACE_TILE (i, j) tile of one m: all nt^2
+    tiles, or the tiles I <= J where C_a and C_b are one stack (``sym``,
+    at most TRACE_BANDS bands).  The jobs of an m go round-robin to the
+    TRACE_WARPS warps of each of the ``split`` blocks of a cluster, across
+    the blocks first, sized so that nm x pairs x split blocks fill the
+    card's ``sms`` with no block left without a job: 1 where one tile
+    covers k.
+    """
+    nt = -(-k // TRACE_TILE)
+    njobs = nt * (nt + 1) // 2 if sym else nt * nt
+    pairs = -(-na // TRACE_BANDS) * -(-nb // TRACE_BANDS)
+    split = max(1, min(TRACE_MAX_SPLIT, njobs, -(-sms // max(nm * pairs, 1))))
+    return TracePlan(nt, njobs, pairs, split)
+
+
 def fisher_trace(ca, cb, w):
     """F[a, b] = sum_ij w_i w_j C_a[i, j] C_b[j, i] (K15b).
 
@@ -291,11 +334,20 @@ def fisher_trace(ca, cb, w):
     The second factor enters transposed, C_b[j, i], as in PSExact's trace
     tr(W C_a W C_b).  For Hermitian C_b that equals conj(C_b[i, j]), the
     form of the fused Fisher step, whose covariances K13 returns Hermitian
-    bit for bit.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel.
+    bit for bit.  Where ca and cb are one tensor's storage (same pointer,
+    shape and strides) of at most TRACE_BANDS bands, F is symmetric: the
+    kernel reads the upper triangle of (i, j) tiles and writes F_ab and
+    F_ba together.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel.
     """
     if not backend.on_cuda(ca, cb, w):
         return fisher_trace_ref(ca, cb, w)
+    sym = (
+        ca.data_ptr() == cb.data_ptr()
+        and ca.shape == cb.shape
+        and ca.stride() == cb.stride()
+        and ca.shape[-3] <= TRACE_BANDS
+    )
     batched = ca.dim() == 4
     if not batched:
         ca, cb, w = ca[None], cb[None], w[None]
@@ -306,16 +358,21 @@ def fisher_trace(ca, cb, w):
     backend.require(w, "w", dtype=(torch.float32, torch.float64), shape=(nm, k))
     if not (k > 0 and na > 0 and nb > 0 and nm > 0):
         out = torch.zeros((nm, na, nb), dtype=torch.complex128, device=ca.device)
-    else:
-        # the kernel writes every entry
-        out = torch.empty((nm, na, nb), dtype=torch.complex128, device=ca.device)
-        from ..csrc import fisher_trace as kernel
-
-        kernel.launch(
-            torch.view_as_real(ca), torch.view_as_real(cb), w,
-            torch.view_as_real(out), nm, na, nb, k,
-        )
-        K15B.launches += 1
+        return out if batched else out[0]
+    if nm > 65535:
+        raise ValueError(f"fisher trace batch {nm} exceeds the launch grid's 65535")
+    # the kernel writes every entry
+    out = torch.empty((nm, na, nb), dtype=torch.complex128, device=ca.device)
+    plan = fisher_trace_plan(nm, na, nb, k, sym, backend.sm_count(ca.device))
+    fn = K15B.entry(_TRACE_FNS[ca.dtype, w.dtype], _TRACE_ARGS)
+    backend.check(
+        fn(
+            ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(), nm, na, nb, k,
+            int(sym), plan.split, backend.stream_ptr(ca.device),
+        ),
+        K15B.name,
+    )
+    K15B.launches += 1
     return out if batched else out[0]
 
 
