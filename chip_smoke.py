@@ -6,20 +6,19 @@
                                       # the file pipeline and the timestream
                                       # pipeline
 
-Needs one CUDA card and the CUDA toolkit (nvcc) and Triton; imports no
-JAX.  Phases, each printed on its own line(s); any failure raises, so the
+Needs one CUDA card and the CUDA toolkit (nvcc); imports no JAX.  Phases, each printed on its own line(s); any failure raises, so the
 script exits non-zero:
 
 1. device -- ``torch.cuda.is_available()`` or an error; the card's name
    and power limit as ``nvidia-smi`` reports them;
 2. build -- compiles every CUDA source of ``driftscan_tpu_torch/csrc``
    into ``driftscan_tpu_torch/_build/``, one ``nvcc`` per source, all at
-   once (the Triton kernels compile at their first launch);
+   once;
 3. kernels -- each hand-written kernel of the product and timestream
    paths against its plain PyTorch version on the same CUDA inputs (at the
    shapes each of paths 4, 5, 5a, 7 and 8 gives it, numpy seed; K14 at B 8,
-   lmax 229, 1023 rings, real and complex forms; K1+K2 and K2-host also
-   launched twice, bitwise equal), with the tolerance asserted and
+   lmax 229, 1023 rings, real and complex forms; K1+K2, K2-host and K14
+   also launched twice, bitwise equal), with the tolerance asserted and
    the median time (CUDA events) of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call
    (``library_ms``: ``torch.matmul(a, a.mH)`` of the pre-formed factor for
@@ -30,8 +29,9 @@ script exits non-zero:
    (67 TFLOP/s float32 on the CUDA cores; 67 TFLOP/s float64, the card's
    float64 peak, on its tensor cores; 3xTF32 products -- the Grams', and
    K3+K5's in complex64 -- three tf32 products each, at 495 TFLOP/s; a
-   Legendre recurrence, 12 float64 flops a lambda, on the 34 TFLOP/s
-   float64 CUDA cores), from the shapes; K15a and K3+K5 (also at the
+   Legendre recurrence, 5 float64 flops a lambda, on the 34 TFLOP/s
+   float64 CUDA cores; work on different units may overlap, so the
+   slowest unit's time is the bound), from the shapes; K15a and K3+K5 (also at the
    ``[dish]`` path's complex128 chunk) are launched twice and must repeat
    bit for bit, and K3+K5 in complex64 must lie no farther than its
    float32 plain version from the float64 truth on the same inputs;
@@ -90,11 +90,12 @@ script exits non-zero:
    the kernels, with K3+K5's plain version in its place, and in float64
    (:func:`svd_cut_phase`; printed, not gated).
 
-K2-host (each form) and K15b (every shape) also give their per-launch
-device time: CUDA events around 50 back-to-back calls over the count
-(``launch_ms``), and for K15b the same over one CUDA graph of 50 calls
-(``graph_ms``: no host time between launches), for its one-stack form
-and its general form on a copy of the stack, which must agree.
+K1+K2, K2-host (each form), K14 and K15b (every shape) also give their
+per-launch time: CUDA events around 50 back-to-back calls over the count
+(``launch_ms``); K1+K2, K14 and K15b also the same over one CUDA graph of
+50 calls (``graph_ms``: no host time between launches), K15b for its
+one-stack form and its general form on a copy of the stack, which must
+agree.
 
 Each path (4-9) runs with every launch count set to 0 just before it and
 read just after, and fails unless every kernel of that path launched; in
@@ -180,13 +181,15 @@ NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
 # take each float32 product as three tf32 products (3xTF32), as K3+K5 does
 # in complex64.  Float64 work is bounded at the card's float64 peak, which
 # its tensor cores give; the Legendre recurrences run on the float64 CUDA
-# cores.
+# cores.  A recurrence step is 5 of their flops a lambda (legendre_rec.cuh:
+# b u0, one fma, the product by a, the scale; its coefficients are tabled).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 67e12
 F64_CUDA_CORE_FLOPS = 34e12
 GRAM_FLOPS = 495e12 / 3
 BF16_FLOPS = 989e12
+RECURRENCE_FLOPS = 5.0
 
 
 def log(msg):
@@ -320,9 +323,11 @@ def bound(nbytes_moved, ops):
     """(bound_ms, bound_by): the larger of the bytes the function must move
     (each input read once, each output written once) over the card's
     memory rate and its operations, ``ops`` = [(flops, peak rate of the
-    units that run them), ...], each over its rate."""
+    units that run them), ...], one entry a kind of unit, each over its
+    rate.  Different units can work at once, so the operations take the
+    slowest unit's time."""
     t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(flops / rate for flops, rate in ops) * 1e3
+    t_ops = max((flops / rate for flops, rate in ops), default=0.0) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -429,23 +434,28 @@ def kernel_phases(tel, ptel):
         fx, par, ii, jj, uv3 = t._gather_beams(blc, fic)
         args = (t._angpos_cart, t._horizon, fx, par, ii, jj, uv3, 4.0 * np.pi / (12 * ns**2))
         npx = t._horizon.shape[0]
-        # bytes: the tables and bank rows read once, the maps written once
-        # (the per-pixel beam arithmetic is not counted)
+        # bytes: the grid (cart, horizon) read once, the bank rows, unit
+        # indices and baselines read once, the maps written once; the beams'
+        # per-pixel arithmetic is not counted.  No single PyTorch call
+        # computes the function (library none).
         if pol:
             maps = kernels.bank_stokes_maps(*args, npol=npol_t)
             keep("k1k2_stokes_vis", compare(
-                f"k1k2_stokes_vis ({nu} units x {npol_t} Stokes x {npx} px, nside {ns})",
+                f"k1k2_stokes_vis ({nu} units x {npol_t} Stokes x {npx} px, nside {ns}, "
+                f"{fx.shape[0]} bank rows)",
                 lambda: kernels.bank_stokes_maps(*args, npol=npol_t),
                 lambda: kernels.bank_stokes_maps_ref(*args, npol=npol_t),
                 rtol=1e-5, work=(nbytes(maps, *args[:7]), []), bitwise=True,
+                per_launch=True, graph=True,
             ))
         else:
             maps = kernels.bank_visibility_maps(*args)
             keep("k1k2_beam_vis", compare(
-                f"k1k2_beam_vis ({nu} units x {npx} px, nside {ns})",
+                f"k1k2_beam_vis ({nu} units x {npx} px, nside {ns}, {fx.shape[0]} bank rows)",
                 lambda: kernels.bank_visibility_maps(*args),
                 lambda: kernels.bank_visibility_maps_ref(*args),
                 rtol=1e-5, work=(nbytes(maps, *args[:7]), []), bitwise=True,
+                per_launch=True, graph=True,
             ))
         del args, maps
 
@@ -503,11 +513,12 @@ def k14_compare(tel, rng, tag="kernels"):
     nfreq x npol coefficients at the telescope's band limit, on the rings
     of the nside of its own BTM, complex128 in the real form (recorded) and
     the complex form, and the complex64 instantiation; then K3+K5 at the
-    input map's shape (complex128, B 8).  Bound: ~12 float64 flops of
-    recurrence a lambda on the CUDA cores, 4 flops a real x complex
-    multiply-add per unit and block at the card's float64 (or float32)
-    peak; the coefficients read and the (B, nm, nring) outputs written
-    once."""
+    input map's shape (complex128, B 8).  Each form is launched twice and
+    must repeat bit for bit.  Bound: the recurrence
+    (``RECURRENCE_FLOPS`` a lambda) on the float64 CUDA cores beside 4
+    flops a real x complex multiply-add per unit and block on the float64
+    tensor cores, which take the product in both types; the coefficients
+    read and the (B, nm, nring) outputs written once."""
     import torch
 
     from driftscan_tpu_torch.ops import healpix, sht
@@ -527,14 +538,16 @@ def k14_compare(tel, rng, tag="kernels"):
         neg = _crandn(rng, (B, nl, lmax), dtype, dev)
         for form, nb in (("real", None), ("complex", neg)):
             k = 1 if nb is None else 2
-            ops = [(12.0 * nlam, F64_CUDA_CORE_FLOPS), (4.0 * k * B * nlam, _rate(dtype))]
+            ops = [(RECURRENCE_FLOPS * nlam, F64_CUDA_CORE_FLOPS),
+                   (4.0 * k * B * nlam, F64_FLOPS)]
             moved = nbytes(pos, ct, st, *(() if nb is None else (nb,)))
             moved += k * B * nl * g.nring * pos.element_size()
             r = compare(
                 f"k14_legendre_synth ({form} form, B {B}, lmax {lmax}, nring {g.nring}, {dtype})",
                 lambda: sht.legendre_synth(pos, nb, ct, st)[:k],
                 lambda: sht.legendre_synth_ref(pos, nb, ct, st)[:k],
-                rtol=rtol, reps=5, tag=tag, work=(moved, ops),
+                rtol=rtol, reps=5, tag=tag, work=(moved, ops), bitwise=True,
+                per_launch=True, graph=True,
                 library_fn=synth_library(pos, nb, legendre_table_lib(nl, g.nside, lmax, dtype)),
             )
             if dtype == torch.complex128 and nb is None:
@@ -596,8 +609,9 @@ def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
     """K3+K5 against its plain version on phase-stage outputs F, G (B, nm,
     nring) at the rings of ``g``, with a bitwise repeat; library: one
     einsum a plane over the cached lambda table (the JAX package's form).
-    Bound: ~12 float64 flops of recurrence a lambda on the CUDA cores, and
-    8 B flops a lambda for the two planes' products, on the tensor cores
+    Bound: the recurrence (``RECURRENCE_FLOPS`` a lambda) on the float64
+    CUDA cores beside 8 B flops a lambda for the two planes' products, on
+    the tensor cores
     (float64; complex64 as 3xTF32 at 495 / 3 TFLOP/s, as the Grams are
     counted); the CUDA-core bound (the products alone at 67 TFLOP/s
     float32, no recurrence) is printed beside it.  In complex64 the kernel
@@ -613,7 +627,8 @@ def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
     area = 4.0 * np.pi / g.npix
     nlam = sum(lmax + 1 - m for m in range(nm)) * nring
     c128 = F.dtype == torch.complex128
-    ops = [(12.0 * nlam, F64_CUDA_CORE_FLOPS), (8.0 * B * nlam, F64_FLOPS if c128 else GRAM_FLOPS)]
+    ops = [(RECURRENCE_FLOPS * nlam, F64_CUDA_CORE_FLOPS),
+           (8.0 * B * nlam, F64_FLOPS if c128 else GRAM_FLOPS)]
     moved = nbytes(F, G, ct, st) + 2 * B * (lmax + 1) * nm * F.element_size()
     if not c128:
         cuda_core_ms = bound(moved, [(8.0 * B * nlam, F32_FLOPS)])[0]
@@ -938,7 +953,7 @@ def path_phase(tag, tel, ps_threshold=None):
     # full-range m-batches (what "auto" picks at bench's two cylinders)
     kw = dict(band_lt=band_lt, ps_threshold=ps_threshold or PS_THRESHOLD, bucket=False)
 
-    # warm-up: builds, Triton compile, cuFFT plans, first-call costs
+    # warm-up: builds, cuFFT plans, first-call costs
     t = time.time()
     pos, neg = resident.btm_resident(tel, blg, fig)
     ev_w, nmo_w, _ = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, max_m=8, **kw)

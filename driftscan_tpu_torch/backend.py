@@ -1,16 +1,15 @@
 """Device and dtype helpers, and the registry of the hand-written kernels.
 
 Every hand-written kernel of the port is described by a :class:`Kernel`
-record: its name, its route (CUDA C++ built with ``nvcc``, or Triton),
-its source file, the JAX program it replaces, and a plain-integer count
-of its launches.  The count rises only where a wrapper launches the
-kernel on a CUDA tensor, so a run can show that its main path went
-through the kernel.
+record: its name, its route (CUDA C++ built with ``nvcc``), its source
+file, the JAX program it replaces, and a plain-integer count of its
+launches.  The count rises only where a wrapper launches the kernel on a
+CUDA tensor, so a run can show that its main path went through the
+kernel.
 
-CUDA C++ kernels expose a plain C interface and are compiled at first
-use into ``driftscan_tpu_torch/_build/``, keyed on a hash of the source
-and the compiler flags, then loaded with :mod:`ctypes`.  Triton kernels
-are compiled by Triton itself at their first launch.
+The kernels expose a plain C interface and are compiled at first use
+into ``driftscan_tpu_torch/_build/``, keyed on a hash of the source, the
+shared headers and the compiler flags, then loaded with :mod:`ctypes`.
 
 Every wrapper takes the kernel's plain PyTorch version only for tensors
 that lie on the CPU; for a CUDA tensor it launches the kernel or raises.
@@ -26,6 +25,7 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from typing import ClassVar
 
 import torch
 
@@ -92,8 +92,8 @@ def stream_ptr(device: torch.device) -> int:
 class Kernel:
     """One hand-written kernel: identity, provenance and launch count."""
 
+    route: ClassVar[str] = "cuda"  # every kernel is CUDA C++ built with nvcc
     name: str
-    route: str  # "cuda" or "triton"
     source: str  # path relative to the repository root
     replaces: str  # file:line of the JAX program it replaces
     launches: int = 0
@@ -101,9 +101,7 @@ class Kernel:
     _fns: dict = field(default_factory=dict, repr=False)
 
     def lib(self) -> ctypes.CDLL:
-        """The built shared library of a CUDA kernel (built at first use)."""
-        if self.route != "cuda":
-            raise RuntimeError(f"{self.name} is a {self.route} kernel")
+        """The built shared library of the kernel (built at first use)."""
         if self._lib is None:
             self._lib = ctypes.CDLL(build(self.source))
         return self._lib
@@ -123,8 +121,8 @@ class Kernel:
 KERNELS: dict[str, Kernel] = {}
 
 
-def register(name, route, source, replaces) -> Kernel:
-    k = Kernel(name, route, source, replaces)
+def register(name, source, replaces) -> Kernel:
+    k = Kernel(name, source, replaces)
     KERNELS[name] = k
     return k
 
@@ -284,11 +282,10 @@ def build_all() -> dict:
     from .ops import fpencil, kernels, probe, projections, sht  # noqa: F401
     from .parallel import mstep  # noqa: F401
 
-    cuda = [k for k in KERNELS.values() if k.route == "cuda"]
-    sources = sorted({k.source for k in cuda})
+    sources = sorted({k.source for k in KERNELS.values()})
     with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
         paths = dict(zip(sources, pool.map(build, sources)))
-    for k in cuda:
+    for k in KERNELS.values():
         k.lib()
     reports = {}
     for src, path in paths.items():

@@ -1,5 +1,3 @@
-"""Sources of the hand-written kernels (CUDA C++ ``*.cu`` and Triton).
-
-The Triton modules here import ``triton`` at the top: import them only
-from the function that launches their kernel.
-"""
+"""Sources of the hand-written kernels (CUDA C++ ``*.cu`` and the shared
+``*.cuh`` headers, built by ``backend.build``) and of the host codecs
+(``*.cpp``, built by ``backend.build_host``)."""

@@ -36,7 +36,6 @@ from .. import backend
 
 K9 = backend.register(
     "k9_signal_gram",
-    "cuda",
     "driftscan_tpu_torch/csrc/signal_gram.cu",
     "driftscan_tpu/ops/fpencil.py:225",
 )

@@ -10,18 +10,21 @@ visibility transfer map
 over the ring-padded pixel grid, with the beams B given by bank rows (a
 uniform-grid Fraunhofer table in the E-W direction times an ExpTan
 profile N-S, times the horizon h).  :func:`bank_visibility_maps` runs it
-as one hand-written Triton kernel in two passes (solid angles, then the
-maps); :func:`bank_visibility_maps_ref` is its plain PyTorch version.
+as one hand-written CUDA C++ kernel (solid angles, then the maps, with the
+beams formed in the block); :func:`bank_visibility_maps_ref` is its plain
+PyTorch version.
 
 Polarised telescopes give each beam a dipole polarisation pattern (a unit
 vector in the (theta_hat, phi_hat) basis) and form the Stokes I/Q/U/V
-maps of each feed pair instead: :func:`bank_stokes_maps` (Triton) and
+maps of each feed pair instead: :func:`bank_stokes_maps` (CUDA C++) and
 :func:`bank_stokes_maps_ref` (plain).
 
 Telescopes whose beams are evaluated on the host (any beam that is not a
 cylinder bank row) hand the batch's unique beam arrays to
 :func:`host_visibility_maps` / :func:`host_stokes_maps` (K2 alone, CUDA C++;
 plain versions :func:`host_visibility_maps_ref` / :func:`host_stokes_maps_ref`).
+Both kernels share one map pass, ``csrc/vis_map.cuh``, and differ in where
+the beams come from.
 """
 
 from __future__ import annotations
@@ -36,16 +39,14 @@ from .. import backend
 # Fused K1 (beam from bank rows) + K2 (normalised visibility map).
 K1K2 = backend.register(
     "k1k2_beam_vis",
-    "triton",
-    "driftscan_tpu_torch/csrc/beam_vis.py",
+    "driftscan_tpu_torch/csrc/bank_vis.cu",
     "driftscan_tpu/telescope/cylbeam.py:133 + driftscan_tpu/ops/kernels.py:203",
 )
 
 # The polarised variant: dipole pattern (K19) + Stokes maps (K2).
 K1K2_STOKES = backend.register(
     "k1k2_stokes_vis",
-    "triton",
-    "driftscan_tpu_torch/csrc/beam_vis.py",
+    "driftscan_tpu_torch/csrc/bank_vis.cu",
     "driftscan_tpu/telescope/cylbeam.py:133 + driftscan_tpu/ops/kernels.py:214"
     " + driftscan_tpu/ops/kernels.py:297",
 )
@@ -53,7 +54,6 @@ K1K2_STOKES = backend.register(
 # K2 on host-evaluated beams: solid angles + normalised visibility maps.
 K2_HOST = backend.register(
     "k2_host_vis",
-    "cuda",
     "driftscan_tpu_torch/csrc/host_vis.cu",
     "driftscan_tpu/ops/kernels.py:189 (+ :41, :72, :84)",
 )
@@ -61,21 +61,18 @@ K2_HOST = backend.register(
 # Its Stokes form: solid angles + Stokes I/Q/U/V maps of field patterns.
 K2_HOST_STOKES = backend.register(
     "k2_host_stokes",
-    "cuda",
     "driftscan_tpu_torch/csrc/host_vis.cu",
     "driftscan_tpu/ops/kernels.py:196 (+ :41, :72, :101)",
 )
 
-# The map pass of csrc/host_vis.cu: pixels a block, and the pixels a block
-# of its solid-angle pass sums (the partials' scratch is sized from it).
-# A block stages its pixels of as many unique beams as HOST_VIS_STAGE_BYTES
-# of shared memory hold (two blocks an SM), and more in groups of that many.
+# The map pass of csrc/vis_map.cuh (K2-host and K1+K2): pixels a block, and
+# the pixels a block of its solid-angle pass sums (the partials' scratch is
+# sized from it).  A block stages its pixels of as many unique beams as
+# HOST_VIS_STAGE_BYTES of shared memory hold (two blocks an SM), and more in
+# groups of that many.
 HOST_VIS_TILE = 512
 HOST_VIS_OMEGA_TILE = 1024
 HOST_VIS_STAGE_BYTES = 96 * 1024
-_HOST_VIS_ARGS = (ctypes.c_void_p,) * 8 + (
-    ctypes.c_longlong, ctypes.c_double, ctypes.c_longlong,
-) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 # Bank parameter row layout (see telescope.cylbeam.build_beam_bank).
 PAR_LEN = 12  # kx0, inv_step, fwhm_ns, xhat(3), yhat(3), dipole(3)
@@ -284,28 +281,20 @@ def bank_visibility_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: floa
     fx (nb, nfx) and par (nb, 12) the bank rows of the batch's unique
     beams; unit u pairs rows idx_i[u], idx_j[u] at baseline uv3[u]
     ((nu, 3) float64).  Returns (nu, npix) complex.  CPU tensors take the
-    plain version; CUDA tensors launch the Triton kernel, which takes the
-    float32 grid of single-precision telescopes.
+    plain version; CUDA tensors launch the kernel, which takes the float32
+    grid of single-precision telescopes.
     """
     if not backend.on_cuda(cart, horizon, fx, par, idx_i, idx_j, uv3):
         return bank_visibility_maps_ref(
             cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea
         )
     _require_bank_args(cart, horizon, fx, par, idx_i, idx_j, uv3)
-
-    from ..csrc import beam_vis
-
-    nu, npix = idx_i.shape[0], cart.shape[0]
-    alpha = exptan_alpha(par[:, 2]).contiguous()
-    omega = torch.empty(fx.shape[0], dtype=cart.dtype, device=cart.device)
     out = torch.empty(
-        (nu, npix), dtype=backend.complex_dtype(cart.dtype), device=cart.device
+        (idx_i.shape[0], cart.shape[0]), dtype=torch.complex64, device=cart.device
     )
-    beam_vis.launch(
-        cart, horizon, fx, par, alpha, idx_i, idx_j, uv3, omega,
-        torch.view_as_real(out), float(pxarea),
-    )
-    K1K2.launches += 1
+    _map_launch(K1K2, "bank_maps_f32", (fx.data_ptr(), par.data_ptr()), fx.shape[1],
+                fx.shape[0], 1, fx.element_size(), 1, idx_i, idx_j, uv3, cart, horizon,
+                pxarea, out)
     return out
 
 
@@ -344,8 +333,8 @@ def bank_stokes_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: float,
     amplitude times its dipole's polarisation pattern.  Returns (nu,
     npol, npix) complex: the first ``npol`` of Stokes I, Q, U, V (a
     telescope that skips V or all polarisation transforms fewer).  CPU
-    tensors take the plain version; CUDA tensors launch the Triton kernel
-    (float32 grid).
+    tensors take the plain version; CUDA tensors launch the kernel (float32
+    grid).
     """
     if not 1 <= npol <= 4:
         raise ValueError(f"npol={npol}: Stokes maps have 1 to 4 components")
@@ -354,20 +343,12 @@ def bank_stokes_maps(cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea: float,
             cart, horizon, fx, par, idx_i, idx_j, uv3, pxarea, npol
         )
     _require_bank_args(cart, horizon, fx, par, idx_i, idx_j, uv3)
-
-    from ..csrc import beam_vis
-
-    nu, npix = idx_i.shape[0], cart.shape[0]
-    alpha = exptan_alpha(par[:, 2]).contiguous()
-    omega = torch.empty(fx.shape[0], dtype=cart.dtype, device=cart.device)
     out = torch.empty(
-        (nu, npol, npix), dtype=backend.complex_dtype(cart.dtype), device=cart.device
+        (idx_i.shape[0], npol, cart.shape[0]), dtype=torch.complex64, device=cart.device
     )
-    beam_vis.launch_stokes(
-        cart, horizon, fx, par, alpha, idx_i, idx_j, uv3, omega,
-        torch.view_as_real(out), float(pxarea),
-    )
-    K1K2_STOKES.launches += 1
+    _map_launch(K1K2_STOKES, "bank_maps_f32", (fx.data_ptr(), par.data_ptr()), fx.shape[1],
+                fx.shape[0], 2, fx.element_size(), npol, idx_i, idx_j, uv3, cart, horizon,
+                pxarea, out)
     return out
 
 
@@ -427,32 +408,51 @@ def host_stokes_maps(beams, idx_i, idx_j, uv3, cart, horizon, pxarea: float,
 
 
 def host_vis_stage(nb: int, ncomp: int, elem_bytes: int) -> int:
-    """Unique beams a block of the K2-host map pass stages at once: as many
-    of the batch's ``nb`` beams (``ncomp`` components of ``elem_bytes`` a
-    pixel) as HOST_VIS_STAGE_BYTES hold over a pixel tile, at least one."""
+    """Unique beams a block of the map pass (K2-host, K1+K2) stages at once:
+    as many of the batch's ``nb`` beams (``ncomp`` components of
+    ``elem_bytes`` a pixel) as HOST_VIS_STAGE_BYTES hold over a pixel tile,
+    at least one."""
     per_beam = HOST_VIS_TILE * ncomp * elem_bytes
     return max(1, min(nb, HOST_VIS_STAGE_BYTES // per_beam))
 
 
 def _host_launch(kernel, beams, ncomp, npol, idx_i, idx_j, uv3, cart, horizon, pxarea, out):
-    """One call of csrc/host_vis.cu (solid angles, then the maps) on the
-    current stream; arguments validated by the caller."""
-    npix, nu, nb = cart.shape[0], idx_i.shape[0], beams.shape[0]
+    """One call of csrc/host_vis.cu on the current stream; arguments
+    validated by the caller."""
+    _map_launch(
+        kernel, "host_maps_f32" if cart.dtype == torch.float32 else "host_maps_f64",
+        (beams.data_ptr(),), int(beams.is_complex()), beams.shape[0], ncomp,
+        beams.element_size(),  # one (re, im) pair for a complex beam
+        npol, idx_i, idx_j, uv3, cart, horizon, pxarea, out,
+    )
+
+
+def _map_launch(kernel, symbol, beam_ptrs, flag, nb, ncomp, elem, npol, idx_i, idx_j, uv3,
+                cart, horizon, pxarea, out):
+    """One call of a csrc/vis_map.cuh map pass (solid angles, then the maps)
+    on the current stream.  ``beam_ptrs`` are the beam source's arrays (the
+    host beams; or the bank tables and parameters), ``flag`` its int (complex
+    beams; or the table length), ``nb`` its unique beams of ``ncomp``
+    components of ``elem`` bytes a pixel.  Arguments validated by the
+    caller."""
+    npix, nu = cart.shape[0], idx_i.shape[0]
     if npix == 0 or nu == 0:
         return
     scratch = torch.empty(
         nb * (-(-npix // HOST_VIS_OMEGA_TILE) + 1), dtype=cart.dtype, device=cart.device
     )
-    elem = beams.element_size()  # one (re, im) pair for a complex beam
     fn = kernel.entry(
-        "host_maps_f32" if cart.dtype == torch.float32 else "host_maps_f64", _HOST_VIS_ARGS
+        symbol,
+        (ctypes.c_void_p,) * (7 + len(beam_ptrs))
+        + (ctypes.c_longlong, ctypes.c_double, ctypes.c_longlong)
+        + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
     )
     backend.check(
         fn(
-            cart.data_ptr(), horizon.data_ptr(), beams.data_ptr(), idx_i.data_ptr(),
+            cart.data_ptr(), horizon.data_ptr(), *beam_ptrs, idx_i.data_ptr(),
             idx_j.data_ptr(), uv3.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), float(pxarea), npix, nu, nb, ncomp, int(beams.is_complex()),
-            npol, host_vis_stage(nb, ncomp, elem), backend.stream_ptr(cart.device),
+            scratch.numel(), float(pxarea), npix, nu, nb, ncomp, flag, npol,
+            host_vis_stage(nb, ncomp, elem), backend.stream_ptr(cart.device),
         ),
         kernel.name,
     )

@@ -18,11 +18,11 @@ import torch
 from .. import backend
 
 PROBE_DOUBLE = backend.register(
-    "probe_double", "cuda", "driftscan_tpu_torch/csrc/probe.cu",
+    "probe_double", "driftscan_tpu_torch/csrc/probe.cu",
     "scratch/pallas_probe.py:56",
 )
 PROBE_MM = backend.register(
-    "probe_mm", "cuda", "driftscan_tpu_torch/csrc/probe.cu",
+    "probe_mm", "driftscan_tpu_torch/csrc/probe.cu",
     "scratch/pallas_probe.py:83",
 )
 

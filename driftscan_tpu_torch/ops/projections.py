@@ -34,14 +34,12 @@ from . import fpencil, linalg
 
 K15A = backend.register(
     "k15a_sandwich",
-    "cuda",
     "driftscan_tpu_torch/csrc/sandwich.cu",
     "driftscan_tpu/ops/projections.py:302",
 )
 
 K15B = backend.register(
     "k15b_fisher_trace",
-    "cuda",
     "driftscan_tpu_torch/csrc/fisher_trace.cu",
     "driftscan_tpu/ops/projections.py:352",
 )

@@ -53,14 +53,12 @@ from .projections import as_tensor
 
 K3K5 = backend.register(
     "k3k5_legendre_sht",
-    "cuda",
     "driftscan_tpu_torch/csrc/legendre_sht.cu",
     "driftscan_tpu/ops/sht.py:80 + driftscan_tpu/ops/sht.py:729",
 )
 
 K14 = backend.register(
     "k14_legendre_synth",
-    "cuda",
     "driftscan_tpu_torch/csrc/legendre_synth.cu",
     "driftscan_tpu/ops/sht.py:474 + driftscan_tpu/ops/sht.py:535 (+ :80)",
 )
@@ -172,9 +170,9 @@ def legendre_contract_ref(F, G, cos_t, sin_t, lmax: int, pixarea: float):
 
 
 def m_schedule(nm: int) -> np.ndarray:
-    """The m values each block of the Legendre kernel takes: (ceil(nm / 2),
-    2) int32 rows (m, nm - 1 - m), the second -1 where the middle m of an
-    odd nm stands alone.  A block then walks 2 (lmax + 1) - (nm - 1)
+    """The m values each block of the Legendre kernels (K3+K5, K14) takes:
+    (ceil(nm / 2), 2) int32 rows (m, nm - 1 - m), the second -1 where the
+    middle m of an odd nm stands alone.  A block then walks 2 (lmax + 1) - (nm - 1)
     multipoles whatever its row, so no block runs twice the mean (m = 0
     alone would)."""
     first = np.arange((nm + 1) // 2)
@@ -410,6 +408,32 @@ def legendre_synth_ref(pos, neg, cos_t, sin_t):
     return tpos, _synth_plane(lam, shifted) * signm[:, None]
 
 
+# The step-coefficient table of csrc/legendre_synth.cu runs this far past
+# lmax (its CPAD, at least a multipole tile), so that a tile's rows need no
+# bound check.
+SYNTH_L_TILE = 32
+
+
+def step_coefficients(lmax: int, nm: int) -> np.ndarray:
+    """(nm, lmax + 1 + SYNTH_L_TILE, 2) float64: the recurrence's step
+    coefficients (a, b) of each (m, l), as ``legendre_rec.cuh`` coef_a and
+    coef_b form them (every operand an exact integer, then an IEEE division
+    and square root: the same bits on the host and the card)."""
+    l = np.arange(lmax + 1 + SYNTH_L_TILE, dtype=np.float64)[None, :]
+    m = np.arange(nm, dtype=np.float64)[:, None]
+    a = np.sqrt(np.maximum(4.0 * l * l - 1.0, 0.0) / np.maximum(l * l - m * m, 1.0))
+    b = np.sqrt(np.maximum((l - 1.0) * (l - 1.0) - m * m, 0.0)
+                / np.maximum(4.0 * (l - 1.0) * (l - 1.0) - 1.0, 1.0))
+    return np.ascontiguousarray(np.stack([a, b], axis=-1))
+
+
+@functools.lru_cache(maxsize=64)
+def _synth_tables(lmax: int, nm: int, device: torch.device):
+    """The step coefficients of :func:`step_coefficients` on ``device``,
+    uploaded once per (lmax, nm)."""
+    return torch.as_tensor(step_coefficients(lmax, nm), device=device)
+
+
 def legendre_synth(pos, neg, cos_t, sin_t):
     """Legendre stage of the synthesis (K14).
 
@@ -439,17 +463,20 @@ def legendre_synth(pos, neg, cos_t, sin_t):
     tneg = None if neg is None else torch.empty_like(tpos)
     if tpos.numel() == 0:
         return tpos, tneg
-    logpref = torch.as_tensor(_log_lambda_mm_prefactor(nl - 1), device=dev)
+    logpref, sched = _legendre_tables(nl - 1, nm, dev)
+    coef = _synth_tables(nl - 1, nm, dev)
     fn = K14.entry(
         "legendre_synth_c64" if pos.dtype == torch.complex64 else "legendre_synth_c128",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
     )
     backend.check(
         fn(
             pos.data_ptr(), None if neg is None else neg.data_ptr(),
-            cos_t.data_ptr(), sin_t.data_ptr(), logpref.data_ptr(), tpos.data_ptr(),
-            None if tneg is None else tneg.data_ptr(),
-            B, nm, nring, nl - 1, backend.stream_ptr(dev),
+            cos_t.data_ptr(), sin_t.data_ptr(), logpref.data_ptr(), coef.data_ptr(),
+            sched.data_ptr(), sched.shape[0], tpos.data_ptr(),
+            None if tneg is None else tneg.data_ptr(), B, nm, nring, nl - 1,
+            backend.stream_ptr(dev),
         ),
         K14.name,
     )

@@ -24,7 +24,6 @@ from ..ops import fpencil, linalg, projections
 
 K13 = backend.register(
     "k13_fisher_cov",
-    "cuda",
     "driftscan_tpu_torch/csrc/fisher_gram.cu",
     "driftscan_tpu/parallel/mstep.py:387",
 )

@@ -15,7 +15,7 @@ import torch
 from driftscan_tpu_torch import backend
 from driftscan_tpu_torch.ops import fpencil, healpix, kernels, probe, projections, sht
 from driftscan_tpu_torch.parallel import mstep
-from driftscan_tpu_torch.telescope import cylinder
+from driftscan_tpu_torch.telescope import cylbeam, cylinder
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +102,85 @@ def test_k1k2_repeats_bitwise(cuda):
         b = tel._beam_map_batch(blg, fig)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+def _bank_inputs(device, npix, nb, nu, pol, seed, poles=False):
+    """Seeded unit vectors (a ragged pixel count), a horizon, ``nb`` bank
+    rows of a cylinder (``pol``: X and Y dipole rows) and ``nu`` unit pairs
+    over them for the K1+K2 kernels.  ``poles``: the first pixels lie at
+    the pole n = z and row 0's dipole lies along it."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((npix, 3))
+    if poles:
+        v[:5] = [0.0, 0.0, 1.0]
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    zenith = np.array([np.pi / 4, 0.0])
+    zc = np.array([np.sin(zenith[0]), 0.0, np.cos(zenith[0])])
+    cart = torch.as_tensor(v, dtype=torch.float32, device=device)
+    hor = torch.as_tensor((v @ zc > 0.0).astype(np.float32), device=device)
+    widths = np.linspace(3.0, 8.0, -(-nb // (2 if pol else 1)))
+    par, fx = cylbeam.build_beam_bank(zenith, widths, 2.0, 1.5, pol)
+    par = par.reshape(-1, kernels.PAR_LEN)[:nb]
+    fx = fx.reshape(-1, fx.shape[-1])[:nb]
+    if poles:
+        par[0, 9:12] = [0.0, 0.0, 1.0]
+    ii = torch.as_tensor(rng.integers(0, nb, nu), device=device)
+    jj = torch.as_tensor(rng.integers(0, nb, nu), device=device)
+    uv3 = torch.as_tensor(rng.uniform(-40.0, 40.0, (nu, 3)), device=device)
+    return (cart, hor, torch.as_tensor(fx, device=device), torch.as_tensor(par, device=device),
+            ii, jj, uv3, 4.0 * np.pi / npix)
+
+
+def _bank_case(args, pol, npol):
+    if pol:
+        return (kernels.K1K2_STOKES, lambda: kernels.bank_stokes_maps(*args, npol=npol),
+                lambda: kernels.bank_stokes_maps_ref(*args, npol=npol))
+    return (kernels.K1K2, lambda: kernels.bank_visibility_maps(*args),
+            lambda: kernels.bank_visibility_maps_ref(*args))
+
+
+# (npix, nb, nu, npol): many units over one and two rows (more than one
+# 256-unit round), a pixel count that is no multiple of the 512-pixel tile,
+# rows beyond one shared-memory stage (48 scalar rows, 24 dipole rows: the
+# map pass stages them in groups and evaluates a unit's row j in another
+# group in place), Stokes npol 1, 3 and 4
+K1K2_EDGES = [
+    (5000, 1, 300, 4), (4093, 2, 300, 3), (2049, 64, 150, 4), (3001, 5, 40, 1),
+    (1000, 40, 90, 3),
+]
+
+
+@pytest.mark.parametrize("pol", [False, True], ids=["scalar", "stokes"])
+@pytest.mark.parametrize("shape", K1K2_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_k1k2_edges(cuda, pol, shape):
+    """The bank kernels against their plain versions (rel 1e-5), and two
+    launches bitwise equal."""
+    npix, nb, nu, npol = shape
+    args = _bank_inputs(cuda, npix, nb, nu, pol, seed=npix + nb)
+    if nb == 64:
+        assert kernels.host_vis_stage(nb, 2 if pol else 1, 4) < nb
+    kernel, fn, ref = _bank_case(args, pol, npol)
+    _check(kernel, fn, ref, 1e-5)
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("npol", [1, 3, 4])
+def test_k1k2_stokes_dipole_along_the_pole(cuda, npol):
+    """Pixels at the pole n = z with a dipole along n: the dipole's
+    projection on (theta_hat, phi_hat) vanishes, so every map of a unit on
+    that row is zero there, never NaN; the kernel stays within 1e-5 of its
+    plain version."""
+    args = _bank_inputs(cuda, 3000, 4, 20, True, seed=9, poles=True)
+    kernel, fn, ref = _bank_case(args, True, npol)
+    _check(kernel, fn, ref, 1e-5)
+    got = fn()
+    assert bool(torch.isfinite(got).all())
+    on_row0 = (args[4] == 0) | (args[5] == 0)
+    assert bool(on_row0.any())
+    assert float(got[on_row0][..., :5].abs().max()) == 0.0
+    assert float(got[~on_row0][..., 5:].abs().max()) > 0.0
 
 
 def _host_inputs(device, dtype, cplx, stokes, npix, nb=3, nu=7, seed=5):
@@ -309,6 +388,37 @@ def test_k14_legendre_synth(cuda, shape, neg, dtype, rtol):
     st = torch.as_tensor(g.sin_theta, device=cuda)
     _check(sht.K14, lambda: sht.legendre_synth(pos, nalm, ct, st)[: 1 + neg],
            lambda: sht.legendre_synth_ref(pos, nalm, ct, st)[: 1 + neg], rtol)
+
+
+# (nside, lmax, nm, B): odd and even nm below lmax + 1 (the (m, nm - 1 - m)
+# pairs, one m alone), ring counts (31, 63, 127, 255, 1023) that are no
+# multiple of the 128-ring tile, lmax + 1 at and just past the 32-multipole
+# tile, B 1, 3, 9 and 17 (one to three blocks of 8 units), and the
+# timestream's shape (lmax 229, nside 256), whole and with its first 58 m
+K14_EDGES = [
+    (8, 20, 21, 1), (16, 30, 17, 3), (16, 47, 30, 9), (64, 100, 101, 17),
+    (32, 31, 32, 2), (32, 32, 33, 5), (256, 229, 230, 8), (256, 229, 58, 8),
+]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.complex128, 1e-10), (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("neg", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("shape", K14_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_k14_legendre_synth_edges(cuda, shape, neg, dtype, rtol):
+    """The kernel against its plain version, and two launches bitwise
+    equal (its sums run in a fixed order)."""
+    nside, lmax, nm, B = shape
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(nside + lmax + nm + B)
+    pos = _crandn(rng, (B, lmax + 1, nm), cuda).to(dtype)
+    nalm = _crandn(rng, (B, lmax + 1, nm - 1), cuda).to(dtype) if neg else None
+    ct = torch.as_tensor(g.cos_theta, device=cuda)
+    st = torch.as_tensor(g.sin_theta, device=cuda)
+    fn = lambda: sht.legendre_synth(pos, nalm, ct, st)[: 1 + neg]
+    _check(sht.K14, fn, lambda: sht.legendre_synth_ref(pos, nalm, ct, st)[: 1 + neg], rtol)
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("neg", [False, True], ids=["real", "complex"])

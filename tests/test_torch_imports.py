@@ -7,6 +7,7 @@ runs in a subprocess.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -24,6 +25,9 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.core.cosmology",
     "driftscan_tpu_torch.core.skymodel",
     "driftscan_tpu_torch.core.telescope",
+    "driftscan_tpu_torch.experiments.k14_ablations",
+    "driftscan_tpu_torch.experiments.k14_m_ranges",
+    "driftscan_tpu_torch.experiments.map_rounding",
     "driftscan_tpu_torch.ops.fpencil",
     "driftscan_tpu_torch.ops.healpix",
     "driftscan_tpu_torch.ops.kernels",
@@ -96,6 +100,21 @@ def test_file_pipeline_imports_no_jax():
     _import_check(
         SLICE_MODULES + FILE_MODULES, ("jax", "jaxlib", "driftscan_tpu", "yaml", "click")
     )
+
+
+def test_port_imports_no_triton():
+    """The port's kernels are CUDA C++ built by nvcc: no module of the
+    package, nor chip_smoke.py, imports triton, at import or inside a
+    function."""
+    _import_check(SLICE_MODULES + FILE_MODULES, ("triton",))
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, dirs, files in os.walk(os.path.join(REPO, "driftscan_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not the package
+        sources += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"^\s*(import|from)\s+triton\b", text, re.M), path
 
 
 def test_every_module_is_listed():

@@ -1,7 +1,8 @@
-"""The launch plans of the K2-host and K15b kernels on the CPU, and the
-arithmetic of K15b's symmetric form.
+"""The launch plans of the map-pass (K2-host, K1+K2) and K15b kernels on the
+CPU, and the arithmetic of K15b's symmetric form.
 
-The kernels (csrc/host_vis.cu, csrc/fisher_trace.cu) run only on the card.
+The kernels (csrc/host_vis.cu, csrc/bank_vis.cu, csrc/fisher_trace.cu) run
+only on the card.
 What surrounds them is Python and is checked here: the Fisher trace's split
 of an m's (i, j) tiles over the blocks of a cluster, the number of unique
 beams the map pass stages at once, and the registry entries.  The
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from driftscan_tpu_torch import backend
-from driftscan_tpu_torch.ops import kernels, projections
+from driftscan_tpu_torch.ops import kernels, projections, sht  # noqa: F401 (sht registers K14)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -152,7 +153,7 @@ def test_fisher_trace_symmetric_form_is_the_trace(k, dtype, rtol):
 
 
 @pytest.mark.parametrize("nb", [1, 3, 24, 25, 64, 500])
-@pytest.mark.parametrize("ncomp,elem", [(1, 4), (1, 8), (1, 16), (2, 8), (2, 16), (2, 32)])
+@pytest.mark.parametrize("ncomp,elem", [(1, 4), (1, 8), (1, 16), (2, 4), (2, 8), (2, 16), (2, 32)])
 def test_host_vis_stage_fits_its_budget(nb, ncomp, elem):
     """All the batch's beams in one stage where they fit the budget, else
     the most that do (at least one): groups of that many."""
@@ -166,9 +167,11 @@ def test_host_vis_stage_fits_its_budget(nb, ncomp, elem):
         assert (s + 1) * per_beam > kernels.HOST_VIS_STAGE_BYTES
 
 
-@pytest.mark.parametrize("name", ["k2_host_vis", "k2_host_stokes", "k15b_fisher_trace"])
+@pytest.mark.parametrize("name", ["k2_host_vis", "k2_host_stokes", "k15b_fisher_trace",
+                                  "k1k2_beam_vis", "k1k2_stokes_vis", "k14_legendre_synth"])
 def test_redesigned_kernels_are_cuda(name):
-    """K2-host (both forms) and K15b are CUDA C++ sources of csrc/."""
+    """K2-host and K1+K2 (both forms), K15b and K14 are CUDA C++ sources of
+    csrc/."""
     k = backend.KERNELS[name]
     assert k.route == "cuda"
     assert k.source.startswith("driftscan_tpu_torch/csrc/") and k.source.endswith(".cu")
