@@ -83,6 +83,17 @@ script exits non-zero:
    their alm; then ``[svd variants]``: TempSVD and FullSVD beam transfers
    of the same telescope, their singular values against the CPU's
    ``simple_svd`` (K18b, a library SVD) on the same beams;
+8b. chunked, chunked 128, psmc (run after 8, on the products of 6) -- the
+   chunked streaming BTM generate and the Monte-Carlo estimators:
+   ``[products]``' config with ``resident: never`` and ``mem_chunk: 0.1``
+   (3 unit chunks) through the whole chain,
+   every file against the resident run's, and the polarised cylinder's
+   BTM by both routes (:func:`chunked_phase`); the bench cylinder at 128
+   channels, whose tables are over the resident host budget, through the
+   chunked route in 2 chunks (BTM only; units against the plain CPU
+   versions; its peak host RSS; :func:`chunked_128_phase`); MonteCarlo,
+   MonteCarloAlt and Cross on ``[products]``' KL filter against its
+   ``Full`` Fisher and the CPU (:func:`psmc_phase`);
 9. probe -- the ports of the two Pallas probes of
    ``scratch/pallas_probe.py`` (o = 2 x; a 1024^3 matmul, float32 and
    bfloat16 inputs) against their plain versions, with Tflop/s;
@@ -173,6 +184,15 @@ CPU_CHECK_M = 8
 PROBE_N = 1024  # scratch/pallas_probe.py's shapes
 
 PROBE_KERNELS = ("probe_double", "probe_mm")
+# [chunked]: mem_chunk 0.1 GiB holds 64 of the bench cylinder's 176 units
+# (each (2, npol, nl, nm) complex128, 1.66 MB), so 3 chunks; [chunked 128]:
+# its 2,816 units at the default 3 GiB (1,936 a chunk) take 2
+CHUNKED_MEM_GB = 0.1
+CHUNKED_CHUNKS = 3
+# the polarised cylinder's units (npol 4, nl 121, nm 113: 1.75 MB each) in
+# chunks of 18
+CHUNKED_POL_MEM_GB = 0.03
+CHUNKED_128_CHUNKS = 2
 NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet, dense): device
@@ -1142,8 +1162,9 @@ def products_phase(slice_run, outdir):
     log(
         f"[{tag}] store {store.BACKEND} (truncation codec {truncate.codec()}, "
         f"file codec {store.codec(bt.compression)})  device {m.device}  wall {wall:.4f} s  "
-        f"t_beams {tm['beams']:.4f} s (compute {tm['beams.btm_compute']:.4f}, "
-        f"write {tm['beams.btm_write']:.4f})  t_svd {tm['beams.svd']:.4f} s  "
+        f"t_beams {tm['beams']:.4f} s (BTM {tm['beams'] - tm['beams.svd']:.4f}: compute "
+        f"{tm['beams.btm_compute']:.4f}, write {tm['beams.btm_write']:.4f})  "
+        f"t_svd {tm['beams.svd']:.4f} s  "
         f"t_kl {tm['kl.kl']:.4f} s  t_doublekl {tm['kl.dk']:.4f} s  "
         f"t_ps {tm['ps.ps']:.4f} s"
     )
@@ -1547,6 +1568,302 @@ def timestream_phase(outdir, m):
     if touched != want:
         raise AssertionError(f"{tag}: the second run rewrote {sorted(touched)}, expected {sorted(want)}")
     return launches, mapfile, nside
+
+
+class PeakRSS:
+    """Peak resident set of this process over a window, in GiB: /proc's
+    ``statm`` sampled every 20 ms by a thread (the card host's kernel
+    keeps no resettable peak), beside ``ru_maxrss``, the peak since the
+    process started."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = self.rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+        return False
+
+    @staticmethod
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+    @staticmethod
+    def since_start():
+        import resource
+
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def beam_files_equal(tag, ma, mb):
+    """Every m's ``beam_m`` of two product runs: (bitwise equal, max |a - b|
+    over max |b|)."""
+    from driftscan_tpu_torch.util import store
+
+    same, err, top = True, 0.0, 0.0
+    for mi in range(ma.telescope.mmax + 1):
+        with store.File(ma.beamtransfer._mfile(mi), "r") as f, \
+                store.File(mb.beamtransfer._mfile(mi), "r") as g:
+            a, b = f["beam_m"][:], g["beam_m"][:]
+        if a.shape != b.shape:
+            raise AssertionError(f"{tag}: beam_m of m {mi}: shapes {a.shape} and {b.shape}")
+        same = same and np.array_equal(a, b)
+        err = max(err, float(np.abs(a - b).max()))
+        top = max(top, float(np.abs(b).max()))
+    return same, err / top
+
+
+def chunked_phase(outdir, workdir):
+    """The chunked streaming BTM generate on the card: ``[products]``' config
+    with ``resident: never`` and ``mem_chunk: 0.1`` (64 units a chunk, so 3
+    chunks) into ``workdir``, its whole chain against the resident run in
+    ``outdir``; then the polarised cylinder's BTM by both routes.  Returns
+    the launches of both runs."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.util import store
+
+    tag = "chunked"
+    conf = products_config(os.path.join(workdir, "chunked"))
+    conf["config"].update(resident="never", mem_chunk=CHUNKED_MEM_GB)
+    backend.reset_launch_counts()
+    t = time.time()
+    m = manager.ProductManager().apply_config(conf)
+    m.generate()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = launch_counts()
+    bt, tm = m.beamtransfer, m.timings
+    log(
+        f"[{tag}] store {store.BACKEND}  chunks {bt.num_chunks}  wall {wall:.4f} s  "
+        f"t_beams {tm['beams']:.4f} s (BTM {tm['beams'] - tm['beams.svd']:.4f}: compute "
+        f"{tm['beams.btm_compute']:.4f}, write {tm['beams.btm_write']:.4f})  "
+        f"t_svd {tm['beams.svd']:.4f} s  t_kl "
+        f"{tm['kl.kl']:.4f} s  t_doublekl {tm['kl.dk']:.4f} s  t_ps {tm['ps.ps']:.4f} s  "
+        f"launches {launches}"
+    )
+    if bt.num_chunks != CHUNKED_CHUNKS or bt._mem_beam is not None:
+        raise AssertionError(f"{tag}: took {bt.num_chunks} chunks (resident tables "
+                             f"{bt._mem_beam is not None}), expected the chunked route in "
+                             f"{CHUNKED_CHUNKS}")
+    require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht", "k9_signal_gram",
+                                     "k15a_sandwich", "k15b_fisher_trace"])
+    bad = [f for f in products_files(m) if not store.readable(f)]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} product files missing or unreadable: {bad[:4]}")
+
+    # against [products]' resident run of the same config
+    ref = manager.ProductManager().apply_config(products_config(outdir))
+    same, err = beam_files_equal(tag, m, ref)
+    log(f"[{tag}] beam.hdf5 of {bt.telescope.mmax + 1} m, chunked vs resident: "
+        f"{'bitwise equal' if same else 'differ'} (max {err:.3e} of max |BTM|; tol 1e-6)")
+    if not err <= 1e-6:
+        raise AssertionError(f"{tag}: chunked BTM vs resident {err:.3e} > 1e-6")
+    sv, sv_r = bt.svd_all(), ref.beamtransfer.svd_all()
+    top = np.maximum(sv_r.max(axis=-1, keepdims=True), 1e-300)
+    ev, ev_r = m.kltransforms["kl"].evals_all(), ref.kltransforms["kl"].evals_all()
+    f_c, f_r = m.psestimators["ps"].fisher_bias()[0], ref.psestimators["ps"].fisher_bias()[0]
+    _gate(tag, f"singular values vs [products] ({'bitwise equal' if np.array_equal(sv, sv_r) else 'differ'}; "
+          f"svd modes {int((sv > bt.svcut * top).sum())} vs {int((sv_r > bt.svcut * top).sum())}), "
+          "of each (m, f)'s top", float((np.abs(sv - sv_r) / top).max()), 1e-3)
+    _gate(tag, f"KL spectra vs [products] ({'bitwise equal' if np.array_equal(ev, ev_r) else 'differ'}; "
+          f"modes >= {PS_THRESHOLD:g}: {int((ev > PS_THRESHOLD).sum())} vs "
+          f"{int((ev_r > PS_THRESHOLD).sum())}), of each m's top",
+          float((np.abs(ev - ev_r) / np.maximum(ev_r.max(axis=1, keepdims=True), 1e-30)).max()), 1e-4)
+    _gate(tag, f"Fisher vs [products] ({'bitwise equal' if np.array_equal(f_c, f_r) else 'differ'}), "
+          "of max|F|", _rel(f_c, f_r), 3e-2)
+
+    # the polarised cylinder's BTM by both routes
+    pol = {}
+    pol_launches = {}
+    for route in ("never", "always"):
+        pconf = {"config": {"beamtransfers": True, "skip_svd": True, "resident": route,
+                            "mem_chunk": CHUNKED_POL_MEM_GB,
+                            "output_directory": os.path.join(workdir, f"pol_{route}")},
+                 "telescope": dict(type="PolarisedCylinder", **POL_PARAMS)}
+        backend.reset_launch_counts()
+        t = time.time()
+        pm = manager.ProductManager().apply_config(pconf)
+        pm.generate()
+        torch.cuda.synchronize()
+        pol[route] = pm
+        pol_launches[route] = launch_counts()
+        log(f"[{tag}] polarised BTM, resident: {route}: {time.time() - t:.4f} s  chunks "
+            f"{pm.beamtransfer.num_chunks}  launches {pol_launches[route]}")
+    if not (pol["never"].beamtransfer.num_chunks or 0) > 1:
+        raise AssertionError(f"{tag}: the polarised BTM took {pol['never'].beamtransfer.num_chunks} "
+                             "chunks, expected several")
+    require_launched(f"{tag} pol", pol_launches["never"], ["k1k2_stokes_vis", "k3k5_legendre_sht"])
+    same, err = beam_files_equal(f"{tag} pol", pol["never"], pol["always"])
+    log(f"[{tag}] polarised beam.hdf5, chunked vs resident: "
+        f"{'bitwise equal' if same else 'differ'} (max {err:.3e} of max |BTM|; tol 1e-6)")
+    if not err <= 1e-6:
+        raise AssertionError(f"{tag}: polarised chunked BTM vs resident {err:.3e} > 1e-6")
+    return launches, pol_launches["never"]
+
+
+def chunked_128_phase(workdir):
+    """The bench cylinder at 128 channels over its own band, default knobs:
+    its tables are over the resident host budget, so ``generate()`` takes
+    the chunked route (in 2 chunks); the SVD stage is skipped.  The units
+    at the first and last channel x the shortest and longest baseline, at
+    m 0, mmax / 2 and mmax, against the port's plain CPU versions.  The
+    directory is deleted afterwards.  Returns the launches."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.telescope import cylinder
+    from driftscan_tpu_torch.util import store
+
+    tag = "chunked 128"
+    params = dict(BENCH_PARAMS, num_freq=128)
+    out = os.path.join(workdir, "chunked128")
+    conf = {"config": {"beamtransfers": True, "skip_svd": True, "output_directory": out},
+            "telescope": dict(type="UnpolarisedCylinder", **params)}
+    m = manager.ProductManager().apply_config(conf)
+    tel, bt = m.telescope, m.beamtransfer
+    nl, nm = tel.lmax + 1, tel.mmax + 1
+    nu = len(tel.included_freq) * len(tel.included_baseline)
+    host_gb = nu * tel.num_pol_sky * nl * (2 * nl + 1) * 16 * 2 / 2**30
+    log(f"[{tag}] lmax {tel.lmax} nm {nm} units {nu}: resident host estimate {host_gb:.4f} GB "
+        f"(budget {bt.resident_host_gb:g}), mem_chunk {bt.mem_chunk:g} GiB")
+    backend.reset_launch_counts()
+    t = time.time()
+    with PeakRSS() as rss:
+        base_rss = rss.peak
+        m.generate()
+        torch.cuda.synchronize()
+    t_beams = time.time() - t
+    launches = launch_counts()
+    written = dir_bytes(os.path.join(out, "bt", "beam_m"))
+    tm = m.timings
+    log(
+        f"[{tag}] store {store.BACKEND}  chunks {bt.num_chunks}  t_beams {t_beams:.4f} s "
+        f"(compute {tm['beams.btm_compute']:.4f}, write {tm['beams.btm_write']:.4f})  "
+        f"written {written / 2**30:.4f} GiB  host RSS {base_rss:.4f} GiB before, peak "
+        f"{rss.peak:.4f} GiB during (peak since start {PeakRSS.since_start():.4f})  "
+        f"launches {launches}"
+    )
+    if bt.num_chunks != CHUNKED_128_CHUNKS or bt._mem_beam is not None or bt._use_resident():
+        raise AssertionError(f"{tag}: route {bt.num_chunks} chunks, resident tables "
+                             f"{bt._mem_beam is not None}; expected chunked in {CHUNKED_128_CHUNKS}")
+    require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht"])
+
+    cpu = cylinder.UnpolarisedCylinderTelescope.from_config(params, device="cpu")
+    blen = np.hypot(tel.baselines[:, 0], tel.baselines[:, 1])
+    bls = [int(np.argmin(blen)), int(np.argmax(blen))]
+    fis = [0, tel.nfreq - 1]
+    bl, fi = [x.ravel() for x in np.meshgrid(bls, fis, indexing="ij")]
+    t = time.time()
+    want = cpu.transfer_matrices(bl, fi)[:, : len(tel.included_pol)]
+    t_cpu = time.time() - t
+    err = top = 0.0
+    ms = (0, tel.mmax // 2, tel.mmax)
+    for mi in ms:
+        with store.File(bt._mfile(mi), "r") as f:
+            d = f["beam_m"]
+            got = np.stack([d[f_, :, b_] for b_, f_ in zip(bl, fi)])
+        pos = want[..., mi]
+        neg = (-1) ** mi * np.conj(want[..., -mi]) if mi else np.zeros_like(pos)
+        ref = np.stack([pos, neg], axis=1)[..., mi:]
+        err = max(err, float(np.abs(got - ref).max()))
+        top = max(top, float(np.abs(ref).max()))
+    _gate(tag, f"units (baselines {bls} x channels {fis}) at m {list(ms)} vs the plain CPU "
+          f"versions ({t_cpu:.2f} s), of max |BTM| {top:.6e}", err / top, 1e-4)
+    shutil.rmtree(out)
+    return launches
+
+
+def psmc_phase(outdir):
+    """The Monte-Carlo estimators on ``[products]``' KL filter ``kl`` in
+    ``outdir``: MonteCarlo and MonteCarloAlt at 1500 samples, Cross at 600,
+    seed 7 (``tests/test_psmc_variants.py``'s settings), over the bands of
+    its ``Full`` estimator; gates against that Fisher, the card against the
+    CPU for m < 8.  Returns the launches (no hand kernel: the q estimator
+    is contractions and projections)."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+
+    tag = "psmc"
+    base = products_config(outdir)["psfisher"][0]
+    entries = [dict(base, type="MonteCarlo", name="psmc", nsamples=1500, seed=7),
+               dict(base, type="MonteCarloAlt", name="psalt", nsamples=1500, seed=7),
+               dict(base, type="Cross", name="pscross", nsamples=600, seed=7)]
+    conf = products_config(outdir)
+    conf["psfisher"] = [base] + entries
+    m = manager.ProductManager().apply_config(conf)
+    m_cpu = manager.ProductManager(device="cpu").apply_config(dict(conf, psfisher=[
+        dict(e, name=e["name"] + "_cpu") for e in entries]))
+    full_fisher = np.asarray(m.psestimators["ps"].fisher_bias()[0]).real
+    scale = np.abs(full_fisher).max()
+    backend.reset_launch_counts()
+    for e in entries:
+        ps = m.psestimators[e["name"]]
+        t = time.time()
+        ps.generate(regen=True)
+        torch.cuda.synchronize()
+        t_ps = time.time() - t
+        fisher, bias = (np.asarray(x).real for x in ps.fisher_bias())
+        if not (np.isfinite(fisher).all() and np.isfinite(bias).all()):
+            raise AssertionError(f"{tag}: {e['type']} Fisher or bias not finite")
+        if fisher.shape != (NBANDS, NBANDS) or bias.shape != (NBANDS,):
+            raise AssertionError(f"{tag}: {e['type']} shapes {fisher.shape} {bias.shape}")
+        log(f"[{tag}] {e['type']} ({e['nsamples']} samples): {t_ps:.4f} s  fisher diag "
+            f"{np.diag(fisher).tolist()}  bias {bias.tolist()}")
+        if e["type"] == "Cross":
+            _gate(tag, "Cross Fisher symmetry, of max", _rel(fisher, fisher.T), 1e-12)
+        else:
+            dev = np.abs(fisher - full_fisher) - 0.35 * np.abs(full_fisher)
+            _gate(tag, f"{e['type']} Fisher vs Full: max (|F - F_full| - 0.35 |F_full|) over "
+                  "max |F_full| (tol 0.15)", float(dev.max() / scale), 0.15)
+        if e["type"] == "MonteCarloAlt":
+            _gate(tag, "MonteCarloAlt Fisher symmetry, of max", _rel(fisher, fisher.T), 1e-12)
+            _gate(tag, "MonteCarloAlt smallest eigenvalue below 0, of max|F_full|",
+                  max(0.0, -float(np.linalg.eigvalsh(fisher).min()) / scale), 1e-8)
+        # a second m again, bit for bit
+        mi = next(mi for mi in range(1, m.telescope.mmax + 1) if ps.num_evals(mi) > 0)
+        ps.genbands()
+        f1, b1 = ps._work_fisher_bias_m(mi)
+        f2, b2 = ps._work_fisher_bias_m(mi)
+        if not (np.array_equal(f1, f2) and np.array_equal(b1, b2)):
+            raise AssertionError(f"{tag}: {e['type']} m {mi} twice: not bitwise equal")
+        # the card against the CPU, same seed, m < 8
+        pc = m_cpu.psestimators[e["name"] + "_cpu"]
+        pc.genbands()
+        err = 0.0
+        for mj in range(CPU_CHECK_M):
+            fa, ba = ps.fisher_bias_m(mj)
+            fb, bb = pc.fisher_bias_m(mj)
+            err = max(err, _rel(fa, fb) if np.abs(fb).max() > 0 else float(np.abs(fa).max()),
+                      _rel(ba, bb) if np.abs(bb).max() > 0 else float(np.abs(ba).max()))
+        _gate(tag, f"{e['type']} m {mi} repeats bitwise; Fisher and bias of m < {CPU_CHECK_M}, "
+              "card vs CPU, of max", err, 1e-8)
+        ps.delbands()
+        pc.delbands()
+    launches = launch_counts()
+    log(f"[{tag}] launches {launches}")
+    return launches
 
 
 def profile_timestream(outdir, mapfile, nside):
@@ -2130,6 +2447,16 @@ def main():
                 counted[name] = counted.get(name, 0) + count
         if profiling:
             profile_timestream(outdir, mapfile, nside)
+        chunkdir = tempfile.mkdtemp(prefix="driftscan_chunked_")
+        try:
+            launches = chunked_phase(outdir, chunkdir)
+            launches += (chunked_128_phase(chunkdir), psmc_phase(outdir))
+        finally:
+            shutil.rmtree(chunkdir, ignore_errors=True)
+        for run in launches:
+            for name, count in run.items():
+                if count:
+                    counted[name] = counted.get(name, 0) + count
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="driftscan_example_")

@@ -6,10 +6,18 @@ Port of ``driftscan_tpu/core/beamtransfer.py``: the same on-disk layout
 telescope) and the same projection API, with the device work in torch on
 the telescope's device:
 
-* the BTMs come from the device-resident tables of
-  :func:`parallel.resident.btm_resident`, fetched once, bit-truncated and
-  written m by m; the tables stay in host memory, so the SVD stage never
-  reads ``beam.hdf5`` back;
+* the BTMs take one of two routes, chosen by :meth:`BeamTransfer._use_resident`
+  as in the JAX package, and both write the same files:
+
+  - resident: the device tables of :func:`parallel.resident.btm_resident`
+    for every unit, fetched once, bit-truncated and written m by m; the
+    tables stay in host memory, so the SVD stage never reads ``beam.hdf5``
+    back;
+  - chunked (``resident: never``, tables over ``resident_hbm_gb`` /
+    ``resident_host_gb``): the (frequency, baseline) units in chunks of
+    ``mem_chunk`` GiB, each chunk's SHT calls on the device filling an
+    m-major host array, bit-truncated and written into every m-file as at
+    most three slabs; the SVD stage reads the files back;
 * the per-(m, freq) triple SVD runs as one batched program per m-chunk
   (ops.linalg.triple_svd_batched) in complex128; the sky -> SVD beams it
   makes stay on the device for the KL stage;
@@ -22,9 +30,7 @@ whole beam), both batched like the triple SVD through
 ``projections.simple_svd`` (K18b), and :class:`BeamTransferNoSVD` (no
 compression: the telescope basis, identity projections).
 
-Files go through util.store (HDF5 wherever h5py imports).  Not ported yet,
-raising ``NotImplementedError`` with its ROADMAP line: the chunked
-streaming generate (``resident: never``, or tables over budget).
+Files go through util.store (HDF5 wherever h5py imports).
 """
 
 from __future__ import annotations
@@ -44,11 +50,6 @@ from ..parallel import comm
 from ..util import store, util
 
 logger = logging.getLogger(__name__)
-
-_CHUNKED_NOT_PORTED = (
-    "the chunked streaming BTM generate is not ported yet: ROADMAP.md, "
-    "modules to port, item 7.3"
-)
 
 
 class BeamTransfer(config.Reader):
@@ -89,14 +90,17 @@ class BeamTransfer(config.Reader):
     noise_weight = True
 
     # Device-resident BTM generation: "auto" uses it when the (l, m)
-    # tables fit the budgets below, "always" / "never" force it.  The
-    # alternative (the chunked streaming generate) is not ported yet.
+    # tables fit the budgets below, "always" / "never" force it; otherwise
+    # the chunked streaming generate runs, in chunks of mem_chunk GiB.
     resident = config.Property(proptype=str, default="auto")
     resident_hbm_gb = config.Property(proptype=float, default=10.0)
     resident_host_gb = config.Property(proptype=float, default=8.0)
 
     # m-modes SVD-compressed per batch (1 writes m by m).
     svd_mbatch = config.Property(proptype=int, default=8)
+
+    # unit chunks of this process's last chunked generate (None: none ran)
+    num_chunks = None
 
     def _comp_kwargs(self, dtype):
         return store.compression_kwargs(dtype, self.compression)
@@ -446,9 +450,135 @@ class BeamTransfer(config.Reader):
                 logger.info("m-files already generated")
             return
 
-        if not self._use_resident():
-            raise NotImplementedError(_CHUNKED_NOT_PORTED)
-        self._generate_mfiles_resident(regen)
+        if self._use_resident():
+            self._generate_mfiles_resident(regen)
+        else:
+            self._generate_mfiles_chunked(regen)
+
+    def _generate_mfiles_chunked(self, regen=False):
+        """Chunked streaming BTM generate (the JAX package's
+        ``_generate_mfiles``, the reference's route).
+
+        The (frequency, baseline) units, frequency-major, go in chunks of
+        ``mem_chunk`` GiB of their (2, npol, nl, nm) m-packed rows.  A
+        chunk's SHT calls (:meth:`TransitTelescope.btm_blocks`) run on the
+        device and fill an m-major (nm, units, 2, npol, nl) host array
+        directly: positive m, then B(-m) packed as (-1)^m conj(B(-m)).  Its
+        full-l rows are bit-truncated, and each m-file, created empty up
+        front, takes the chunk as at most three slabs (a partial first
+        frequency, whole frequencies, a partial last one).
+        """
+        st = time.time()
+        tel = self.telescope
+
+        freq_inc = tel.included_freq
+        bl_inc = tel.included_baseline
+        nf_inc, nb_inc = len(freq_inc), len(bl_inc)
+        np_inc = len(tel.included_pol)
+        nl = tel.lmax + 1
+        nm = tel.mmax + 1
+        nfb = nf_inc * nb_inc
+        if nm > nl:
+            # the JAX package fails here too (an m-file of nl - m <= 0
+            # columns); the reference leaves such m undefined
+            raise ValueError(
+                f"mmax {tel.mmax} > lmax {tel.lmax}: BTM files hold l >= m, so "
+                "mmax must not exceed lmax"
+            )
+
+        # frequency-major units: fb = f * nb_inc + b
+        fbmap = np.array(np.meshgrid(freq_inc, bl_inc, indexing="ij")).reshape(2, nfb)
+
+        fbsize = tel.num_pol_sky * nl * 2 * nm * 16.0
+        num_fb_per_chunk = max(int(self.mem_chunk * 2**30.0 / fbsize), 1) * comm.size()
+        num_chunks = int(np.ceil(1.0 * nfb / num_fb_per_chunk))
+        self.num_chunks = num_chunks
+        if comm.rank0():
+            logger.info("Splitting into %i chunks....", num_chunks)
+
+        for mi in comm.mpirange(nm):
+            if os.path.exists(self._mfile(mi)) and not regen:
+                logger.info("m index %i. File exists. Skipping...", mi)
+                continue
+            with store.File(self._mfile(mi), "w") as f:
+                f.create_dataset(
+                    "beam_m",
+                    (nf_inc, 2, nb_inc, np_inc, nl - mi),
+                    chunks=(1, 2, min(10, nb_inc), np_inc, nl - mi),
+                    dtype=np.complex128,
+                    **self._comp_kwargs(np.complex128),
+                )
+                f.attrs["m"] = mi
+                f.attrs["frequencies"] = tel.frequencies
+        comm.barrier()
+
+        t_write = 0.0
+        for ci, (fbnum, fbstart, fbend) in enumerate(comm.split_m(nfb, num_chunks).T):
+            if comm.rank0():
+                logger.info("Starting chunk %i of %i", ci + 1, num_chunks)
+            fb_ind = np.arange(fbstart, fbend)
+            m_array = self._chunk_m_major(fbmap[1, fb_ind], fbmap[0, fb_ind], np_inc, nm)
+
+            if self.truncate:
+                truncate.bit_truncate_max_complex(
+                    m_array.reshape(-1, nl), self.truncate_rel, self.truncate_maxl
+                )
+
+            wt = time.time()
+            slabs = list(_fb_slabs(int(fbstart), int(fbend), nb_inc))
+            for mi in range(nm):
+                with store.File(
+                    self._mfile(mi), "r+", rdcc_nbytes=(self.chunk_cache_size << 20)
+                ) as mfile:
+                    dset = mfile["beam_m"]
+                    blk = m_array[mi, ..., mi:]  # (units, 2, np_inc, nl - mi)
+                    for u0, u1, fci, bci, nfull in slabs:
+                        if nfull:
+                            dset[fci : fci + nfull] = (
+                                blk[u0:u1]
+                                .reshape((nfull, nb_inc) + blk.shape[1:])
+                                .transpose(0, 2, 1, 3, 4)
+                            )
+                        else:
+                            dset[fci, :, bci : bci + u1 - u0] = blk[u0:u1].transpose(1, 0, 2, 3)
+            t_write += time.time() - wt
+            del m_array
+
+        comm.barrier()
+        if comm.rank0():
+            open(self.directory + "/beam_m/COMPLETED", "a").close()
+        self.timings["btm_compute"] = time.time() - st - t_write
+        self.timings["btm_write"] = t_write
+        logger.info(
+            "=== BTM generation (chunked, %i chunks) took %f s (write %.1f s) ===",
+            num_chunks,
+            time.time() - st,
+            t_write,
+        )
+
+    def _chunk_m_major(self, bl_ind, f_ind, np_inc, nm):
+        """(nm, units, 2, np_inc, nl) complex128 host array of a unit chunk:
+        [m, u, 0] = B(m), [m, u, 1] = (-1)^m conj(B(-m)) (zero at m = 0),
+        full-l rows, packed on the device one SHT call at a time."""
+        tel = self.telescope
+        nl = tel.lmax + 1
+        out = np.zeros((nm, len(bl_ind), 2, np_inc, nl), dtype=np.complex128)
+        for sel, pos, neg in tel.btm_blocks(bl_ind, f_ind):
+            npt = min(pos.shape[1], np_inc)
+            nl_s = pos.shape[2]
+            mtop = min(nl_s, nm)  # m columns this call fills
+            blk = torch.zeros(
+                (nm, len(sel), 2, np_inc, nl), dtype=torch.complex128, device=pos.device
+            )
+            p = pos[:, :npt, :, :mtop].to(torch.complex128)
+            blk[:mtop, :, 0, :npt, :nl_s] = p.permute(3, 0, 1, 2)
+            if mtop > 1:
+                n = neg[:, :npt, :, : mtop - 1].to(torch.complex128).conj()
+                ms = torch.arange(1, mtop, device=pos.device)
+                sign = (1.0 - 2.0 * (ms % 2)).to(torch.float64)
+                blk[1:mtop, :, 1, :npt, :nl_s] = n.permute(3, 0, 1, 2) * sign[:, None, None, None]
+            out[:, sel] = blk.cpu().numpy()
+        return out
 
     def _generate_svdfiles(self, regen=False, skip_svd_inv=False):
         """SVD-compress every m-mode."""
@@ -1013,6 +1143,24 @@ def _load_beam_f(path, dset_name, ind=None):
         if dset_name not in fh:
             raise RuntimeError(f"Malformed beam file: {path}")
         return np.asarray(fh[dset_name][ind])
+
+
+def _fb_slabs(fbstart: int, fbend: int, nb: int):
+    """Cut the frequency-major units [fbstart, fbend) (fb = f * nb + b)
+    into at most three slabs of an m-file: (u0, u1, f, b, nfull) with
+    chunk rows [u0, u1) going to frequency f from baseline b (nfull 0), or
+    to the nfull whole frequencies from f (b 0)."""
+    fb = fbstart
+    while fb < fbend:
+        fci, bci = divmod(fb, nb)
+        if bci == 0 and fbend - fb >= nb:
+            nfull = (fbend - fb) // nb
+            take = nfull * nb
+        else:
+            nfull = 0
+            take = min(nb - bci, fbend - fb)
+        yield fb - fbstart, fb - fbstart + take, fci, bci, nfull
+        fb += take
 
 
 def _find_index_sorted(a: np.ndarray, v: int) -> Optional[int]:

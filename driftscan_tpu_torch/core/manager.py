@@ -133,9 +133,17 @@ def _kl_registry() -> Registry:
 
 
 def _ps_registry() -> Registry:
-    from . import psestimation
+    from . import crosspower, psestimation, psmc
 
-    return Registry("PS estimator", {"Full": psestimation.PSExact})
+    return Registry(
+        "PS estimator",
+        {
+            "Full": psestimation.PSExact,
+            "MonteCarlo": psmc.PSMonteCarlo,
+            "MonteCarloAlt": psmc.PSMonteCarloAlt,
+            "Cross": crosspower.CrossPower,
+        },
+    )
 
 
 # ------------------------------------------------------------------

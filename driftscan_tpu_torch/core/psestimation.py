@@ -7,7 +7,10 @@ on the host with the matmul quadrature in skymodel.Corr21cm and kept on
 the device; per m, PSExact projects every band into the KL basis with the
 sandwich kernel and contracts the projections with the Fisher-trace
 kernel (ops.projections), so only the (nbands, nbands) matrix comes back
-to the host.
+to the host.  The q estimator (the Monte-Carlo estimators of
+:mod:`.psmc` and the timestream's power spectra) runs on the device too:
+whitening, KL -> SVD -> sky and one contraction over all bands, in
+complex128.
 """
 
 from __future__ import annotations
@@ -279,10 +282,6 @@ class PSEstimation(config.Reader, metaclass=abc.ABCMeta):
 
         self.clarray = comm.allreduce(local)
 
-    def delbands(self):
-        """Drop the cached band C_l arrays to free memory."""
-        self.clarray = None
-
     # ============ Fisher accumulation ============
 
     def fisher_bias_m(self, mi):
@@ -384,69 +383,7 @@ class PSEstimation(config.Reader, metaclass=abc.ABCMeta):
         with store.File(self.psdir + "/fisher.hdf5", "r") as f:
             return f["fisher"][:], f["bias"][:]
 
-    # ============ the q estimator ============
-
-    def _whiten_to_sky(self, mi, vec, evals, evecs):
-        """Inverse-covariance weight a KL vector and rotate it to the sky.
-
-        Returns (kl_weighted, sky) where kl_weighted = vec / (evals + 1)
-        and sky is its image under (KL -> SVD -> sky), conjugate transform.
-        """
-        weighted = (vec.T / (evals + 1.0)).T
-        svd = evecs.T.conj() @ weighted
-        sky = self.kltrans.beamtransfer.project_vector_svd_to_sky(
-            mi, svd, conj=True
-        )
-        return weighted, sky
-
-    def q_estimator(self, mi, vec1, vec2=None, noise=False):
-        """Estimate per-band q parameters from KL-basis data vectors.
-
-        q_a = y^H C^-1 C_a C^-1 x evaluated in the sky basis (TT only),
-        optionally with a trailing noise-band entry.
-        """
-        evals, evecs = self.kltrans.modes_m(mi)
-
-        nq = self.nbands + 1 if noise else self.nbands
-        if evals is None:
-            return np.zeros((nq,) + vec1.shape[1:])
-
-        x0, x_sky = self._whiten_to_sky(mi, vec1, evals, evecs)
-        if vec2 is None:
-            y0, y_sky = x0, x_sky
-        else:
-            y0, y_sky = self._whiten_to_sky(mi, vec2, evals, evecs)
-
-        # q_a = sum_{l,f,g} y*[f,l] C^a_l[f,g] x[g,l] on the temperature row
-        xv = x_sky[:, 0, :]  # (nfreq, lside, ...)
-        yv = y_sky[:, 0, :]
-
-        qa = np.zeros((nq,) + vec1.shape[1:])
-        for bi, cl in enumerate(self.clarray):
-            cx = np.einsum("lfg,gl...->fl...", cl.astype(np.complex128), xv)
-            qa[bi] = np.sum((yv.conj() * cx).real, axis=(0, 1))
-
-        if noise:
-            noisemodes = 0.0 if self.crosspower else 1.0
-            noisemodes = noisemodes + (evals if self.zero_mean else 0.0)
-            qa[-1] = np.sum((x0 * y0.conj()).T.real * noisemodes, axis=-1)
-
-        return qa.real if np.iscomplexobj(qa) else qa
-
-
-class PSExact(PSEstimation):
-    """Exact Fisher calculation by forward-projecting band covariances."""
-
-    @property
-    def _cfile(self):
-        return (
-            self.psdir
-            + "/ps_c_m_"
-            + util.intpattern(self.telescope.mmax)
-            + "_b_"
-            + util.natpattern(self.nbands - 1)
-            + ".hdf5"
-        )
+    # ============ the device side ============
 
     @property
     def device(self) -> torch.device:
@@ -463,8 +400,132 @@ class PSExact(PSEstimation):
         return self._clarray_dev
 
     def delbands(self):
-        super().delbands()
+        """Drop the cached band C_l arrays to free memory."""
+        self.clarray = None
         self._clarray_dev = None
+
+    def _modes_t(self, mi):
+        """(evals float64, evecs complex128) of m's KL modes on the device,
+        or (None, None) where m has none."""
+        evals, evecs = self.kltrans.modes_m(mi)
+        if evals is None:
+            return None, None
+        return (
+            torch.as_tensor(evals, dtype=torch.float64, device=self.device),
+            torch.as_tensor(evecs, dtype=torch.complex128, device=self.device),
+        )
+
+    def _svd_to_sky_t(self, mi, svd: torch.Tensor, temponly=False) -> torch.Tensor:
+        """The conjugate (adjoint) projection of compact SVD vectors (ndof,
+        ns) to the sky, temperature row only: (nfreq, lmax+1, ns).
+        ``temponly`` is passed to a variant's own projection."""
+        from . import beamtransfer
+
+        bt = self.kltrans.beamtransfer
+        standard = beamtransfer.BeamTransfer.project_vector_svd_to_sky
+        if type(bt).project_vector_svd_to_sky is not standard:
+            # a variant with a projection of its own (NoSVD), on the host
+            sky = bt.project_vector_svd_to_sky(
+                mi, svd.cpu().numpy(), conj=True, temponly=temponly
+            )
+            return torch.as_tensor(sky[:, 0], dtype=torch.complex128, device=self.device)
+        idx = torch.as_tensor(bt._compact_indices(mi)[0], device=self.device)
+        spad = torch.zeros(
+            (bt.nfreq * bt.svd_len, svd.shape[1]), dtype=torch.complex128, device=self.device
+        )
+        spad[idx] = svd
+        beam_t = bt.device_beam_svd([mi])[0][:, :, 0, :]  # (F, S, L)
+        return torch.einsum("fal,fas->fls", beam_t.conj(), spad.reshape(bt.nfreq, bt.svd_len, -1))
+
+    def _sky_to_svd_t(self, mi, sky: torch.Tensor) -> torch.Tensor:
+        """Temperature sky vectors (nb, nfreq, lmax+1, ns) to compact SVD
+        vectors (nb, ndof, ns), in the standard SVD layout (the one variant
+        with projections of its own, NoSVD, has no temperature-only
+        projection to the sky, in either package)."""
+        bt = self.kltrans.beamtransfer
+        idx = torch.as_tensor(bt._compact_indices(mi)[0], device=self.device)
+        beam_t = bt.device_beam_svd([mi])[0][:, :, 0, :]  # (F, S, L)
+        svd = torch.einsum("fal,bfls->bfas", beam_t, sky)
+        return svd.reshape(sky.shape[0], bt.nfreq * bt.svd_len, -1)[:, idx]
+
+    def _band_apply(self, sky: torch.Tensor) -> torch.Tensor:
+        """Every band's C_l applied over frequency to temperature sky
+        vectors (nfreq, lmax+1, ns): (nbands, nfreq, lmax+1, ns)."""
+        cl = self._band_spectra().to(torch.complex128)  # (nb, L, F, F)
+        return torch.einsum("blfg,gls->bfls", cl, sky)
+
+    # ============ the q estimator ============
+
+    def q_estimator_t(self, mi, x, y=None, noise=False, modes=None):
+        """:meth:`q_estimator` on the device: KL data vectors x, y (nmodes,
+        ns) complex128 tensors -> q (nq, ns) float64; ``modes`` is
+        :meth:`_modes_t`'s pair when the caller has it already.
+
+        Each vector is inverse-covariance weighted, x0 = x / (evals + 1),
+        taken KL -> SVD -> sky (the conjugate projection, temperature row),
+        and q_a = sum_{f,g,l} y*[f,l] C^a_l[f,g] x[g,l] for all bands in one
+        contraction; with ``noise`` a last row holds the noise band."""
+        evals, evecs = self._modes_t(mi) if modes is None else modes
+        nq = self.nbands + 1 if noise else self.nbands
+        if evals is None:
+            return torch.zeros((nq, x.shape[1]), dtype=torch.float64, device=self.device)
+
+        x0 = x / (evals + 1.0)[:, None]
+        x_sky = self._svd_to_sky_t(mi, evecs.mH @ x0)
+        if y is None:
+            y0, y_sky = x0, x_sky
+        else:
+            y0 = y / (evals + 1.0)[:, None]
+            y_sky = self._svd_to_sky_t(mi, evecs.mH @ y0)
+
+        q = torch.einsum("fls,bfls->bs", y_sky.conj(), self._band_apply(x_sky)).real
+        if noise:
+            noisemodes = 0.0 if self.crosspower else 1.0
+            noisemodes = noisemodes + (evals if self.zero_mean else 0.0)
+            qn = ((x0 * y0.conj()).real * torch.as_tensor(noisemodes, device=self.device)
+                  .reshape(-1, 1)).sum(dim=0)
+            q = torch.cat([q, qn[None]])
+        return q
+
+    def q_estimator(self, mi, vec1, vec2=None, noise=False):
+        """Estimate per-band q parameters from KL-basis data vectors.
+
+        q_a = y^H C^-1 C_a C^-1 x evaluated in the sky basis (TT only),
+        optionally with a trailing noise-band entry; vec1, vec2 (nmodes,
+        ...) host arrays, q (nq, ...).  Runs on the device
+        (:meth:`q_estimator_t`).
+        """
+        vec1 = np.asarray(vec1)
+        nq = self.nbands + 1 if noise else self.nbands
+
+        def dev(v):
+            return torch.as_tensor(
+                np.ascontiguousarray(v.reshape(v.shape[0], -1)),
+                dtype=torch.complex128,
+                device=self.device,
+            )
+
+        modes = self._modes_t(mi)
+        if modes[0] is None:
+            return np.zeros((nq,) + vec1.shape[1:])
+        y = None if vec2 is None else dev(np.asarray(vec2))
+        q = self.q_estimator_t(mi, dev(vec1), y, noise=noise, modes=modes)
+        return q.cpu().numpy().reshape((nq,) + vec1.shape[1:])
+
+
+class PSExact(PSEstimation):
+    """Exact Fisher calculation by forward-projecting band covariances."""
+
+    @property
+    def _cfile(self):
+        return (
+            self.psdir
+            + "/ps_c_m_"
+            + util.intpattern(self.telescope.mmax)
+            + "_b_"
+            + util.natpattern(self.nbands - 1)
+            + ".hdf5"
+        )
 
     def makeproj(self, mi, bi):
         """Project one band's angular power spectrum into the KL basis."""

@@ -558,33 +558,48 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         if out_of_range(f_indices, 0, self.nfreq):
             raise ValueError("Frequency indices aren't valid")
 
-        lmax = self.unit_lmax(bl_indices, f_indices)
         lside = self.lmax
         tshape = bl_indices.shape + (self.num_pol_sky, lside + 1, 2 * lside + 1)
+        tarray = np.zeros((bl_indices.size,) + tshape[len(bl_indices.shape):], np.complex128)
 
-        flat_bl = bl_indices.ravel()
-        flat_f = f_indices.ravel()
-        flat_lmax = lmax.ravel()
-        nsides = np.array([self._nside_for(lm) for lm in flat_lmax], dtype=np.int64)
-        tarray = np.zeros((flat_bl.size,) + tshape[len(bl_indices.shape):], np.complex128)
+        for sel, pos, neg in self.btm_blocks(bl_indices.ravel(), f_indices.ravel()):
+            packed = sht.pack_fftlike(pos.cpu().numpy(), neg.cpu().numpy(), lside)
+            # Stokes components past the transformed ones stay zero
+            tarray[sel, : packed.shape[1]] = packed
+
+        return tarray.reshape(tshape)
+
+    def btm_blocks(self, bl_indices, f_indices):
+        """The BTM coefficients of a unit list, one SHT call at a time.
+
+        Units are grouped by the nside their own band limit needs,
+        frequency-major within a group (consecutive calls share beams), and
+        each group is cut by :func:`sht_unit_chunks`.  Yields (sel, pos,
+        neg): ``sel`` indexes the call's units in the lists, pos and neg are
+        :meth:`btm_chunk`'s device tensors at the call's largest band limit,
+        each unit zeroed above its own.  Every BTM route (the resident
+        tables, the chunked files, :meth:`transfer_matrices`) makes its SHT
+        calls here, so the same units in the same calls give the same bits.
+        """
+        bl_indices = np.asarray(bl_indices)
+        f_indices = np.asarray(f_indices)
+        lmax_arr = self.unit_lmax(bl_indices, f_indices)
+        nsides = np.array([self._nside_for(int(l)) for l in lmax_arr], dtype=np.int64)
 
         for ns in np.unique(nsides):
             bucket = np.nonzero(nsides == ns)[0]
-            sub_lmax = int(flat_lmax[bucket].max())
+            bucket = bucket[np.argsort(f_indices[bucket], kind="stable")]
             off = 0
             for take in sht_unit_chunks(len(bucket), 12 * int(ns) ** 2, self.num_pol_sky):
                 sel = bucket[off : off + take]
                 off += take
-                pos, neg = self.btm_chunk(flat_bl[sel], flat_f[sel], int(ns), sub_lmax)
-                packed = sht.pack_fftlike(
-                    pos.cpu().numpy(), neg.cpu().numpy(), lside
-                )
-                # zero each unit above its own band limit; Stokes components
-                # past the transformed ones stay zero
-                lmask = np.arange(lside + 1)[None, :] <= flat_lmax[sel][:, None]
-                tarray[sel, : packed.shape[1]] = packed * lmask[:, None, :, None]
-
-        return tarray.reshape(tshape)
+                sub_lmax = int(lmax_arr[sel].max())
+                pos, neg = self.btm_chunk(bl_indices[sel], f_indices[sel], int(ns), sub_lmax)
+                lmask = (
+                    torch.arange(sub_lmax + 1, device=pos.device)[None, :]
+                    <= torch.as_tensor(lmax_arr[sel], device=pos.device)[:, None]
+                ).to(pos.real.dtype)[:, None, :, None]
+                yield sel, pos * lmask, neg * lmask
 
     def btm_chunk(self, bl_ind, f_ind, nside, lmax):
         """BTM coefficients of a unit batch at one nside.

@@ -155,6 +155,28 @@ def uv_cart(zenith: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return uv[..., 0:1] * phat - uv[..., 1:2] * that
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Broadcast dot product over a last axis of 3, elementwise in a fixed
+    order: each entry's value does not depend on how many others the call
+    forms (a matrix product's may), so a unit's plain maps are the same in
+    any batch."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def _fixed_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by halving folds (zero-padded to a power of
+    two): a pairwise sum in one fixed order, whatever the other axes hold
+    (a library reduction splits its sum by the output's size)."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
 def fringe(cart: torch.Tensor, uv3: torch.Tensor) -> torch.Tensor:
     """Fringe exp(2 pi i u.n) at each pixel, (..., npix) complex.
 
@@ -164,7 +186,7 @@ def fringe(cart: torch.Tensor, uv3: torch.Tensor) -> torch.Tensor:
     baseline length (the integer range reduction of the SHT's phases,
     applied to the fringe).
     """
-    turns = torch.einsum("...k,pk->...p", uv3, cart.to(torch.float64))
+    turns = _dot3(uv3[..., None, :], cart.to(torch.float64))
     turns = turns - torch.floor(turns + 0.5)
     phase = turns.to(cart.dtype) * (2.0 * math.pi)
     return torch.complex(torch.cos(phase), torch.sin(phase))
@@ -176,8 +198,8 @@ def unpol_visibility_map(beam_i, beam_j, uv3, cart, horizon, pxarea: float):
     beam_i, beam_j : (nu, npix) real or complex beams on the padded grid;
     uv3 : (nu, 3) float64 baselines; returns (nu, npix) complex.
     """
-    om_i = torch.sum(beam_i.abs() ** 2 * horizon, dim=-1) * pxarea
-    om_j = torch.sum(beam_j.abs() ** 2 * horizon, dim=-1) * pxarea
+    om_i = _fixed_sum(beam_i.abs() ** 2 * horizon) * pxarea
+    om_j = _fixed_sum(beam_j.abs() ** 2 * horizon) * pxarea
     inv_om = (1.0 / torch.sqrt(om_i * om_j))[..., None]
     bb = beam_i * beam_j.conj()
     return bb * fringe(cart, uv3) * horizon * inv_om
@@ -228,8 +250,8 @@ def stokes_visibility_map(beam_i, beam_j, uv3, cart, horizon, pxarea: float):
     I = tc (tt + pp), Q = tc (tt - pp), U = tc (tp + pt), V = i tc (tp - pt).
     Returns (nu, 4, npix) complex.
     """
-    om_i = torch.sum((beam_i.abs() ** 2).sum(-1) * horizon, dim=-1) * pxarea
-    om_j = torch.sum((beam_j.abs() ** 2).sum(-1) * horizon, dim=-1) * pxarea
+    om_i = _fixed_sum((beam_i.abs() ** 2).sum(-1) * horizon) * pxarea
+    om_j = _fixed_sum((beam_j.abs() ** 2).sum(-1) * horizon) * pxarea
     inv_om = (1.0 / torch.sqrt(om_i * om_j))[..., None]
     tc = fringe(cart, uv3) * horizon * inv_om
     bit, bip = beam_i[..., 0], beam_i[..., 1]
@@ -250,8 +272,8 @@ def bank_beam(cart, horizon, fx, par, polarised: bool = False):
     :func:`polpattern` (dipole ``par[:, 9:12]``): (nb, npix, 2).
     """
     nfx = fx.shape[-1]
-    x = cart @ par[:, 3:6].T  # (npix, nb)
-    y = cart @ par[:, 6:9].T
+    x = _dot3(cart[:, None, :], par[:, 3:6])  # (npix, nb)
+    y = _dot3(cart[:, None, :], par[:, 6:9])
     t = (x - par[:, 0]) * par[:, 1]
     i0 = torch.clamp(torch.floor(t).to(torch.int64), 0, nfx - 2)
     frac = t - i0.to(t.dtype)

@@ -38,37 +38,19 @@ def btm_resident(tel, bl_indices, f_indices, m_range=None):
     """
     if m_range is not None:
         raise NotImplementedError(f"m-windowed BTM tables are {_NOT_PORTED}")
-    bl_indices = np.asarray(bl_indices)
-    f_indices = np.asarray(f_indices)
     lside = tel.lmax
     npol = tel.num_pol_sky
-    lmax_arr = tel.unit_lmax(bl_indices, f_indices)
-    nsides = np.array([tel._nside_for(int(l)) for l in lmax_arr])
-
     nu = len(bl_indices)
     cdt = torch.complex64 if tel.single_precision else torch.complex128
     pos = torch.zeros((nu, npol, lside + 1, lside + 1), dtype=cdt, device=tel.device)
     neg = torch.zeros((nu, npol, lside + 1, lside), dtype=cdt, device=tel.device)
 
-    for ns in np.unique(nsides):
-        bucket = np.nonzero(nsides == ns)[0]
-        # frequency-major within the bucket: consecutive chunks share beams
-        bucket = bucket[np.argsort(f_indices[bucket], kind="stable")]
-        boff = 0
-        for take in teles.sht_unit_chunks(len(bucket), 12 * int(ns) ** 2, npol):
-            sel = bucket[boff : boff + take]
-            boff += take
-            sub_lmax = int(lmax_arr[sel].max())
-            # (nu, npol_t, l, m) chunks
-            p, n = tel.btm_chunk(bl_indices[sel], f_indices[sel], int(ns), sub_lmax)
-            npt = p.shape[1]
-            lmask = (
-                torch.arange(sub_lmax + 1, device=tel.device)[None, :]
-                <= torch.as_tensor(lmax_arr[sel], device=tel.device)[:, None]
-            ).to(p.real.dtype)[:, None, :, None]
-            idx = torch.as_tensor(sel, device=tel.device)
-            pos[idx, :npt, : sub_lmax + 1, : sub_lmax + 1] = (p * lmask).to(cdt)
-            neg[idx, :npt, : sub_lmax + 1, :sub_lmax] = (n * lmask).to(cdt)
+    # (k, npol_t, l, m) blocks, one SHT call each
+    for sel, p, n in tel.btm_blocks(bl_indices, f_indices):
+        npt, nl_s = p.shape[1], p.shape[2]
+        idx = torch.as_tensor(sel, device=tel.device)
+        pos[idx, :npt, :nl_s, :nl_s] = p.to(cdt)
+        neg[idx, :npt, :nl_s, : nl_s - 1] = n.to(cdt)
     return pos, neg
 
 

@@ -10,7 +10,9 @@ unchanged, and the directory can be converted later.
 
 :func:`File` opens either; ``BACKEND`` says which one this process uses.
 A file opened for writing appears under its name only when it is closed
-without error.
+without error.  A file opened for update (``"r+"``) is written in place:
+the directory store maps each ``.npy`` file, so a slice assignment writes
+only its own bytes.
 """
 
 from __future__ import annotations
@@ -32,10 +34,14 @@ _ATTRS = "__attrs__.npz"
 
 
 class _NpyDataset:
-    """An array of a directory store, written back when the file closes."""
+    """An array of a directory store, written back when the file closes
+    (in place, through its memory map, under ``"r+"``)."""
 
-    def __init__(self, array):
+    def __init__(self, array, written=True):
         self._a = array
+        # a dataset created empty and never assigned is saved as a sparse
+        # file of zeros
+        self._written = written
 
     @property
     def shape(self):
@@ -50,6 +56,7 @@ class _NpyDataset:
 
     def __setitem__(self, ind, value):
         self._a[ind] = value
+        self._written = True
 
 
 class _NpyFile:
@@ -58,25 +65,28 @@ class _NpyFile:
     ``attrs`` and the context manager."""
 
     def __init__(self, path, mode="r"):
-        if mode not in ("r", "w"):
+        if mode not in ("r", "r+", "w"):
             raise ValueError(f"directory store: mode {mode!r} not supported")
         self.path = path
         self.mode = mode
         self.attrs = {}
         self._new = {}
-        if mode == "r":
+        self._mapped = []
+        if mode != "w":
             if not os.path.isdir(path):
                 raise OSError(f"no product store at {path}")
             with np.load(os.path.join(path, _ATTRS)) as z:
                 self.attrs = {k: (v[()] if v.ndim == 0 else v) for k, v in z.items()}
 
     def create_dataset(self, name, shape=None, dtype=None, data=None, **_layout):
+        if self.mode != "w":
+            raise ValueError(f"directory store: create_dataset needs mode 'w', not {self.mode!r}")
         if data is not None:
-            arr = np.array(data, dtype=dtype)
+            ds = _NpyDataset(np.array(data, dtype=dtype))
         else:
-            arr = np.zeros(shape, dtype=dtype)
-        self._new[name] = _NpyDataset(arr)
-        return self._new[name]
+            ds = _NpyDataset(np.zeros(shape, dtype=dtype), written=False)
+        self._new[name] = ds
+        return ds
 
     def __contains__(self, name):
         if self.mode == "w":
@@ -89,18 +99,28 @@ class _NpyFile:
         fn = os.path.join(self.path, name + ".npy")
         if not os.path.exists(fn):
             raise KeyError(name)
-        return _NpyDataset(np.load(fn, mmap_mode="r"))
+        ds = _NpyDataset(np.load(fn, mmap_mode=self.mode))
+        if self.mode == "r+":
+            self._mapped.append(ds)
+        return ds
 
     def __enter__(self):
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        for ds in self._mapped:
+            ds._a.flush()
+        self._mapped = []
         if self.mode == "w" and exc_type is None:
             tmp = f"{self.path}.{os.getpid()}.part"
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
             for name, ds in self._new.items():
-                np.save(os.path.join(tmp, name + ".npy"), ds._a)
+                fn = os.path.join(tmp, name + ".npy")
+                if ds._written or ds._a.size == 0:
+                    np.save(fn, ds._a)
+                else:
+                    np.lib.format.open_memmap(fn, "w+", ds.dtype, ds.shape).flush()
             np.savez(os.path.join(tmp, _ATTRS),
                      **{k: np.asarray(v) for k, v in self.attrs.items()})
             remove(self.path)
@@ -109,7 +129,8 @@ class _NpyFile:
 
 
 def File(path, mode="r", **kwargs):
-    """Open a product file for reading (``"r"``) or writing (``"w"``)."""
+    """Open a product file for reading (``"r"``), update in place
+    (``"r+"``) or writing (``"w"``)."""
     if h5py is not None:
         return h5py.File(path, mode, **kwargs)
     return _NpyFile(path, mode)

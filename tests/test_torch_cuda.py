@@ -725,3 +725,76 @@ def test_probe_mm(cuda, dtype, rtol):
     a = torch.as_tensor(rng.standard_normal((130, 70)), dtype=dtype, device=cuda)
     b = torch.as_tensor(rng.standard_normal((70, 97)), dtype=dtype, device=cuda)
     _check(probe.PROBE_MM, lambda: probe.mm(a, b), lambda: probe.mm_ref(a, b), rtol)
+
+
+def _small_products(outdir, kl=True, **cfg):
+    conf = {
+        "config": {"beamtransfers": True, "kltransform": kl, "skip_svd": not kl,
+                   "output_directory": str(outdir), **cfg},
+        "telescope": dict(type="UnpolarisedCylinder", num_freq=4, freq_start=400.0,
+                          freq_end=410.0, freq_mode="edge", num_cylinders=2,
+                          cylinder_width=3.0, num_feeds=3, feed_spacing=1.0, tsys=10.0,
+                          single_precision=True),
+    }
+    if kl:
+        conf["kltransform"] = [{"type": "KLTransform", "name": "kl", "threshold": 0.1}]
+    return conf
+
+
+def test_chunked_generate_matches_resident_on_the_card(cuda, tmp_path):
+    """The chunked route in two chunks (K1+K2 and K3+K5 on the card) writes
+    the resident route's files, bit for bit."""
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.util import store
+
+    res = manager.ProductManager(device=cuda).apply_config(
+        _small_products(tmp_path / "res", kl=False, resident="always"))
+    res.generate()
+    tel = res.telescope
+    unit = tel.num_pol_sky * (tel.lmax + 1) * 2 * (tel.mmax + 1) * 16.0
+    half = (tel.nfreq * tel.npairs) // 2 + 1
+    backend.reset_launch_counts()
+    m = manager.ProductManager(device=cuda).apply_config(_small_products(
+        tmp_path / "chunked", kl=False, resident="never", mem_chunk=half * unit / 2**30))
+    m.generate()
+    torch.cuda.synchronize()
+    assert m.beamtransfer.num_chunks == 2 and m.beamtransfer._mem_beam is None
+    assert kernels.K1K2.launches > 0 and sht.K3K5.launches > 0
+    for mi in range(tel.mmax + 1):
+        with store.File(m.beamtransfer._mfile(mi), "r") as f, \
+                store.File(res.beamtransfer._mfile(mi), "r") as g:
+            assert np.array_equal(f["beam_m"][:], g["beam_m"][:]), mi
+
+
+def test_q_estimator_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The device q estimator (whitening, KL -> SVD -> sky, all bands in
+    one contraction) on the card against the same estimator on the CPU,
+    over one product directory."""
+    from driftscan_tpu_torch.core import manager, psmc
+
+    conf = _small_products(tmp_path / "out")
+    manager.ProductManager(device=cuda).apply_config(conf).generate()
+    entry = {"klname": "kl", "threshold": 0.1, "nsamples": 200, "seed": 3,
+             "k_bands": [{"spacing": "linear", "start": 0.0, "stop": 0.25, "num": 3}]}
+    ests = []
+    for dev in (cuda, "cpu"):
+        kl = manager.ProductManager(device=dev).apply_config(conf).kltransforms["kl"]
+        ps = psmc.PSMonteCarlo.from_config(entry, kl, subdir=f"mc_{torch.device(dev).type}")
+        ps.genbands()
+        ests.append(ps)
+    card, cpu = ests
+    rng = np.random.default_rng(5)
+    ms = [mi for mi in range(card.telescope.mmax + 1) if card.num_evals(mi) > 0][:4]
+    assert ms
+    for mi in ms:
+        n = cpu.kltrans.modes_m(mi)[0].size
+        x = rng.standard_normal((n, 7)) + 1j * rng.standard_normal((n, 7))
+        y = rng.standard_normal((n, 7)) + 1j * rng.standard_normal((n, 7))
+        for args in ((x,), (x, y, True)):
+            got, want = card.q_estimator(mi, *args), cpu.q_estimator(mi, *args)
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+        f_card, b_card = card.fisher_bias_m(mi)
+        f_cpu, b_cpu = cpu.fisher_bias_m(mi)
+        assert np.abs(f_card - f_cpu).max() <= 1e-8 * np.abs(f_cpu).max()
+        assert np.abs(b_card - b_cpu).max() <= 1e-8 * np.abs(b_cpu).max()

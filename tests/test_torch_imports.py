@@ -54,10 +54,12 @@ SLICE_MODULES = [
 # (h5py where it imports)
 FILE_MODULES = [
     "driftscan_tpu_torch.core.beamtransfer",
+    "driftscan_tpu_torch.core.crosspower",
     "driftscan_tpu_torch.core.doublekl",
     "driftscan_tpu_torch.core.kltransform",
     "driftscan_tpu_torch.core.manager",
     "driftscan_tpu_torch.core.psestimation",
+    "driftscan_tpu_torch.core.psmc",
     "driftscan_tpu_torch.ops.bitshuffle",
     "driftscan_tpu_torch.ops.truncate",
     "driftscan_tpu_torch.pipeline",

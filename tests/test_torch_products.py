@@ -497,8 +497,9 @@ def test_unknown_types_give_the_registry_error(tmp_path):
     conf["telescope"]["type"] = "NoSuchTelescope"
     with pytest.raises(Exception, match="Unsupported telescope type.*PolarisedCylinder.*UnpolarisedCylinder"):
         manager.ProductManager(device="cpu").apply_config(conf)
-    conf = _small(tmp_path / "out", psfisher={"type": "MonteCarlo"})
-    with pytest.raises(Exception, match="Unsupported PS estimator type 'MonteCarlo'.*Full"):
+    conf = _small(tmp_path / "out", psfisher={"type": "NoSuchEstimator"})
+    with pytest.raises(Exception, match="Unsupported PS estimator type 'NoSuchEstimator'"
+                       r".*Cross, Full, MonteCarlo, MonteCarloAlt\)"):
         manager.ProductManager(device="cpu").apply_config(conf)
     conf = _small(tmp_path / "out", kltransform={"type": "KLSomething"})
     with pytest.raises(Exception, match="Unsupported KL filter type.*DoubleKL, KLTransform"):
@@ -526,7 +527,6 @@ def test_plugin_telescope_loads(tmp_path):
 
 
 @pytest.mark.parametrize("sections,match", [
-    ({"config": {"resident": "never"}}, r"chunked streaming BTM generate.*ROADMAP\.md.*item 7\.3"),
     ({"kltransform": {"engine": "topband"}}, r"topband.*ROADMAP\.md.*item 10"),
 ])
 def test_unported_options_name_their_roadmap_line(tmp_path, sections, match):
