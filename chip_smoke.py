@@ -35,9 +35,13 @@ script exits non-zero:
    ``[dish]`` path's complex128 chunk) are launched twice and must repeat
    bit for bit, and K3+K5 in complex64 must lie no farther than its
    float32 plain version from the float64 truth on the same inputs;
+   K3+K5 over an m-window at the ``[ns2 window]`` shape (m 270..314,
+   complex64, rel 1e-5), whose columns must equal a full-range call's
+   bit for bit;
 4. slice -- the bench telescope (``bench.build_telescope``'s full config)
    through ``btm_resident`` and ``product_all_resident`` with the fused
-   Fisher over all m;
+   Fisher over all m; every path leaves ``bucket`` to its auto rule and
+   logs what it picked and the m-chunks it ran (full size or compacted);
 5. pol -- the polarised telescope (``bench.build_pol_telescope``'s full
    config, npol 4) through the same entry points;
 5a. dish, restricted, restricted pol -- the host-beam telescopes through
@@ -50,7 +54,12 @@ script exits non-zero:
    decade of its spectrum; then the host-beam evaluation's share of a
    cold ``[dish]`` BTM, and ``[float64 gate]``: the restricted and the
    bench cylinder at ``single_precision: False``, one ``btm_resident``
-   each, K2-host in float64 against the CPU;
+   each, K2-host in float64 against the CPU; ``[dish]`` buckets under
+   its auto rule and also times its product step at full size;
+5b. slice windows, ns2 window -- m-windows and m-bucketing: the bench
+   telescope in two m-windows against path 4 (:func:`slice_windows_phase`),
+   and the JAX package's north-star telescope ``ns2`` at full width in its
+   run's last m-window, bucketed (:func:`ns2_window_phase`);
 6. products -- the file pipeline behind ``drift-makeproducts``: the bench
    unpolarised cylinder as a config dictionary through
    ``ProductManager.apply_config(...).generate()`` into a fresh temporary
@@ -59,9 +68,10 @@ script exits non-zero:
    :func:`products_phase`: every file opens, the Fisher from the files
    against path 4's fused Fisher, KL spectra against the port's CPU run on
    the same SVD beams, one m through the dense per-m transform, a second
-   ``generate()`` that skips every stage; then the sandwich (K15a) and the
-   Fisher trace (K15b) again at the sizes that run gave them
-   (``[products kernels]``);
+   ``generate()`` that skips every stage; ``[convert]``: the directory's
+   conversion to HDF5 where h5py imports (:func:`convert_phase`); then the
+   sandwich (K15a) and the Fisher trace (K15b) again at the sizes that
+   run gave them (``[products kernels]``);
 7. klinv -- an inverse KL filter ``klinv`` added to that product
    directory's config and generated (:func:`klinv_phase`: the dense per-m
    path, K15a's sky form);
@@ -181,6 +191,32 @@ PS_THRESHOLD = 0.1  # bench's KL retention cut for the Fisher
 # above 1e-5, the top decade of its spectrum.
 POL_PS_THRESHOLD = 1e-5
 CPU_CHECK_M = 8
+# The JAX package's north-star telescope "ns2" (scratch/northstar2.py's
+# preset: a PolarisedCylinder, 2 x 9 feeds 15 m wide, 16 channels over
+# 400-500 MHz; lmax 324, mmax 313, 100 baseline pairs, npol 4, pencil up to
+# 3,200), at its full width, in its run's last m-window of width 45
+# (m = 314 is the window's padding past mmax and is trimmed), with its 10
+# Fisher bands over k 0-0.4; the JAX run's spectra of that window (a TPU,
+# float32) for a printed comparison
+NS2_PARAMS = dict(
+    num_freq=16,
+    freq_start=400.0,
+    freq_end=500.0,
+    freq_mode="edge",
+    num_cylinders=2,
+    cylinder_width=15.0,
+    num_feeds=9,
+    feed_spacing=1.0,
+    tsys=50.0,
+    single_precision=True,
+)
+NS2_WINDOW = (270, 315)
+NS2_CPU_M = (270, 313)
+NS2_FULL_M = 8  # m of the one bucket=False batch held against the bucketed run
+NS2_BAND_EDGES = np.linspace(0.0, 0.4, 11)
+NS2_RECORD = "ckpt/ns2_windows/w06_270_315_exact_highest_solve_bcast_f1.npz"
+# [slice windows]: the bench cylinder's 226 m in two m-windows
+SLICE_WINDOWS = ((0, 113), (113, 226))
 PROBE_N = 1024  # scratch/pallas_probe.py's shapes
 
 PROBE_KERNELS = ("probe_double", "probe_mm")
@@ -239,11 +275,12 @@ def covariances(tel):
     return cl_s, cl_n, noisew.astype(np.float32)
 
 
-def fisher_bands(tel, nbands=4):
-    """(nbands, nl, F, F) polar-annulus band spectra (bench._fisher_bands)."""
+def fisher_bands(tel, nbands=4, edges=None):
+    """(nbands, nl, F, F) polar-annulus band spectra (bench._fisher_bands),
+    or the bands between ``edges``."""
     from driftscan_tpu_torch.core import psestimation, skymodel
 
-    edges = np.linspace(0.02, 0.25, nbands + 1)
+    edges = np.linspace(0.02, 0.25, nbands + 1) if edges is None else edges
     cr = skymodel.Corr21cm()
     cl = []
     for ks, ke in zip(edges[:-1], edges[1:]):
@@ -579,12 +616,13 @@ def k14_compare(tel, rng, tag="kernels"):
 
 
 @functools.lru_cache(maxsize=1)
-def legendre_table_lib(nm, nside, lmax, dtype):
+def legendre_table_lib(nm, nside, lmax, dtype, m_lo=0):
     """The JAX package's lambda table (ops/sht.py's ``legendre_table``, the
-    plain versions' recurrence), (lmax + 1, nm, nring) on the card in the
-    real type of ``dtype``: the operand of the library form of K3+K5 and
-    K14.  Built once per key (the last one kept) and timed apart (host
-    clock around a synchronised build), never inside ``library_ms``."""
+    plain versions' recurrence), (lmax + 1, nm, nring) for m = m_lo ..
+    m_lo + nm - 1 on the card in the real type of ``dtype``: the operand
+    of the library form of K3+K5 and K14.  Built once per key (the last
+    one kept) and timed apart (host clock around a synchronised build),
+    never inside ``library_ms``."""
     import torch
 
     from driftscan_tpu_torch.ops import healpix, sht
@@ -594,7 +632,7 @@ def legendre_table_lib(nm, nside, lmax, dtype):
     st = torch.as_tensor(g.sin_theta, device="cuda")
     torch.cuda.synchronize()
     t0 = time.time()
-    mvals = torch.arange(nm, device="cuda")
+    mvals = m_lo + torch.arange(nm, device="cuda")
     logpref = torch.as_tensor(sht._log_lambda_mm_prefactor(lmax), device="cuda")
     rdt = torch.float64 if dtype == torch.complex128 else torch.float32
     lam = sht.legendre_table(mvals, ct, st, lmax, logpref).to(rdt)
@@ -604,11 +642,11 @@ def legendre_table_lib(nm, nside, lmax, dtype):
     return lam
 
 
-def _sign_m(nm, rdt, scale=1.0):
-    """scale * (-1)^m for m < nm, on the card."""
+def _sign_m(nm, rdt, scale=1.0, m_lo=0):
+    """scale * (-1)^m for m = m_lo .. m_lo + nm - 1, on the card."""
     import torch
 
-    m = torch.arange(nm, device="cuda")
+    m = m_lo + torch.arange(nm, device="cuda")
     return (scale * torch.where(m % 2 == 0, 1.0, -1.0)).to(rdt)
 
 
@@ -625,10 +663,11 @@ def synth_library(pos, neg, lam):
                     torch.einsum("lmr,blmc,m->bmrc", lam, shifted, sgn))
 
 
-def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
+def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5, m_lo=0):
     """K3+K5 against its plain version on phase-stage outputs F, G (B, nm,
-    nring) at the rings of ``g``, with a bitwise repeat; library: one
-    einsum a plane over the cached lambda table (the JAX package's form).
+    nring) for m = m_lo .. m_lo + nm - 1 (all <= lmax) at the rings of
+    ``g``, with a bitwise repeat; library: one einsum a plane over the
+    cached lambda table of those m (the JAX package's form).
     Bound: the recurrence (``RECURRENCE_FLOPS`` a lambda) on the float64
     CUDA cores beside 8 B flops a lambda for the two planes' products, on
     the tensor cores
@@ -645,7 +684,7 @@ def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
     ct = torch.as_tensor(g.cos_theta, device=F.device)
     st = torch.as_tensor(g.sin_theta, device=F.device)
     area = 4.0 * np.pi / g.npix
-    nlam = sum(lmax + 1 - m for m in range(nm)) * nring
+    nlam = sum(lmax + 1 - m for m in range(m_lo, m_lo + nm)) * nring
     c128 = F.dtype == torch.complex128
     ops = [(RECURRENCE_FLOPS * nlam, F64_CUDA_CORE_FLOPS),
            (8.0 * B * nlam, F64_FLOPS if c128 else GRAM_FLOPS)]
@@ -654,10 +693,10 @@ def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
         cuda_core_ms = bound(moved, [(8.0 * B * nlam, F32_FLOPS)])[0]
         log(f"[{tag}] k3k5_legendre_sht ({what}): the CUDA-core bound (the products alone "
             f"at 67 TFLOP/s float32, no recurrence) {cuda_core_ms:.4f} ms")
-    lam = legendre_table_lib(nm, g.nside, lmax, F.dtype)
+    lam = legendre_table_lib(nm, g.nside, lmax, F.dtype, m_lo)
     fr, gr = torch.view_as_real(F), torch.view_as_real(G)
     w_pos = torch.full((nm,), area, dtype=lam.dtype, device="cuda")
-    w_neg = _sign_m(nm, lam.dtype, area)
+    w_neg = _sign_m(nm, lam.dtype, area, m_lo)
 
     def library():
         return (torch.einsum("lmr,bmrc,m->blmc", lam, fr, w_pos),
@@ -665,8 +704,8 @@ def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
 
     rec = compare(
         f"k3k5_legendre_sht ({what}, lmax {lmax}, nring {nring}, {F.dtype})",
-        lambda: sht.legendre_contract(F, G, ct, st, lmax, area),
-        lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, area),
+        lambda: sht.legendre_contract(F, G, ct, st, lmax, area, m_lo),
+        lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, area, m_lo),
         rtol=rtol, reps=reps, tag=tag, work=(moved, ops), library_fn=library, bitwise=True,
     )
     del lam
@@ -675,11 +714,11 @@ def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5):
         # kernel and it against the float64 truth on the same inputs, and
         # the kernel no farther from it
         wide = [x.to(torch.complex128) for x in (F, G)]
-        truth = sht.legendre_contract_ref(*wide, ct, st, lmax, area)
+        truth = sht.legendre_contract_ref(*wide, ct, st, lmax, area, m_lo)
         del wide
         errs = []
         for fn in (sht.legendre_contract, sht.legendre_contract_ref):
-            out = fn(F, G, ct, st, lmax, area)
+            out = fn(F, G, ct, st, lmax, area, m_lo)
             errs.append(max(float((o.to(torch.complex128) - t).abs().max())
                             for o, t in zip(out, truth)))
             del out
@@ -710,19 +749,53 @@ def k3k5_dish_compare(dtel, rng):
     legendre_table_lib.cache_clear()  # its float64 table is ~4 GB
 
 
-def k13_compare(t, M, k, rng, tag="kernels"):
+def k3k5_window_compare(ntel, rng):
+    """K3+K5 over an m-window at the ``[ns2 window]`` path's shape: one SHT
+    call of its largest nside's first chunk (B = units x 4 Stokes) at m
+    ``NS2_WINDOW``, complex64, against its plain version (rel 1e-5), with
+    its library call and bound (:func:`k3k5_compare`); then the same call's
+    columns against a full-range call's columns of the same inputs, which
+    must be bitwise equal."""
+    import torch
+
+    from driftscan_tpu_torch.ops import healpix, sht
+
+    ns, blc, _, sub_lmax = first_chunk(ntel)
+    g = healpix.ring_geometry(ns)
+    B = len(blc) * ntel._npol_transform
+    m0, m1 = NS2_WINDOW
+    Ff = _crandn(rng, (B, sub_lmax + 1, g.nring), torch.complex64, ntel.device)
+    Gf = _crandn(rng, (B, sub_lmax + 1, g.nring), torch.complex64, ntel.device)
+    F, G = Ff[:, m0:m1].contiguous(), Gf[:, m0:m1].contiguous()
+    rec = k3k5_compare(F, G, g, sub_lmax, 1e-5, f"[ns2 window] m {m0}..{m1 - 1}: B {B}",
+                       reps=5, m_lo=m0)
+    legendre_table_lib.cache_clear()
+    ct = torch.as_tensor(g.cos_theta, device=F.device)
+    st = torch.as_tensor(g.sin_theta, device=F.device)
+    area = 4.0 * np.pi / g.npix
+    win = sht.legendre_contract(F, G, ct, st, sub_lmax, area, m0)
+    full = sht.legendre_contract(Ff, Gf, ct, st, sub_lmax, area)
+    same = all(torch.equal(w, f[..., m0:m1]) for w, f in zip(win, full))
+    log(f"[kernels] k3k5_legendre_sht window m {m0}..{m1 - 1}: columns "
+        f"{'bitwise equal' if same else 'differ from'} the full-range call's")
+    if not same:
+        raise AssertionError("k3k5_legendre_sht: a window's columns differ from the full range's")
+    return rec
+
+
+def k13_compare(t, M, k, rng, tag="kernels", F=None, S=None):
     """K13 against its plain version for an m-batch of M items with k
     retained modes, at ``t``'s path shapes (4 bands of rank <= F, the l
-    axis padded to 64), with its library call and bound."""
+    axis padded to 64), or a compacted chunk's F and S, with its library
+    call and bound."""
     import torch
 
     from driftscan_tpu_torch.parallel import mstep, resident
 
     dev = t.device
     nl = t.lmax + 1
-    n = resident.pencil_size(t)
-    F = t.nfreq
-    S = n // F
+    F = t.nfreq if F is None else F
+    S = resident.pencil_size(t) // t.nfreq if S is None else S
 
     def crandn(shape):
         z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
@@ -740,7 +813,7 @@ def k13_compare(t, M, k, rng, tag="kernels"):
     ops = [(8.0 * M * k * F * nl * S + 4.0 * M * nb * k * nl * Kb * F, F32_FLOPS),
            (8.0 * M * nb * k * (k + 1) / 2 * nl * Kb, GRAM_FLOPS)]
     return compare(
-        f"k13_fisher_cov (M {M}, k {k}, nb {nb}, nlp {nlp}, Kb {Kb})",
+        f"k13_fisher_cov (M {M}, k {k}, F {F}, S {S}, nb {nb}, nlp {nlp}, Kb {Kb})",
         lambda: mstep.fisher_cov(v, bt, blt),
         lambda: mstep.fisher_cov_ref(v, bt, blt),
         rtol=1e-4, tag=tag,
@@ -872,25 +945,33 @@ def trace_compare(k, rng, dtype=None, M=None, tag="kernels"):
     return rec
 
 
-def path_k13(tag, tel, evals, ps_threshold, mb, launches):
-    """K13 at the k the product path launched it with: per m-batch, the
-    batch's largest retained count (``resident.fisher_k``, the path's own
-    rule), one k per launch the path counted; timed at the largest and the
-    median of the launched k."""
+def path_k13(tag, tel, evals, ps_threshold, chunks, launches, m_lo=0):
+    """K13 at the k the product path launched it with: per m-chunk of the
+    run (``chunks``, :class:`resident.Chunk`), the chunk's largest retained
+    count (``resident.fisher_k``, the path's own rule), one k per launch
+    the path counted; timed at the largest and the median of the launched
+    k, each at its chunk's batch and (compacted) F and S."""
     from driftscan_tpu_torch.parallel import resident
 
-    ks = [resident.fisher_k(evals[s : s + mb], ps_threshold) for s in range(0, len(evals), mb)]
-    ks = sorted(k for k in ks if k)
-    log(f"[{tag}] K13 launches at k {ks}")
-    if len(ks) != launches:
-        raise AssertionError(f"{tag}: {len(ks)} K13 shapes for {launches} launches")
+    shapes = []
+    for ch in chunks:
+        rows = ch.m_values[ch.m_values >= 0] - m_lo
+        k = resident.fisher_k(evals[rows], ps_threshold)
+        if k:
+            shapes.append((k, len(ch.m_values), ch.fq, ch.sq))
+    shapes.sort()
+    log(f"[{tag}] K13 launches at (k, M, F, S) {shapes}")
+    if len(shapes) != launches:
+        raise AssertionError(f"{tag}: {len(shapes)} K13 shapes for {launches} launches")
     rng = np.random.default_rng(SEED + 1)
     import torch
 
-    big = k13_compare(tel, mb, ks[-1], rng, tag=f"{tag} kernels")
-    k13_compare(tel, mb, ks[len(ks) // 2], rng, tag=f"{tag} kernels")
+    k, M, F, S = shapes[-1]
+    big = k13_compare(tel, M, k, rng, tag=f"{tag} kernels", F=F, S=S)
+    k2, M2, F2, S2 = shapes[len(shapes) // 2]
+    k13_compare(tel, M2, k2, rng, tag=f"{tag} kernels", F=F2, S=S2)
     # the Fisher step's trace over K13's covariances, at the same k
-    trace_compare(ks[-1], rng, dtype=torch.complex64, M=mb, tag=f"{tag} kernels")
+    trace_compare(k, rng, dtype=torch.complex64, M=M, tag=f"{tag} kernels")
     return big
 
 
@@ -947,10 +1028,11 @@ def path_kernels(tel, ls_width):
     return names, n, width
 
 
-def path_phase(tag, tel, ps_threshold=None):
+def path_phase(tag, tel, ps_threshold=None, compare_full=False):
     """One product path on the card, its launch counts, and the CPU check.
     Without ``ps_threshold`` the cut is the top decade of the warm-up's
-    spectrum (:func:`top_decade`)."""
+    spectrum (:func:`top_decade`).  ``compare_full`` also times the product
+    step at full size (``bucket=False``) on the same tables."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -969,9 +1051,9 @@ def path_phase(tag, tel, ps_threshold=None):
         f"npol {tel.num_pol_sky} units {len(blg)} pencil n {n} signal width {width} "
         f"ls {ls.shape} lf {lf.shape} band_lt {band_lt.shape} kernels {required}"
     )
-    # m-bucketing (ROADMAP item 6.1) is not ported: every path runs the
-    # full-range m-batches (what "auto" picks at bench's two cylinders)
-    kw = dict(band_lt=band_lt, ps_threshold=ps_threshold or PS_THRESHOLD, bucket=False)
+    # bucket=None: the m-bucketing's auto rule decides, as for a user
+    kw = dict(band_lt=band_lt, ps_threshold=ps_threshold or PS_THRESHOLD)
+    log(f"[{tag}] bucket auto: {'bucketed' if resident.auto_bucket(tel, nm) else 'full size'}")
 
     # warm-up: builds, cuFFT plans, first-call costs
     t = time.time()
@@ -987,16 +1069,18 @@ def path_phase(tag, tel, ps_threshold=None):
         log(f"[{tag}] retention cut {ps_threshold:g} (warm-up top ev {float(np.max(ev_w)):.6e})")
 
     backend.reset_launch_counts()
+    chunks = []
     t0 = time.time()
     pos, neg = resident.btm_resident(tel, blg, fig)
     torch.cuda.synchronize()
     t1 = time.time()
     evals, nmodes, fisher = resident.product_all_resident(
-        tel, pos, neg, ls, lf, noisew, **kw
+        tel, pos, neg, ls, lf, noisew, chunks=chunks, **kw
     )
     torch.cuda.synchronize()
     t2 = time.time()
     launches = launch_counts()
+    log(f"[{tag}] m-chunks: {describe_chunks(chunks)}")
 
     t_btm, t_prod = t1 - t0, t2 - t1
     # the warm-up's tables and first m repeat: the BTM bit for bit (the
@@ -1035,59 +1119,89 @@ def path_phase(tag, tel, ps_threshold=None):
     require_map_kernel(tag, tel, launches)
     log(f"[{tag}] fisher diag {np.round(diag.real, 12).tolist()}")
 
-    cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold)
-    mb = resident.auto_mbatch(tel, ls.shape[-1], lf.shape[-1], tel.device)
-    k13_rec = path_k13(tag, tel, evals, ps_threshold, mb, launches["k13_fisher_cov"])
-    run = {"evals": evals, "fisher": fisher, "rate": nm / (t_btm + t_prod),
-           "t_btm": t_btm, "ps_threshold": ps_threshold}
+    if compare_full:
+        # the same product step at full size (bucket=False), for the rate
+        # the bucketing changes; not gated
+        t3 = time.time()
+        full = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, bucket=False, **kw)
+        torch.cuda.synchronize()
+        t_full = time.time() - t3
+        log(f"[{tag}] bucket=False: t_product_fisher {t_full:.4f} s  m-modes/s "
+            f"{nm / (t_btm + t_full):.4f} (auto: {nm / (t_btm + t_prod):.4f}); svd modes equal: "
+            f"{bool(np.array_equal(full[1], nmodes))}")
+        del full
+
+    cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks)
+    k13_rec = path_k13(tag, tel, evals, ps_threshold, chunks, launches["k13_fisher_cov"])
+    run = {"evals": evals, "nmodes": nmodes, "fisher": fisher, "rate": nm / (t_btm + t_prod),
+           "t_btm": t_btm, "ps_threshold": ps_threshold, "tables": (pos, neg)}
     return launches, required, k13_rec, run
 
 
-def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold):
-    """The first and last CPU_CHECK_M m-modes again, on the card and on CPU
-    tensors from the same tables, in the same m-batches (the adaptive sig1
-    depth is chosen per batch): retained spectra, and the whole spectrum,
+def describe_chunks(chunks):
+    """How many m-chunks of a run went at full size and compacted, with
+    the compacted (fq, sq) shapes and their counts."""
+    from collections import Counter
+
+    full = sum(not c.compacted for c in chunks)
+    shapes = Counter((c.fq, c.sq) for c in chunks if c.compacted)
+    return (f"{len(chunks)} dispatched, {full} full size, {len(chunks) - full} compacted "
+            f"(fq, sq): {dict(sorted(shapes.items()))}")
+
+
+def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks,
+              m_lo=None, checks=None):
+    """m-modes of a run again, on the card and on CPU tensors from the same
+    tables, through the run's own m-chunks (``chunks``: the same batches,
+    whose adaptive sig1 depth is chosen per batch, and the same compacted
+    frequency and mode axes): retained spectra, and the whole spectrum,
     within 1e-4 of each m's top eigenvalue (the whole spectrum keeps the
     check meaningful where no mode is retained, as at high m), partial
-    Fisher within 3e-2 of its max."""
+    Fisher within 3e-2 of its max.  ``checks`` [(name, [m, ...])] defaults
+    to the first and last CPU_CHECK_M m; ``m_lo`` reads window tables."""
     import torch
 
     from driftscan_tpu_torch.parallel import mstep, resident
 
-    nm = tel.mmax + 1
-    mb = resident.auto_mbatch(tel, ls.shape[-1], lf.shape[-1], tel.device)
-    windows = (("first", 0, min(CPU_CHECK_M, nm)), ("last", max(nm - CPU_CHECK_M, 0), nm))
+    if checks is None:
+        ms = np.concatenate([c.m_values[c.m_values >= 0] for c in chunks])
+        k = min(CPU_CHECK_M, len(ms))
+        checks = (("first", ms[:k]), ("last", ms[-k:]))
 
-    def run(p, n, lo, hi):
+    def run(p, n, mine):
         rdt = p.real.dtype
         ls_t, lf_t, band_t = mstep.factors_from_numpy(ls, lf, band_lt, p.device, rdt)
         nw = torch.as_tensor(noisew, dtype=rdt, device=p.device)
-        evs, fish = [], 0.0
-        for s in range(lo, hi, mb):
-            take = min(mb, hi - s)
-            mv = np.full(mb, -1, np.int64)
-            mv[:take] = np.arange(s, s + take)
+        evs, fish = {}, 0.0
+        for ch in mine:
             ev, _, f = resident.product_m_batch(
-                tel, p, n, ls_t, lf_t, nw, mv, band_lt=band_t, ps_threshold=ps_threshold
+                tel, p, n, ls_t, lf_t, nw, ch.m_values, band_lt=band_t,
+                ps_threshold=ps_threshold, m_lo=m_lo, chunk=ch,
             )
-            evs.append(ev[:take])
+            evs.update({int(m): ev[i] for i, m in enumerate(ch.m_values) if m >= 0})
             fish = fish + f
-        return np.concatenate(evs), fish
+        return evs, fish
 
     pos_c, neg_c = pos.cpu(), neg.cpu()
-    for name, lo, hi in windows:
-        ev_g, f_g = run(pos, neg, lo, hi)
+    for name, want in checks:
+        want = [int(m) for m in want]
+        mine = [c for c in chunks if np.isin(c.m_values, want).any()]
+        ev_g, f_g = run(pos, neg, mine)
         t = time.time()
-        ev_c, f_c = run(pos_c, neg_c, lo, hi)
+        ev_c, f_c = run(pos_c, neg_c, mine)
         t_cpu = time.time() - t
+        ev_g = np.stack([ev_g[m] for m in want])
+        ev_c = np.stack([ev_c[m] for m in want])
         kept = (ev_c > ps_threshold) | (ev_g > ps_threshold)
         top = np.maximum(ev_c.max(axis=1, keepdims=True), 1e-30)
         rel = np.abs(ev_g - ev_c) / top
         ev_err = float(rel[kept].max()) if kept.any() else 0.0
         all_err = float(rel.max())
         f_err = float(np.abs(f_g - f_c).max() / max(np.abs(f_c).max(), 1e-300))
+        shapes = sorted({(len(c.m_values), c.fq, c.sq) for c in mine})
         log(
-            f"[{tag}] cpu check {name} m {lo}..{hi - 1} (mbatch {mb}, cpu {t_cpu:.2f} s): "
+            f"[{tag}] cpu check {name} m {want[0]}..{want[-1]} (chunks (M, fq, sq) {shapes}, "
+            f"cpu {t_cpu:.2f} s): "
             f"retained {int(kept.sum())} modes, max |ev_card - ev_cpu| / ev_top "
             f"{ev_err:.3e} (whole spectrum {all_err:.3e}; tol 1e-4; top ev "
             f"{float(ev_c.max()):.6e}), partial Fisher rel {f_err:.3e} (tol 3e-2, "
@@ -1099,6 +1213,238 @@ def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold):
             raise AssertionError(f"{tag} {name}: spectrum card vs cpu {all_err:.3e} > 1e-4")
         if not f_err <= 3e-2:
             raise AssertionError(f"{tag} {name}: partial Fisher card vs cpu {f_err:.3e} > 3e-2")
+
+
+def slice_windows_phase(tel, slice_run, tag="slice windows"):
+    """The bench cylinder in the m-windows ``SLICE_WINDOWS`` through
+    ``btm_resident(m_range=)`` and ``product_all_resident(m_range=)`` with
+    the fused Fisher and the auto bucketing, against ``[slice]`` (its run
+    dict): each window's tables bitwise equal to the ``[slice]`` tables'
+    columns, the SVD mode counts equal, spectra within rtol 2e-4 / atol
+    1e-6 of the top, the summed Fisher within 1e-3 of max |F|.  Returns
+    the launch counts of the windows' run."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    blg, fig = units(tel)
+    cl_s, cl_n, noisew = covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    band_lt = mstep.band_factor_table(
+        iter(fisher_bands(tel)), out_dtype=np.float32, rank_rtol=1e-9
+    )
+    pos_f, neg_f = slice_run["tables"]
+    thr = slice_run["ps_threshold"]
+    evs, nmos, fish, t_all = [], [], 0.0, 0.0
+    backend.reset_launch_counts()
+    for m0, m1 in SLICE_WINDOWS:
+        chunks = []
+        t0 = time.time()
+        pos, neg = resident.btm_resident(tel, blg, fig, m_range=(m0, m1))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ev, nmo, f = resident.product_all_resident(
+            tel, pos, neg, ls, lf, noisew, m_range=(m0, m1), band_lt=band_lt,
+            ps_threshold=thr, chunks=chunks,
+        )
+        torch.cuda.synchronize()
+        t2 = time.time()
+        t_all += t2 - t0
+        lo = max(m0, 1)
+        same = (torch.equal(pos, pos_f[..., m0:m1])
+                and torch.equal(neg[..., lo - m0 :], neg_f[..., lo - 1 : m1 - 1])
+                and (m0 > 0 or not bool(neg[..., 0].any())))
+        log(f"[{tag}] m {m0}..{m1 - 1}: bucket auto "
+            f"{'bucketed' if resident.auto_bucket(tel, m1 - m0, m0) else 'full size'}, "
+            f"{describe_chunks(chunks)}; t_btm {t1 - t0:.4f} s t_product_fisher "
+            f"{t2 - t1:.4f} s; tables {'bitwise equal to' if same else 'differ from'} "
+            f"[slice]'s columns")
+        if not same:
+            raise AssertionError(f"{tag} m {m0}..{m1 - 1}: tables differ from [slice]'s columns")
+        evs.append(ev)
+        nmos.append(nmo)
+        fish = fish + f
+        del pos, neg
+    launches = launch_counts()
+    ev, nmo = np.concatenate(evs), np.concatenate(nmos)
+    want_ev, want_f = slice_run["evals"], slice_run["fisher"]
+    scale = float(want_ev.max())
+    ev_err = float((np.abs(ev - want_ev) / (2e-4 * np.abs(want_ev) + 1e-6 * scale)).max())
+    f_err = float(np.abs(fish - want_f).max() / np.abs(want_f).max())
+    counts_equal = bool(np.array_equal(nmo, slice_run["nmodes"]))
+    log(f"[{tag}] {ev.shape[0]} m in {len(SLICE_WINDOWS)} windows: {t_all:.4f} s, m-modes/s "
+        f"{ev.shape[0] / t_all:.4f}; svd mode counts {'equal' if counts_equal else 'differ'}; "
+        f"spectra vs [slice] {ev_err:.3e} of the tolerance (rtol 2e-4, atol 1e-6 of the top); "
+        f"summed Fisher vs [slice] {f_err:.3e} of max |F| (tol 1e-3); launches {launches}")
+    if not counts_equal:
+        raise AssertionError(f"{tag}: svd mode counts differ from [slice]'s")
+    if not ev_err <= 1.0:
+        raise AssertionError(f"{tag}: spectra differ from [slice]'s beyond rtol 2e-4 / atol 1e-6")
+    if not (np.isfinite(fish).all() and f_err <= 1e-3):
+        raise AssertionError(f"{tag}: summed Fisher {f_err:.3e} of max |F| from [slice]'s > 1e-3")
+    required, _, _ = path_kernels(tel, ls.shape[-1])
+    require_launched(tag, launches, required)
+    require_map_kernel(tag, tel, launches)
+    return launches
+
+
+def ns2_window_phase(ntel, tag="ns2 window"):
+    """The north-star telescope ``ns2`` at full width in the m-window
+    ``NS2_WINDOW`` through ``btm_resident(m_range=)`` and
+    ``product_all_resident(bucket=True, m_range=, band_lt=, ps_threshold=0.1)``
+    (the JAX run's last window).  Gates: at least one compacted chunk;
+    spectra and Fisher finite, the Fisher Hermitian; m ``NS2_CPU_M`` again
+    alone in their chunks' compacted shapes on the card and on the CPU
+    (:func:`cpu_check`, 1e-4 of each m's top); the first ``NS2_FULL_M``
+    m in one ``bucket=False`` batch against the bucketed spectra (rtol 2e-4
+    above 1e-3 of each m's top; the whole spectrum 1e-4 of the top).
+    Printed only: mode counts and the top 20 eigenvalues of each m against
+    the JAX run's record (a TPU in float32).  Returns the launch counts of
+    the bucketed run."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    m0, m1 = NS2_WINDOW
+    nreal = min(m1, ntel.mmax + 1) - m0
+    blg, fig = units(ntel)
+    t = time.time()
+    cl_s, cl_n, noisew = covariances(ntel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    band_lt = mstep.band_factor_table(
+        iter(fisher_bands(ntel, edges=NS2_BAND_EDGES)), out_dtype=np.float32, rank_rtol=1e-9
+    )
+    log(f"[{tag}] lmax {ntel.lmax} mmax {ntel.mmax} npairs {ntel.npairs} nfreq {ntel.nfreq} "
+        f"npol {ntel.num_pol_sky} units {len(blg)} pencil n {resident.pencil_size(ntel)} "
+        f"window m {m0}..{m1 - 1} ({nreal} real) ls {ls.shape} lf {lf.shape} band_lt "
+        f"{band_lt.shape}; covariances and tables {time.time() - t:.2f} s; bucket auto "
+        f"{'bucketed' if resident.auto_bucket(ntel, m1 - m0, m0) else 'full size'}")
+    kw = dict(band_lt=band_lt, ps_threshold=PS_THRESHOLD)
+
+    from driftscan_tpu_torch.ops import fpencil
+
+    backend.reset_launch_counts()
+    chunks = []
+    retries = fpencil.svd_retries
+    t0 = time.time()
+    pos, neg = resident.btm_resident(ntel, blg, fig, m_range=(m0, m1))
+    torch.cuda.synchronize()
+    t1 = time.time()
+    evals, nmodes, fisher = resident.product_all_resident(
+        ntel, pos, neg, ls, lf, noisew, bucket=True, m_range=(m0, m1), chunks=chunks, **kw
+    )
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = launch_counts()
+    evals, nmodes = evals[:nreal], nmodes[:nreal]
+    t_btm, t_prod = t1 - t0, t2 - t1
+    # the run's first ns2 BTM: cold (cuFFT plans for nside 512's ring lengths
+    # included); experiments/ns2_btm_breakdown.py times a warm one
+    log(f"[{tag}] t_btm {t_btm:.4f} s (cold)  t_product_fisher {t_prod:.4f} s  m-modes/s "
+        f"{nreal / (t_btm + t_prod):.4f}  tables {nbytes(pos, neg) / 2**30:.4f} GiB  top ev "
+        f"{float(evals.max()):.6e}  retained (ev > {PS_THRESHOLD:g}) "
+        f"{int((evals > PS_THRESHOLD).sum())}  svd modes {int(nmodes.sum())}  launches {launches}")
+    log(f"[{tag}] m-chunks: {describe_chunks(chunks)}; per chunk (first m, M, fq, sq): "
+        f"{[(int(c.m_values[0]), len(c.m_values), c.fq, c.sq) for c in chunks]}; Gram "
+        f"eigensolves that failed in cuSOLVER and took the SVD: {fpencil.svd_retries - retries}")
+    if not any(c.compacted for c in chunks):
+        raise AssertionError(f"{tag}: no m-chunk ran compacted")
+    if not (np.isfinite(evals).all() and np.isfinite(fisher).all()):
+        raise AssertionError(f"{tag}: non-finite spectra or Fisher")
+    fscale = float(np.abs(fisher).max())
+    if not np.abs(fisher - fisher.conj().T).max() <= 1e-4 * fscale:
+        raise AssertionError(f"{tag}: Fisher matrix not Hermitian")
+    log(f"[{tag}] Fisher max |F| {fscale:.6e} (zero when no mode passes {PS_THRESHOLD:g})")
+    names = [map_kernel(ntel), "k3k5_legendre_sht"]
+    nl = ntel.lmax + 1
+    if any(mstep.uses_compact_signal(c.fq * c.sq, nl * ls.shape[-1]) for c in chunks):
+        names.append("k9_signal_gram")
+    if fscale > 0:
+        names += ["k13_fisher_cov", "k15b_fisher_trace"]
+    require_launched(tag, launches, names)
+    require_map_kernel(tag, ntel, launches)
+
+    # m NS2_CPU_M alone, each in its chunk's compacted shape (no mode
+    # passes the sig1 bound here, so the depth is the batch's)
+    alone = []
+    for m in NS2_CPU_M:
+        ch = next(c for c in chunks if m in c.m_values)
+        alone.append(ch._replace(m_values=np.array([m])))
+    cpu_check(tag, ntel, pos, neg, ls, lf, noisew, band_lt, PS_THRESHOLD, alone, m_lo=m0,
+              checks=[(f"m {m}", [m]) for m in NS2_CPU_M])
+
+    # the first NS2_FULL_M m in one full-size batch
+    retries = fpencil.svd_retries
+    t3 = time.time()
+    ev_f, nmo_f, _ = resident.product_all_resident(
+        ntel, pos, neg, ls, lf, noisew, bucket=False, m_range=(m0, m1), max_m=NS2_FULL_M,
+        mbatch=NS2_FULL_M, **kw
+    )
+    torch.cuda.synchronize()
+    t_full = time.time() - t3
+    ev_b = evals[:NS2_FULL_M]
+    top = ev_b.max(axis=1, keepdims=True)
+    band = ev_b > 1e-3 * top
+    band_err = float((np.abs(ev_f - ev_b)[band] / np.abs(ev_b[band])).max())
+    all_err = float((np.abs(ev_f - ev_b) / top).max())
+    log(f"[{tag}] bucket=False, one batch of {NS2_FULL_M} m: {t_full:.4f} s "
+        f"({t_full / NS2_FULL_M:.4f} s a m at pencil n {ev_f.shape[1]}; bucketed "
+        f"{t_prod / nreal:.4f} s a m, its sizing pass included); spectra vs bucketed: rel "
+        f"{band_err:.3e} above 1e-3 of each m's top (tol 2e-4), whole {all_err:.3e} of the "
+        f"top (tol 1e-4); svd modes {'equal' if np.array_equal(nmo_f, nmodes[:NS2_FULL_M]) else 'differ'}; "
+        f"Gram eigensolves that took the SVD: {fpencil.svd_retries - retries}")
+    if not (band_err <= 2e-4 and all_err <= 1e-4):
+        raise AssertionError(f"{tag}: bucketed spectra differ from the full-size batch's")
+
+    rec_path = os.path.join(HERE, NS2_RECORD)
+    if os.path.exists(rec_path):
+        with np.load(rec_path) as z:
+            jev, jnmo = z["ev"], z["nmo"]
+        k = min(len(jev), nreal)
+        dn = nmodes[:k].sum(axis=1) - jnmo[:k].sum(axis=1)
+        top20 = np.abs(evals[:k, -20:] - jev[:k, -20:]) / np.maximum(jev[:k, -1:], 1e-300)
+        log(f"[{tag}] against the JAX run's record ({NS2_RECORD}; a TPU, float32; not "
+            f"gated): svd modes a m, card minus record: min {int(dn.min())} max "
+            f"{int(dn.max())} total {int(dn.sum())} of {int(jnmo[:k].sum())}; top 20 "
+            f"eigenvalues, |card - record| / record top: max {float(top20.max()):.3e} "
+            f"median {float(np.median(top20)):.3e}")
+    del pos, neg
+    return launches
+
+
+def convert_phase(outdir):
+    """``drift-makeproducts-torch convert`` on a copy of ``[products]``'
+    directory, in a subprocess, where h5py imports; on a host without
+    h5py (the card host) it is logged as not exercised."""
+    try:
+        import h5py
+    except ImportError:
+        log("[convert] not exercised: this host has no h5py, so its product files are "
+            "the .npy directory store; the converter runs on the CPU in "
+            "tests/test_torch_store_convert.py")
+        return
+    copy = tempfile.mkdtemp(prefix="driftscan_convert_")
+    try:
+        target = os.path.join(copy, "products")
+        shutil.copytree(outdir, target)
+        t = time.time()
+        out = subprocess.run(
+            [sys.executable, "-m", "driftscan_tpu_torch.scripts.makeproducts", "convert", target],
+            cwd=HERE, capture_output=True, text=True, timeout=600,
+        )
+        if out.returncode != 0:
+            raise AssertionError(f"[convert] failed: {out.stderr[-2000:]}")
+        for d, _, files in os.walk(target):
+            for f in files:
+                if f.endswith(".hdf5"):
+                    with h5py.File(os.path.join(d, f), "r"):
+                        pass
+        log(f"[convert] {out.stdout.strip().splitlines()[-1] if out.stdout.strip() else 'done'} "
+            f"({time.time() - t:.2f} s); every .hdf5 opens in h5py")
+    finally:
+        shutil.rmtree(copy, ignore_errors=True)
 
 
 def products_config(outdir):
@@ -2404,15 +2750,17 @@ def main():
     rtel = restrictedcylinder.RestrictedCylinder.from_config(RESTRICTED_PARAMS, device="cuda")
     rptel = restrictedcylinder.RestrictedPolarisedCylinder.from_config(
         RESTRICTED_POL_PARAMS, device="cuda")
+    ntel = cylinder.PolarisedCylinderTelescope.from_config(NS2_PARAMS, device="cuda")
     perf = kernel_phases(tel, ptel)
     perf.update(host_kernel_phases(
         {"restricted": rtel, "restricted pol": rptel, "dish": dtel}))
     k3k5_dish_compare(dtel, np.random.default_rng(SEED + 3))
+    k3k5_window_compare(ntel, np.random.default_rng(SEED + 4))
     counted = {}
     for tag, t_, ps in (("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD),
                         ("dish", dtel, None), ("restricted", rtel, None),
                         ("restricted pol", rptel, None)):
-        launches, required, k13_rec, run = path_phase(tag, t_, ps)
+        launches, required, k13_rec, run = path_phase(tag, t_, ps, compare_full=tag == "dish")
         for name in required:
             counted[name] = counted.get(name, 0) + launches[name]
         if tag == "slice":
@@ -2423,6 +2771,11 @@ def main():
             host_beam_share(tag, dtel)
         del run
     del dtel
+    for launches in (slice_windows_phase(tel, slice_run), ns2_window_phase(ntel)):
+        for name, count in launches.items():
+            if count:
+                counted[name] = counted.get(name, 0) + count
+    del slice_run["tables"], ntel
     for klass, params in ((restrictedcylinder.RestrictedCylinder, RESTRICTED_PARAMS),
                           (cylinder.UnpolarisedCylinderTelescope, BENCH_PARAMS)):
         launches = precision_gate_phase("float64 gate", klass, params)
@@ -2435,6 +2788,7 @@ def main():
         for name, count in launches.items():
             if count:
                 counted[name] = counted.get(name, 0) + count
+        convert_phase(outdir)
         # the sandwich and the trace at the largest nkl of the products run
         perf.update(products_kernels(tel, nkl))
         launches, m = klinv_phase(outdir)

@@ -569,7 +569,7 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
 
         return tarray.reshape(tshape)
 
-    def btm_blocks(self, bl_indices, f_indices):
+    def btm_blocks(self, bl_indices, f_indices, m_window=None):
         """The BTM coefficients of a unit list, one SHT call at a time.
 
         Units are grouped by the nside their own band limit needs,
@@ -580,6 +580,11 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         each unit zeroed above its own.  Every BTM route (the resident
         tables, the chunked files, :meth:`transfer_matrices`) makes its SHT
         calls here, so the same units in the same calls give the same bits.
+
+        ``m_window=(m0, m1)`` gives each call's m in [m0, m1) in the uniform
+        layout of :func:`sht.analysis` (pos and neg of width m1 - m0), and
+        skips a call whose band limit lies below m0 before its beams are
+        evaluated.
         """
         bl_indices = np.asarray(bl_indices)
         f_indices = np.asarray(f_indices)
@@ -594,26 +599,32 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
                 sel = bucket[off : off + take]
                 off += take
                 sub_lmax = int(lmax_arr[sel].max())
-                pos, neg = self.btm_chunk(bl_indices[sel], f_indices[sel], int(ns), sub_lmax)
+                if m_window is not None and sub_lmax < m_window[0]:
+                    continue  # no m of the window reaches these units
+                pos, neg = self.btm_chunk(
+                    bl_indices[sel], f_indices[sel], int(ns), sub_lmax, m_window
+                )
                 lmask = (
                     torch.arange(sub_lmax + 1, device=pos.device)[None, :]
                     <= torch.as_tensor(lmax_arr[sel], device=pos.device)[:, None]
                 ).to(pos.real.dtype)[:, None, :, None]
                 yield sel, pos * lmask, neg * lmask
 
-    def btm_chunk(self, bl_ind, f_ind, nside, lmax):
+    def btm_chunk(self, bl_ind, f_ind, nside, lmax, m_window=None):
         """BTM coefficients of a unit batch at one nside.
 
         Returns (pos (nu, npol_t, lmax+1, lmax+1), neg (nu, npol_t, lmax+1,
         lmax)) complex tensors on the device, one scalar SHT per
         transformed Stokes component (npol_t = 1 unpolarised): btrans =
         conj(SHT(conj(visibility map))), negative-m column j <-> m = -(j + 1).
+        With ``m_window`` both have width m1 - m0, column j holding
+        m = +-(m0 + j) (:func:`sht.analysis`).
         """
         self._init_trans(nside)
         cvis = self._beam_map_batch(bl_ind, f_ind)
         if cvis.dim() == 2:  # unpolarised: add the pol axis
             cvis = cvis[:, None]
-        pos, neg = sht.analysis(cvis.conj(), lmax=lmax, nside=nside)
+        pos, neg = sht.analysis(cvis.conj(), lmax=lmax, nside=nside, m_window=m_window)
         return pos.conj().resolve_conj(), neg.conj().resolve_conj()
 
     def _nside_for(self, lmax: int) -> int:

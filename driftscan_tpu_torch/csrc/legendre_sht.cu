@@ -4,15 +4,22 @@
 // normalised associated Legendre recurrence, K3) and the Legendre stage of
 // _analysis_split (sht.py:729-748, K5):
 //
-//   pos[b, l, m] = Omega * sum_r lambda_lm(theta_r) F[b, m, r]
-//   neg[b, l, m] = Omega * (-1)^m * sum_r lambda_lm(theta_r) G[b, m, r]
+//   pos[b, l, j] = Omega * sum_r lambda_lm(theta_r) F[b, j, r]
+//   neg[b, l, j] = Omega * (-1)^m * sum_r lambda_lm(theta_r) G[b, j, r]
+//
+// for m = m_lo + j: the columns of F, G, pos and neg hold the m of a window
+// [m_lo, m_lo + nm) (m_lo = 0 for the full range).  The schedule holds
+// physical m; an m's recurrence (its lambda_mm prefactor and the sign) is
+// that m's, and its column m - m_lo.  No block's result for an m depends
+// on the other m of its row, so a window's columns repeat the full range's
+// bit for bit.
 //
 // The JAX package tabulates lambda (up to a GB per nside/lmax) and runs a
 // batched matmul.  Here no table exists.  Per m the stage is one real
 // product, Lambda_m (multipoles x rings) times the (rings x 4 B) matrix of
 // the units' F and G planes (re F, im F, re G, im G), and a block owns one
-// m -- or a pair (m, nm - 1 - m) from the wrapper's schedule, so that every
-// block walks about nm multipoles -- with up to BC units (BC = 64 complex64,
+// m -- or a pair (m_lo + j, m_last - j) from the wrapper's schedule, so that
+// every block walks the same number of multipoles -- with up to BC units (BC = 64 complex64,
 // 16 complex128; more units take more blocks along y, each recomputing the
 // recurrence).  For each tile of TL multipoles (64 complex64, 32 complex128)
 // starting at l = m it sweeps the rings in tiles of one ring a thread (512):
@@ -134,7 +141,7 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
                     const double* __restrict__ cos_t, const double* __restrict__ sin_t,
                     const double* __restrict__ logpref, const int* __restrict__ sched,
                     cpx<T>* __restrict__ pos, cpx<T>* __restrict__ neg, int B, int nm,
-                    int nring, int lmax, int rmax, double pixarea) {
+                    int m_lo, int nring, int lmax, int rmax, double pixarea) {
   using C = Cfg<T>;
   using Lam = typename C::Lam;
   constexpr int THREADS = C::THREADS;
@@ -165,6 +172,7 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
   for (int which = 0; which < 2; ++which) {
     const int m = sched[2 * blockIdx.x + which];
     if (m < 0) continue;
+    const int col = m - m_lo;  // this m's column of F, G, pos and neg
     const double mf = (double)m;
     const double sgn = (m % 2 == 0) ? 1.0 : -1.0;
     const double sq = sqrt(2.0 * mf + 3.0);
@@ -181,7 +189,7 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
         const int u = rem / KS, k = rem - u * KS;
         const bool ok = u < nb && rs + k < rend;
         const cpx<T>* src = arr ? G : F;
-        const cpx<T>* sp = ok ? src + ((size_t)(b0 + u) * nm + m) * nring + rs + k : src;
+        const cpx<T>* sp = ok ? src + ((size_t)(b0 + u) * nm + col) * nring + rs + k : src;
         mma::cp_async<sizeof(cpx<T>)>(dst + (arr ? C::G_BASE : 0) + u * C::FS + 2 * k, sp, ok);
       }
       mma::cp_async_commit();
@@ -190,7 +198,7 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
     // rows below the seed are exact zeros
     for (int e = tid; e < nb * m; e += THREADS) {
       const int u = e / m, l = e - u * m;
-      const size_t o = ((size_t)(b0 + u) * nm + m) * nl + l;
+      const size_t o = ((size_t)(b0 + u) * nm + col) * nl + l;
       pos[o] = cpx<T>{(T)0, (T)0};
       neg[o] = cpx<T>{(T)0, (T)0};
     }
@@ -315,7 +323,7 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
           for (int h = 0; h < 2; ++h) {
             const int l = l0 + row0 + g + 8 * h;
             if (l > lmax) continue;
-            const size_t off = ((size_t)(b0 + u) * nm + m) * nl + l;
+            const size_t off = ((size_t)(b0 + u) * nm + col) * nl + l;
             cpx<T> v{sc * acc[i][2 * h], sc * acc[i][2 * h + 1]};
             if (r0 > 0) {
               v.re += o[off].re;
@@ -332,9 +340,9 @@ legendre_sht_kernel(const cpx<T>* __restrict__ F, const cpx<T>* __restrict__ G,
 template <typename T>
 int launch(const void* F, const void* G, const double* cos_t, const double* sin_t,
            const double* logpref, const int* sched, int nslots, void* pos, void* neg, int B,
-           int nm, int nring, int lmax, double pixarea, cudaStream_t stream) {
+           int nm, int m_lo, int nring, int lmax, double pixarea, cudaStream_t stream) {
   if (B <= 0 || nm <= 0 || nring <= 0) return 0;
-  if (nm > lmax + 1 || nslots < 1 || nslots > 65535 || (B + Cfg<T>::BC - 1) / Cfg<T>::BC > 65535)
+  if (m_lo < 0 || m_lo > lmax || nslots < 1 || nslots > 65535 || (B + Cfg<T>::BC - 1) / Cfg<T>::BC > 65535)
     return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -351,8 +359,8 @@ int launch(const void* F, const void* G, const double* cos_t, const double* sin_
   dim3 grid(nslots, (B + Cfg<T>::BC - 1) / Cfg<T>::BC);
   legendre_sht_kernel<T><<<grid, Cfg<T>::THREADS, smem, stream>>>(
       static_cast<const cpx<T>*>(F), static_cast<const cpx<T>*>(G), cos_t, sin_t, logpref,
-      sched, static_cast<cpx<T>*>(pos), static_cast<cpx<T>*>(neg), B, nm, nring, lmax, rmax,
-      pixarea);
+      sched, static_cast<cpx<T>*>(pos), static_cast<cpx<T>*>(neg), B, nm, m_lo, nring, lmax,
+      rmax, pixarea);
   return (int)cudaGetLastError();
 }
 
@@ -360,21 +368,24 @@ int launch(const void* F, const void* G, const double* cos_t, const double* sin_
 
 extern "C" {
 
-// F, G (B, nm, nring) complex, cos_t, sin_t (nring,), logpref (lmax + 1,)
-// float64; sched (nslots, 2) int32: the m values of each block (-1: none);
-// pos, neg (B, nm, lmax + 1) complex: the transposed outputs, each (b, m)
-// a contiguous row over l, so that a block's stores run along l.
+// F, G (B, nm, nring) complex, column j holding m = m_lo + j; cos_t, sin_t
+// (nring,), logpref (lmax + 1,) float64; sched (nslots, 2) int32: the
+// physical m of each block (-1: none), each in [m_lo, min(m_lo + nm, lmax + 1));
+// pos, neg (B, nm, lmax + 1) complex: the transposed outputs, each (b, j) a
+// contiguous row over l, so that a block's stores run along l.  Columns that
+// no block takes are left as they are.
 int legendre_sht_c64(const void* F, const void* G, const double* cos_t, const double* sin_t,
                      const double* logpref, const int* sched, int nslots, void* pos, void* neg,
-                     int B, int nm, int nring, int lmax, double pixarea, void* stream) {
-  return launch<float>(F, G, cos_t, sin_t, logpref, sched, nslots, pos, neg, B, nm, nring, lmax,
-                       pixarea, (cudaStream_t)stream);
+                     int B, int nm, int m_lo, int nring, int lmax, double pixarea, void* stream) {
+  return launch<float>(F, G, cos_t, sin_t, logpref, sched, nslots, pos, neg, B, nm, m_lo, nring,
+                       lmax, pixarea, (cudaStream_t)stream);
 }
 
 int legendre_sht_c128(const void* F, const void* G, const double* cos_t, const double* sin_t,
                       const double* logpref, const int* sched, int nslots, void* pos, void* neg,
-                      int B, int nm, int nring, int lmax, double pixarea, void* stream) {
-  return launch<double>(F, G, cos_t, sin_t, logpref, sched, nslots, pos, neg, B, nm, nring,
+                      int B, int nm, int m_lo, int nring, int lmax, double pixarea,
+                      void* stream) {
+  return launch<double>(F, G, cos_t, sin_t, logpref, sched, nslots, pos, neg, B, nm, m_lo, nring,
                         lmax, pixarea, (cudaStream_t)stream);
 }
 

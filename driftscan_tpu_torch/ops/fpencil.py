@@ -284,6 +284,10 @@ class GramBands(NamedTuple):
     s: torch.Tensor
 
 
+# calls of :func:`_eigh_scaled` that took the SVD (cuSOLVER's eigh failed)
+svd_retries = 0
+
+
 def _eigh_scaled(g: torch.Tensor):
     """torch.linalg.eigh of g scaled by the power of two nearest max|g|.
 
@@ -294,8 +298,14 @@ def _eigh_scaled(g: torch.Tensor):
     vectors are those of g itself.  A Gram below tiny/eps (a zero-padded
     m slot, or subnormal roundoff) is zero to working precision: it gets
     eigenvalues 0 and the identity basis, without a solver call that
-    subnormal entries can break.
+    subnormal entries can break.  Where the eigensolver still fails (on
+    an H100, the full-size n = 3200 complex128 Grams of the ns2 telescope,
+    whose ~2,900 eigenvalues below 1e-12 of the top break cuSOLVER's
+    divide and conquer; MAGMA and LAPACK converge), the batch takes the
+    SVD: g is a Gram, Hermitian positive semidefinite, so its singular
+    values and left vectors are its eigenvalues and vectors.
     """
+    global svd_retries
     fin = torch.finfo(g.real.dtype)
     amax = g.abs().amax(dim=(-2, -1))
     zero = amax <= fin.tiny / fin.eps
@@ -304,7 +314,12 @@ def _eigh_scaled(g: torch.Tensor):
     )
     eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
     gs = torch.where(zero[..., None, None], eye, g / scale[..., None, None].to(g.dtype))
-    w, q = torch.linalg.eigh(gs)
+    try:
+        w, q = torch.linalg.eigh(gs)
+    except torch.linalg.LinAlgError:
+        svd_retries += 1
+        u, sv, _ = torch.linalg.svd(gs)
+        w, q = sv.flip(-1), u.flip(-1)  # ascending, as eigh
     return torch.where(zero[..., None], 0.0, w * scale[..., None]), q
 
 

@@ -156,78 +156,105 @@ def _contract_plane(lam, x):
     return torch.view_as_complex(out.contiguous())
 
 
-def legendre_contract_ref(F, G, cos_t, sin_t, lmax: int, pixarea: float):
-    """Plain PyTorch version of :func:`legendre_contract`."""
+def legendre_contract_ref(F, G, cos_t, sin_t, lmax: int, pixarea: float, m_lo: int = 0):
+    """Plain PyTorch version of :func:`legendre_contract`.
+
+    On the card one batched contraction a plane.  On the host one product
+    per m, each on its own copies of the operands, so that an m's result
+    does not depend on which other m are in the call and a window's
+    columns repeat the full range's bit for bit (the host library's
+    batched product rounds by the operands' alignment)."""
     nm = F.shape[1]
     rdtype = backend.real_dtype(F.dtype)
-    mvals = torch.arange(nm, device=F.device)
+    mvals = m_lo + torch.arange(nm, device=F.device)
     logpref = torch.as_tensor(_log_lambda_mm_prefactor(lmax), device=F.device)
     lam = legendre_table(mvals, cos_t, sin_t, lmax, logpref).to(rdtype)
-    signm = torch.where(mvals % 2 == 0, 1.0, -1.0).to(rdtype)
-    pos = pixarea * _contract_plane(lam, F)
-    neg = pixarea * _contract_plane(lam, G * signm[None, :, None])
+    if F.is_cuda:
+        signm = torch.where(mvals % 2 == 0, 1.0, -1.0).to(rdtype)
+        return (pixarea * _contract_plane(lam, F),
+                pixarea * _contract_plane(lam, G * signm[None, :, None]))
+    sign = [1.0 if int(m) % 2 == 0 else -1.0 for m in mvals]
+    pos = torch.zeros((F.shape[0], lmax + 1, nm), dtype=F.dtype, device=F.device)
+    neg = torch.zeros_like(pos)
+    for j in range(min(nm, lmax + 1 - m_lo)):
+        lam_m = lam[:, j].contiguous()  # (l, ring)
+        for out, x, scale in ((pos, F, pixarea), (neg, G, pixarea * sign[j])):
+            xr = torch.view_as_real(x[:, j].contiguous())  # (B, ring, 2)
+            prod = torch.matmul(lam_m, xr.permute(1, 0, 2).reshape(xr.shape[1], -1))
+            col = torch.view_as_complex(prod.reshape(lmax + 1, -1, 2).contiguous())
+            out[:, :, j] = scale * col.transpose(0, 1)
     return pos, neg
 
 
-def m_schedule(nm: int) -> np.ndarray:
+def m_schedule(nm: int, m_lo: int = 0) -> np.ndarray:
     """The m values each block of the Legendre kernels (K3+K5, K14) takes:
-    (ceil(nm / 2), 2) int32 rows (m, nm - 1 - m), the second -1 where the
-    middle m of an odd nm stands alone.  A block then walks 2 (lmax + 1) - (nm - 1)
-    multipoles whatever its row, so no block runs twice the mean (m = 0
-    alone would)."""
+    (ceil(nm / 2), 2) int32 rows (m_lo + j, m_lo + nm - 1 - j), the second
+    -1 where the middle m of an odd nm stands alone.  A block then walks
+    2 (lmax + 1) - (2 m_lo + nm - 1) multipoles whatever its row, so no block
+    runs twice the mean (m = 0 alone would)."""
     first = np.arange((nm + 1) // 2)
     second = nm - 1 - first
     second[second == first] = -1
-    return np.stack([first, second], axis=1).astype(np.int32)
+    sched = np.stack([first, second], axis=1) + m_lo
+    sched[sched < m_lo] = -1
+    return sched.astype(np.int32)
 
 
 @functools.lru_cache(maxsize=64)
-def _legendre_tables(lmax: int, nm: int, device: torch.device):
-    """(logpref, schedule) on ``device``, uploaded once per (lmax, nm)."""
+def _legendre_tables(lmax: int, nm: int, device: torch.device, m_lo: int = 0):
+    """(logpref, schedule) on ``device``, uploaded once per (lmax, nm,
+    m_lo)."""
     return (
         torch.as_tensor(_log_lambda_mm_prefactor(lmax), device=device),
-        torch.as_tensor(m_schedule(nm), device=device),
+        torch.as_tensor(m_schedule(nm, m_lo), device=device),
     )
 
 
-def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float):
+def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float, m_lo: int = 0):
     """Legendre stage of the analysis (K3+K5).
 
-    F, G : (B, nm, nring) complex phase-stage outputs for m = 0..nm-1;
-    cos_t, sin_t : (nring,) float64 ring colatitudes.  Returns
-    (pos, neg), each (B, lmax+1, nm) complex:
-    ``pos[b, l, m] = Omega sum_r lambda_lm(theta_r) F[b, m, r]`` and
-    ``neg[b, l, m] = Omega (-1)^m sum_r lambda_lm(theta_r) G[b, m, r]``.
+    F, G : (B, nm, nring) complex phase-stage outputs for m = m_lo ..
+    m_lo + nm - 1 (column j holds m = m_lo + j); cos_t, sin_t : (nring,)
+    float64 ring colatitudes.  Returns (pos, neg), each (B, lmax+1, nm)
+    complex:
+    ``pos[b, l, j] = Omega sum_r lambda_lm(theta_r) F[b, j, r]`` and
+    ``neg[b, l, j] = Omega (-1)^m sum_r lambda_lm(theta_r) G[b, j, r]``,
+    m = m_lo + j; columns with m > lmax are zeros.  Each m is computed by
+    itself, so a window's columns equal the full range's bit for bit.
     CPU tensors take the plain version; CUDA tensors launch the kernel and
     get transposed views of (B, nm, lmax+1) tensors.
     """
     if not backend.on_cuda(F, G, cos_t, sin_t):
-        return legendre_contract_ref(F, G, cos_t, sin_t, lmax, pixarea)
+        return legendre_contract_ref(F, G, cos_t, sin_t, lmax, pixarea, m_lo)
     B, nm, nring = F.shape
     backend.require(F, "F", dtype=(torch.complex64, torch.complex128), ndim=3)
     backend.require(G, "G", dtype=F.dtype, shape=F.shape)
     backend.require(cos_t, "cos_t", dtype=torch.float64, shape=(nring,))
     backend.require(sin_t, "sin_t", dtype=torch.float64, shape=(nring,))
-    if nm > lmax + 1:
-        raise ValueError(f"nm={nm} exceeds lmax+1={lmax + 1}")
+    if m_lo < 0:
+        raise ValueError(f"m_lo={m_lo} is negative")
     dev = F.device
     # the kernel writes (B, nm, lmax + 1), contiguous along l, so that a
     # block's stores for its m run along l; the results are its transposes
     pos = torch.empty((B, nm, lmax + 1), dtype=F.dtype, device=dev)
     neg = torch.empty_like(pos)
-    if B == 0 or nm == 0 or nring == 0:
+    # the columns past lmax are zeros and get no block
+    nvalid = max(0, min(nm, lmax + 1 - m_lo))
+    pos[:, nvalid:].zero_()
+    neg[:, nvalid:].zero_()
+    if B == 0 or nvalid == 0 or nring == 0:
         return pos.zero_().transpose(1, 2), neg.zero_().transpose(1, 2)
-    logpref, sched = _legendre_tables(lmax, nm, dev)
+    logpref, sched = _legendre_tables(lmax, nvalid, dev, m_lo)
     fn = K3K5.entry(
         "legendre_sht_c64" if F.dtype == torch.complex64 else "legendre_sht_c128",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
         + [ctypes.c_double, ctypes.c_void_p],
     )
     backend.check(
         fn(
             F.data_ptr(), G.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
             logpref.data_ptr(), sched.data_ptr(), sched.shape[0], pos.data_ptr(),
-            neg.data_ptr(), B, nm, nring, lmax, float(pixarea), backend.stream_ptr(dev),
+            neg.data_ptr(), B, nm, m_lo, nring, lmax, float(pixarea), backend.stream_ptr(dev),
         ),
         K3K5.name,
     )
@@ -238,14 +265,15 @@ def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float):
 _PHASE_CACHE = {}
 
 
-def _phase_tables(nside: int, nm: int, dtype, device):
-    """Device tables of the phase stage, cached per (nside, nm, dtype, device).
+def _phase_tables(nside: int, m1: int, dtype, device, m0: int = 0):
+    """Device tables of the phase stage for m = m0 .. m1 - 1, cached per
+    (nside, m0, m1, dtype, device).
 
     Returns (groups [(N, ring indices)], kpos, kneg flat gather indices
-    (nm*nring,) into the (ring, slot) spectrum, shift (nm, nring) =
-    e^{+i m phi0_r}).
+    ((m1 - m0)*nring,) into the (ring, slot) spectrum, shift (m1 - m0,
+    nring) = e^{+i m phi0_r}), row j holding m = m0 + j.
     """
-    key = (nside, nm, dtype, str(device))
+    key = (nside, m0, m1, dtype, str(device))
     if key not in _PHASE_CACHE:
         g = ring_geometry(nside)
         groups = [
@@ -256,7 +284,7 @@ def _phase_tables(nside: int, nm: int, dtype, device):
         # phi0_r = pi h_r / N_r exactly, h in {0, 1}:
         # m phi0 = 2 pi (m h mod 2N) / 2N
         h = np.rint(g.phi0 * nphi / np.pi).astype(np.int64)
-        m = np.arange(nm, dtype=np.int64)[:, None]
+        m = np.arange(m0, m1, dtype=np.int64)[:, None]
         base = (np.arange(g.nring, dtype=np.int64) * g.maxlen)[None, :]
         kpos = torch.as_tensor((base + m % nphi[None, :]).ravel(), device=device)
         kneg = torch.as_tensor((base + (-m) % nphi[None, :]).ravel(), device=device)
@@ -269,17 +297,26 @@ def _phase_tables(nside: int, nm: int, dtype, device):
     return _PHASE_CACHE[key]
 
 
-def phase_stage(padded, nside: int, nm: int):
-    """(F, G), each (B, nm, nring) complex, from (B, nring, maxlen) maps."""
+def _cmul(a, b):
+    """a * b for complex tensors, each part by separate real operations:
+    the same bits for an element wherever it lies in the tensor (the CPU's
+    vectorised complex product rounds differently from its scalar tail)."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
+def phase_stage(padded, nside: int, nm: int, m0: int = 0):
+    """(F, G), each (B, nm, nring) complex, from (B, nring, maxlen) maps;
+    row j holds m = m0 + j."""
     g = ring_geometry(nside)
     B = padded.shape[0]
-    groups, kpos, kneg, shift = _phase_tables(nside, nm, padded.dtype, padded.device)
+    groups, kpos, kneg, shift = _phase_tables(nside, m0 + nm, padded.dtype, padded.device, m0)
     spec = torch.zeros_like(padded)
     for n, r in groups:
         spec[:, r, :n] = torch.fft.fft(padded[:, r, :n], dim=-1)
     flat = spec.reshape(B, -1)
-    F = flat[:, kpos].reshape(B, nm, g.nring) * shift.conj()
-    G = flat[:, kneg].reshape(B, nm, g.nring) * shift
+    F = _cmul(flat[:, kpos].reshape(B, nm, g.nring), shift.conj())
+    G = _cmul(flat[:, kneg].reshape(B, nm, g.nring), shift)
     return F.contiguous(), G.contiguous()
 
 
@@ -310,7 +347,7 @@ def _geom_tensors(nside: int, device) -> _Geom:
     return _GEOM_CACHE[key]
 
 
-def analysis(maps, lmax: int, nside: int):
+def analysis(maps, lmax: int, nside: int, m_window=None):
     """Forward SHT of ring-padded complex maps, both m signs.
 
     The JAX package's ``analysis_split(..., neg_m=True, ring_padded=True)``
@@ -318,8 +355,19 @@ def analysis(maps, lmax: int, nside: int):
     (ring, slot) layout of ``nside``.  Returns (pos (..., lmax+1, lmax+1),
     neg (..., lmax+1, lmax)), the negative block's column j holding
     m = -(j + 1).
+
+    ``m_window=(m0, m1)`` computes only m in [m0, m1), in the uniform
+    layout: pos and neg both (..., lmax+1, m1 - m0), column j holding
+    m = m0 + j in pos and -(m0 + j) in neg (the m = 0 negative column is
+    zero).  m1 may exceed lmax + 1; the columns past lmax are zeros.  A
+    window's columns equal the same columns of the full range bit for bit.
     """
-    mmax = lmax
+    if m_window is not None:
+        m0, m1 = int(m_window[0]), int(m_window[1])
+        if not 0 <= m0 < m1:
+            raise ValueError(f"invalid m_window {m_window}")
+    else:
+        m0, m1 = 0, lmax + 1
     g = ring_geometry(nside)
     npix = maps.shape[-1]
     if npix != g.nring * g.maxlen:
@@ -329,11 +377,14 @@ def analysis(maps, lmax: int, nside: int):
     lead = maps.shape[:-1]
     cos_t, sin_t, mask = _geom_tensors(nside, maps.device)[:3]
     flat = maps.reshape(-1, g.nring, g.maxlen) * mask.to(maps.real.dtype)
-    F, G = phase_stage(flat, nside, mmax + 1)
-    pos, neg = legendre_contract(F, G, cos_t, sin_t, lmax, 4.0 * math.pi / g.npix)
-    pos = pos.reshape(lead + (lmax + 1, mmax + 1))
-    neg = neg[..., 1:].reshape(lead + (lmax + 1, mmax))
-    return pos, neg
+    F, G = phase_stage(flat, nside, m1 - m0, m0)
+    pos, neg = legendre_contract(F, G, cos_t, sin_t, lmax, 4.0 * math.pi / g.npix, m0)
+    if m_window is None:
+        return pos.reshape(lead + (lmax + 1, lmax + 1)), neg[..., 1:].reshape(lead + (lmax + 1, lmax))
+    if m0 == 0:
+        neg[..., 0] = 0  # the m = 0 column of the negative block is pos's
+    shape = lead + (lmax + 1, m1 - m0)
+    return pos.reshape(shape), neg.reshape(shape)
 
 
 # ------------------------------------------------------------------

@@ -69,33 +69,15 @@ class ProductStepResult(NamedTuple):
     evecs: torch.Tensor  # (M, F*S, F*S) KL modes (rows)
 
 
-def kl_product_step(
-    beam: torch.Tensor,
-    noisew: torch.Tensor,
-    ls: torch.Tensor,
-    lf: torch.Tensor,
-    m_values: torch.Tensor,
-    npol: int,
-    nl: int,
-    polsvcut: float = 1e-4,
-    svcut: float = 1e-6,
-    sig_levels: int = 2,
-    band_rel: float = 3e-2,
-) -> ProductStepResult:
-    """SVD-compress and KL-filter a batch of m-modes.
-
-    beam : (M, F, T, npol*nl) complex, m-major; noisew (F, T) inverse noise
-    weights (noisepower^-1/2), so the projected radiometer noise is the
-    identity in the SVD basis; ls, lf (nl, npol, F, K) covariance factors;
-    m_values (M,) with m < 0 marking padding (zero outputs).  ``polsvcut``
-    is the polarisation filter's cut (npol > 1), relative to each item's
-    largest polarised singular value.
-    """
-    M, F = beam.shape[0], beam.shape[1]
-    cdt, rdt = beam.dtype, backend.real_dtype(beam.dtype)
+def svd_compress(beam, noisew, m_values, npol: int, nl: int, polsvcut: float = 1e-4,
+                 svcut: float = 1e-6):
+    """The SVD stage of :func:`kl_product_step`, in complex128: (ut, beam_svd,
+    sig, nmodes) of the masked, noise-whitened beams, with the global
+    ``svcut`` (relative to each m's top singular value) applied to the
+    bases and counted in ``nmodes``."""
+    M = beam.shape[0]
     mv = m_values.to(beam.device)
     noisew = noisew.to(torch.float64)
-
     # The SVD and the pencil run in complex128 (outputs return in the
     # beams' precision; K9's Gram stays in it).  On an H100 a float32 SVD
     # puts the card's retained spectrum 2.9e-2 of the top eigenvalue away
@@ -110,17 +92,52 @@ def kl_product_step(
     ut, bsvd, sig, nmodes = linalg.triple_svd_batched(
         bw, npol=npol, nl=nl, polsvcut=polsvcut
     )
-    S = ut.shape[-2]
-
     # global svcut relative to each m's top singular value
     smax = sig.reshape(M, -1).amax(-1)
     svmask = (sig > smax[:, None, None] * svcut).double()
     ut = ut * svmask[..., None]
     bsvd = bsvd * svmask[..., None]
     nmodes = torch.minimum(nmodes, svmask.sum(-1).to(nmodes.dtype))
+    return ut, bsvd, sig, nmodes
 
-    b5 = bsvd.reshape(M, F, S, npol, nl)
-    if uses_compact_signal(F * S, nl * ls.shape[-1]):
+
+def kl_product_step(
+    beam: torch.Tensor,
+    noisew: torch.Tensor,
+    ls: torch.Tensor,
+    lf: torch.Tensor,
+    m_values: torch.Tensor,
+    npol: int,
+    nl: int,
+    polsvcut: float = 1e-4,
+    svcut: float = 1e-6,
+    sig_levels: int = 2,
+    band_rel: float = 3e-2,
+    s_cap: int = 0,
+) -> ProductStepResult:
+    """SVD-compress and KL-filter a batch of m-modes.
+
+    beam : (M, F, T, npol*nl) complex, m-major; noisew (F, T) inverse noise
+    weights (noisepower^-1/2), so the projected radiometer noise is the
+    identity in the SVD basis; ls, lf (nl, npol, F, K) covariance factors;
+    m_values (M,) with m < 0 marking padding (zero outputs).  ``polsvcut``
+    is the polarisation filter's cut (npol > 1), relative to each item's
+    largest polarised singular value.  ``s_cap`` > 0 keeps the top
+    ``s_cap`` SVD modes of each frequency in the KL pencil (its dimension
+    is then F * s_cap; the caller keeps every retained mode inside the
+    cap): the m-bucketing's compacted mode axis.
+    """
+    M, F = beam.shape[0], beam.shape[1]
+    cdt, rdt = beam.dtype, backend.real_dtype(beam.dtype)
+    mv = m_values.to(beam.device)
+    ut, bsvd, sig, nmodes = svd_compress(beam, noisew, mv, npol, nl, polsvcut, svcut)
+    S = ut.shape[-2]
+    # modes are sorted by singular value per frequency, so the top-s_cap
+    # slice keeps every non-zero mode
+    s_kl = s_cap if 0 < s_cap < S else S
+
+    b5 = bsvd[:, :, :s_kl].reshape(M, F, s_kl, npol, nl)
+    if uses_compact_signal(F * s_kl, nl * ls.shape[-1]):
         # re-factor the signal side to width n (K9 + shifted Cholesky)
         a_s = fpencil.beam_factor_compact(b5.to(cdt), ls)
     else:
@@ -229,7 +246,7 @@ def fisher_cov(v: torch.Tensor, bt: torch.Tensor, band_lt: torch.Tensor):
 
 
 def fisher_step(evals, evecs, beam_svd, band_lt, ps_threshold: float, npol: int,
-                nl: int, kf: int):
+                nl: int, kf: int, s_cap: int = 0, f_idx=None):
     """Per-m quadratic-estimator Fisher matrices from the KL products.
 
     F_ab[m] = sum_ij w_i w_j C_a[i, j] C_b[j, i] with w = 1/(1 + lambda)
@@ -238,17 +255,24 @@ def fisher_step(evals, evecs, beam_svd, band_lt, ps_threshold: float, npol: int,
     so bit for bit), so C_b[j, i] = conj(C_b[i, j]).  evals (M, n)
     ascending, evecs (M, n, n) rows = modes, beam_svd (M, F, S, npol*nl);
     the retained modes are the trailing ``kf`` rows, where kf is at least
-    the batch's largest retained count.  Returns (M, nb, nb) complex128
-    (:func:`projections.fisher_trace`, accumulated in float64).
+    the batch's largest retained count.  A compacted m-chunk passes the
+    product step's ``s_cap`` (the pencil's top-s_cap modes a frequency)
+    and ``f_idx`` (the band table's frequencies of the chunk's frequency
+    slots; padding slots need no mask: their beams are zero).  Returns
+    (M, nb, nb) complex128 (:func:`projections.fisher_trace`, accumulated
+    in float64).
     """
     if ps_threshold <= 0:
         raise ValueError("ps_threshold must be > 0 (padding-slot contract)")
     M, F, S = beam_svd.shape[0], beam_svd.shape[1], beam_svd.shape[2]
+    s_kl = s_cap if 0 < s_cap < S else S
+    if f_idx is not None:
+        band_lt = band_lt[:, :, torch.as_tensor(f_idx, device=band_lt.device)]
     n = evals.shape[-1]
     ev = evals[:, n - kf :]
     w = torch.where(ev > ps_threshold, 1.0 / (1.0 + ev), torch.zeros_like(ev))
-    v = evecs[:, n - kf :].reshape(M, kf, F, S).resolve_conj().contiguous()
-    bt = beam_svd.reshape(M, F, S, npol, nl)[:, :, :, 0].contiguous()
+    v = evecs[:, n - kf :].reshape(M, kf, F, s_kl).resolve_conj().contiguous()
+    bt = beam_svd[:, :, :s_kl].reshape(M, F, s_kl, npol, nl)[:, :, :, 0].contiguous()
     c = fisher_cov(v, bt, band_lt)  # (M, nb, kf, kf)
     return projections.fisher_trace(c, c, w.contiguous())
 

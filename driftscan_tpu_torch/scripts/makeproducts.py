@@ -2,16 +2,24 @@
 """drift-makeproducts of the port: generate analysis products from a config.
 
     python -m driftscan_tpu_torch.scripts.makeproducts run cfg.yaml [--device cpu]
+    python -m driftscan_tpu_torch.scripts.makeproducts convert DIR
 
 The ``run`` command is a thin ``click`` wrapper over :func:`run_config`,
 which programs call directly.  Products are generated on the card unless
 another device is named.  ``--profile`` writes a ``cProfile`` dump, or
-with ``--profiler torch`` a device trace (``torch.profiler``).  The
-``interactive`` and ``queue`` commands of driftscan are not ported yet
-(ROADMAP.md, modules to port, item 7.4).
+with ``--profiler torch`` a device trace (``torch.profiler``).  ``convert``
+rewrites the ``.npy`` directory stores of a finished product directory
+(what a host without h5py writes) as HDF5 files (``util.store.convert``;
+needs h5py).  The ``interactive`` and ``queue`` commands of driftscan are
+registered but not ported yet (ROADMAP.md, modules to port, item 7.4).
 """
 
 import logging
+
+_NOT_PORTED = (
+    "the {} command of drift-makeproducts is not ported yet: ROADMAP.md, "
+    "modules to port, item 7.4"
+)
 
 
 def run_config(configfile, device=None, profile=False, profiler="cProfile"):
@@ -86,6 +94,36 @@ def _cli():
         """Immediately run the CONFIGFILE to generate products."""
         _setup_logging()
         run_config(configfile, device=device, profile=profile, profiler=profiler)
+
+    @cli.command()
+    @click.argument(
+        "directory", type=click.Path(exists=True, file_okay=False, resolve_path=True)
+    )
+    def convert(directory):
+        """Rewrite the .npy directory stores under DIRECTORY as HDF5 files."""
+        from ..util import store
+
+        if store.h5py is None:
+            raise click.ClickException("convert needs h5py, which this Python cannot import")
+        try:
+            done = store.convert(directory)
+        except ValueError as exc:
+            raise click.ClickException(str(exc))
+        click.echo(f"converted {len(done)} product files under {directory} to HDF5")
+
+    config = click.Path(exists=True, dir_okay=False, readable=True, resolve_path=True)
+
+    @cli.command()
+    @click.argument("configfile", type=config)
+    def interactive(configfile):
+        """Load the config without generating (not ported yet)."""
+        raise NotImplementedError(_NOT_PORTED.format("interactive"))
+
+    @cli.command()
+    @click.argument("configfile", type=config)
+    def queue(configfile):
+        """Write and submit a batch job script (not ported yet)."""
+        raise NotImplementedError(_NOT_PORTED.format("queue"))
 
     return cli
 

@@ -5,8 +5,11 @@ The product pipeline writes HDF5 (``beam.hdf5``, ``svd.hdf5``,
 imports, in the layout the JAX package and driftscan itself use, so
 product directories are interchangeable.  On a host without h5py the
 same tree is kept as a directory of that name holding one ``.npy`` file
-per dataset and the attributes in ``__attrs__.npz``: the pipeline runs
-unchanged, and the directory can be converted later.
+per dataset, the attributes in ``__attrs__.npz`` and each dataset's HDF5
+layout (chunk shape, codec) in ``__layout__.json``: the pipeline runs
+unchanged, and :func:`convert` (``drift-makeproducts-torch convert DIR``)
+later rewrites the directories of a finished product tree as the HDF5
+files the h5py writer would have made, on any host with h5py.
 
 :func:`File` opens either; ``BACKEND`` says which one this process uses.
 A file opened for writing appears under its name only when it is closed
@@ -17,6 +20,7 @@ only its own bytes.
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 
@@ -31,6 +35,10 @@ except ImportError:
     BACKEND = "npy"
 
 _ATTRS = "__attrs__.npz"
+_LAYOUT = "__layout__.json"
+# the pipeline's completion markers: a directory of this name is finished
+# only once it holds its marker
+_MARKERS = {"beam_m": "COMPLETED", "mmodes": "COMPLETED_M"}
 
 
 class _NpyDataset:
@@ -71,6 +79,7 @@ class _NpyFile:
         self.mode = mode
         self.attrs = {}
         self._new = {}
+        self._layout = {}
         self._mapped = []
         if mode != "w":
             if not os.path.isdir(path):
@@ -78,9 +87,13 @@ class _NpyFile:
             with np.load(os.path.join(path, _ATTRS)) as z:
                 self.attrs = {k: (v[()] if v.ndim == 0 else v) for k, v in z.items()}
 
-    def create_dataset(self, name, shape=None, dtype=None, data=None, **_layout):
+    def create_dataset(self, name, shape=None, dtype=None, data=None, chunks=None, codec=None,
+                       **_layout):
         if self.mode != "w":
             raise ValueError(f"directory store: create_dataset needs mode 'w', not {self.mode!r}")
+        # what the h5py writer would have been given, for the converter
+        self._layout[name] = {"chunks": None if chunks is None else list(chunks),
+                              "codec": codec}
         if data is not None:
             ds = _NpyDataset(np.array(data, dtype=dtype))
         else:
@@ -123,6 +136,8 @@ class _NpyFile:
                     np.lib.format.open_memmap(fn, "w+", ds.dtype, ds.shape).flush()
             np.savez(os.path.join(tmp, _ATTRS),
                      **{k: np.asarray(v) for k, v in self.attrs.items()})
+            with open(os.path.join(tmp, _LAYOUT), "w") as f:
+                json.dump(self._layout, f)
             remove(self.path)
             os.replace(tmp, self.path)
         return False
@@ -163,10 +178,11 @@ def readable(path) -> bool:
 
 
 def compression_kwargs(dtype, codec):
-    """``create_dataset`` compression arguments for ``codec`` (HDF5 only;
-    the directory store keeps plain arrays)."""
+    """``create_dataset`` compression arguments for ``codec``.  The
+    directory store keeps plain arrays and records the codec's name, which
+    :func:`to_hdf5` turns into these arguments under h5py."""
     if h5py is None:
-        return {}
+        return {"codec": codec}
     from ..ops import bitshuffle
 
     return bitshuffle.compression_kwargs(dtype, codec)
@@ -175,6 +191,8 @@ def compression_kwargs(dtype, codec):
 def codec(name) -> str:
     """What a dataset written with codec ``name`` is compressed with here:
     ``bitshuffle+LZ4``, ``LZF+shuffle`` or ``none``."""
+    if h5py is None:
+        return "none"
     kwargs = compression_kwargs(np.complex128, name)
     if not kwargs:
         return "none"
@@ -187,3 +205,93 @@ def register_codecs():
         from ..ops import bitshuffle
 
         bitshuffle.register()
+
+
+def is_directory_store(path) -> bool:
+    """True if ``path`` is a product file kept as a directory store."""
+    return os.path.isfile(os.path.join(path, _ATTRS))
+
+
+def to_hdf5(path):
+    """Rewrite the directory store at ``path`` as the HDF5 file of the same
+    name: the same datasets (dtype, shape, values) and attributes, each
+    dataset with the chunk shape it was created with and the codec that
+    :func:`compression_kwargs` gives the h5py writer (a store made before
+    layouts were recorded gets plain datasets).  Needs h5py."""
+    if h5py is None:
+        raise RuntimeError("converting a directory store to HDF5 needs h5py")
+    register_codecs()
+    lay_file = os.path.join(path, _LAYOUT)
+    layout = {}
+    if os.path.exists(lay_file):
+        with open(lay_file) as f:
+            layout = json.load(f)
+    src = _NpyFile(path, "r")
+    names = sorted(fn[: -len(".npy")] for fn in os.listdir(path) if fn.endswith(".npy"))
+    tmp = f"{path}.{os.getpid()}.part"
+    remove(tmp)
+    try:
+        with h5py.File(tmp, "w") as f:
+            for name in names:
+                data = np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
+                lay = layout.get(name, {})
+                kw = {}
+                if lay.get("chunks") is not None:
+                    kw["chunks"] = tuple(lay["chunks"])
+                if lay.get("codec") is not None:
+                    kw.update(compression_kwargs(data.dtype, lay["codec"]))
+                f.create_dataset(name, data=data, **kw)
+            for key, val in src.attrs.items():
+                if isinstance(val, np.ndarray) and val.dtype.kind == "U":
+                    val = val.astype(h5py.string_dtype())
+                elif isinstance(val, str):
+                    val = str(val)  # a text attribute, as h5py keeps a str
+                f.attrs[key] = val
+    except BaseException:
+        remove(tmp)
+        raise
+    remove(path)
+    os.replace(tmp, path)
+
+
+def unfinished(root) -> list:
+    """Paths under ``root`` that show a product tree still being written: a
+    file or store being written (``*.part``, ``*.tmp``), or a directory
+    the pipeline marks on completion (``beam_m``, ``mmodes``) without its
+    marker."""
+    found = []
+    for d, dirs, files in os.walk(root):
+        for name in dirs + files:
+            if name.endswith((".part", ".tmp")):
+                found.append(os.path.join(d, name))
+        marker = _MARKERS.get(os.path.basename(d))
+        if marker and marker not in files:
+            found.append(os.path.join(d, marker) + " (missing)")
+        # a store is a leaf: nothing of the tree lies inside it
+        dirs[:] = [x for x in dirs if not is_directory_store(os.path.join(d, x))]
+    return found
+
+
+def convert(root) -> list:
+    """Convert every directory store under the product directory ``root``
+    to HDF5 (:func:`to_hdf5`), after checking that the tree is finished
+    (:func:`unfinished`; a ``ValueError`` names what is not).  Returns the
+    converted paths."""
+    if h5py is None:
+        raise RuntimeError("converting product directories to HDF5 needs h5py")
+    if not os.path.isdir(root):
+        raise ValueError(f"{root} is not a directory")
+    busy = unfinished(root)
+    if busy:
+        raise ValueError(
+            f"{root} is still being written (or was left unfinished): " + ", ".join(busy[:5])
+        )
+    stores = []
+    for d, dirs, _ in os.walk(root):
+        for x in list(dirs):
+            if is_directory_store(os.path.join(d, x)):
+                stores.append(os.path.join(d, x))
+                dirs.remove(x)
+    for path in sorted(stores):
+        to_hdf5(path)
+    return sorted(stores)

@@ -347,6 +347,67 @@ def test_k3k5_legendre_sht_edges(cuda, shape):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+# (nside, lmax, m0, m1, B, dtype): windows of odd and even width, one m,
+# windows that run past lmax + 1, m0 = 0, and ns2's window at its lmax
+K3K5_WINDOWS = [
+    (16, 30, 0, 9, 8, torch.complex64), (16, 30, 5, 23, 3, torch.complex128),
+    (16, 30, 29, 40, 8, torch.complex64), (32, 47, 47, 48, 2, torch.complex128),
+    (64, 120, 60, 121, 64, torch.complex64), (256, 324, 270, 315, 16, torch.complex64),
+]
+
+
+@pytest.mark.parametrize("shape", K3K5_WINDOWS, ids=lambda s: "x".join(map(str, s[:5])) + str(s[5])[-3:])
+def test_k3k5_window(cuda, shape):
+    """K3+K5 over an m-window (m_lo): against its plain version, two
+    launches bitwise equal, the window's columns bitwise equal to a
+    full-range call's on the same inputs, and the columns past lmax zero."""
+    nside, lmax, m0, m1, B, dtype = shape
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(nside + m0 + B)
+    Ff = _crandn(rng, (B, lmax + 1, g.nring), cuda).to(dtype)
+    Gf = _crandn(rng, (B, lmax + 1, g.nring), cuda).to(dtype)
+    w = min(m1, lmax + 1) - m0
+    F = torch.zeros((B, m1 - m0, g.nring), dtype=dtype, device=cuda)
+    G = torch.zeros_like(F)
+    F[:, :w], G[:, :w] = Ff[:, m0 : m0 + w], Gf[:, m0 : m0 + w]
+    ct = torch.as_tensor(g.cos_theta, device=cuda)
+    st = torch.as_tensor(g.sin_theta, device=cuda)
+    area = 4 * np.pi / g.npix
+    rtol = 1e-5 if dtype == torch.complex64 else 1e-10
+    _check(sht.K3K5, lambda: sht.legendre_contract(F, G, ct, st, lmax, area, m0),
+           lambda: sht.legendre_contract_ref(F, G, ct, st, lmax, area, m0), rtol)
+    a = sht.legendre_contract(F, G, ct, st, lmax, area, m0)
+    b = sht.legendre_contract(F, G, ct, st, lmax, area, m0)
+    full = sht.legendre_contract(Ff, Gf, ct, st, lmax, area)
+    torch.cuda.synchronize()
+    for x, y, f in zip(a, b, full):
+        assert torch.equal(x, y)
+        assert torch.equal(x[..., :w], f[..., m0 : m0 + w])
+        assert not x[..., w:].any()
+
+
+def test_windowed_btm_on_the_card(cuda):
+    """btm_resident(m_range=) on the card: every column bitwise equal to
+    the full tables' (the uniform layout)."""
+    from driftscan_tpu_torch.parallel import resident
+
+    tel = cylinder.PolarisedCylinderTelescope.from_config(
+        dict(num_freq=2, freq_start=400.0, freq_end=410.0, num_cylinders=2,
+             cylinder_width=3.0, num_feeds=2, feed_spacing=1.0, single_precision=True),
+        device=cuda,
+    )
+    bl = np.arange(tel.npairs)
+    fi = np.arange(tel.nfreq)
+    blg, fig = [x.ravel() for x in np.meshgrid(bl, fi, indexing="ij")]
+    fp, fn = resident.btm_resident(tel, blg, fig)
+    m0, m1 = 5, tel.lmax + 4
+    pw, nw = resident.btm_resident(tel, blg, fig, m_range=(m0, m1))
+    hi = tel.lmax + 1
+    assert torch.equal(pw[..., : hi - m0], fp[..., m0:hi])
+    assert torch.equal(nw[..., : hi - m0], fn[..., m0 - 1 : hi - 1])
+    assert not pw[..., hi - m0 :].any() and not nw[..., hi - m0 :].any()
+
+
 @pytest.mark.parametrize("nside,lmax,B", [(64, 120, 64), (128, 229, 16)])
 def test_k3k5_complex64_no_farther_from_float64_than_plain(cuda, nside, lmax, B):
     """In complex64 the 3xTF32 products (tf32 parts rounded to nearest,

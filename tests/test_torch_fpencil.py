@@ -119,3 +119,26 @@ def test_kl_solve_rejects_unported_engines():
     a = torch.zeros((4, 4), dtype=torch.complex128)
     with pytest.raises(NotImplementedError):
         fpencil.kl_solve(a, a, method="gram")
+
+
+def test_gram_bands_take_the_svd_where_eigh_fails(monkeypatch):
+    """Where the Hermitian eigensolver raises (cuSOLVER's divide and
+    conquer on Grams with a large near-zero cluster), the Gram's SVD gives
+    the same levels: singular values and projectors within 1e-12."""
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(_crandn(rng, (2, 12, 5)) @ _crandn(rng, (2, 5, 30)))  # rank 5
+    want = fpencil.gram_bands(x, levels=2)
+
+    def fail(_):
+        raise torch.linalg.LinAlgError("failed to converge")
+
+    before = fpencil.svd_retries
+    monkeypatch.setattr(torch.linalg, "eigh", fail)
+    got = fpencil.gram_bands(x, levels=2)
+    assert fpencil.svd_retries == before + 2
+    np.testing.assert_allclose(got.s.numpy(), want.s.numpy(), rtol=0,
+                               atol=1e-12 * float(want.s.max()))
+    for a, b in ((got.q, want.q),):
+        pa = (a @ a.conj().transpose(-1, -2)).numpy()
+        pb = (b @ b.conj().transpose(-1, -2)).numpy()
+        np.testing.assert_allclose(pa, pb, rtol=0, atol=1e-10)

@@ -28,6 +28,7 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.experiments.k14_ablations",
     "driftscan_tpu_torch.experiments.k14_m_ranges",
     "driftscan_tpu_torch.experiments.map_rounding",
+    "driftscan_tpu_torch.experiments.ns2_btm_breakdown",
     "driftscan_tpu_torch.ops.fpencil",
     "driftscan_tpu_torch.ops.healpix",
     "driftscan_tpu_torch.ops.kernels",

@@ -106,8 +106,6 @@ def test_fisher_matches(runs):
 def test_unported_options_raise():
     tt = cylinder.UnpolarisedCylinderTelescope.from_config(CFG, device="cpu")
     z = torch.zeros((1, 1, 2, 2), dtype=torch.complex128)
-    for kw in ({"bucket": True}, {"m_range": (0, 4)}, {"topband": True}, {"mesh": object()}):
+    for kw in ({"topband": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             resident.product_all_resident(tt, z, z, None, None, None, **kw)
-    with pytest.raises(NotImplementedError):
-        resident.btm_resident(tt, [0], [0], m_range=(0, 4))
