@@ -105,8 +105,11 @@ script exits non-zero:
    MonteCarloAlt and Cross on ``[products]``' KL filter against its
    ``Full`` Fisher and the CPU (:func:`psmc_phase`);
 9. probe -- the ports of the two Pallas probes of
-   ``scratch/pallas_probe.py`` (o = 2 x; a 1024^3 matmul, float32 and
-   bfloat16 inputs) against their plain versions, with Tflop/s;
+   ``scratch/pallas_probe.py`` against their plain versions: o = 2 x at
+   the probe's 1024^2 and at 8192^2 (512 MiB moved, past the L2), the
+   matmul at the probe's 1024^3 and at 4096^3, float32 and bfloat16
+   inputs, each with kernel and library per-launch and CUDA-graph times,
+   its bound by the units it uses and Tflop/s (:func:`probe_phase`);
 10. svd cut -- the bench cylinder's SVD mode count from its BTM made by
    the kernels, with K3+K5's plain version in its place, and in float64
    (:func:`svd_cut_phase`; printed, not gated).
@@ -218,6 +221,8 @@ NS2_RECORD = "ckpt/ns2_windows/w06_270_315_exact_highest_solve_bcast_f1.npz"
 # [slice windows]: the bench cylinder's 226 m in two m-windows
 SLICE_WINDOWS = ((0, 113), (113, 226))
 PROBE_N = 1024  # scratch/pallas_probe.py's shapes
+PROBE_DOUBLE_LARGE = 8192  # 512 MiB moved: past the 50 MB L2
+PROBE_MM_LARGE = 4096  # a matmul that fills the card
 
 PROBE_KERNELS = ("probe_double", "probe_mm")
 # [chunked]: mem_chunk 0.1 GiB holds 64 of the bench cylinder's 176 units
@@ -389,13 +394,15 @@ def bound(nbytes_moved, ops):
 
 
 def compare(name, kernel_fn, plain_fn, rtol, work, library_fn=None, reps=10,
-            tag="kernels", bitwise=False, per_launch=False, graph=False):
+            tag="kernels", bitwise=False, per_launch=False, graph=False,
+            library_per_launch=False):
     """Kernel vs plain on the same inputs: max error, tolerance, times; the
     bound of ``work`` = (bytes, [(flops, rate), ...]) and the time of one
     PyTorch call computing the same function (``library_fn``), if any.
     With ``bitwise`` a second kernel call must repeat the first bit for
     bit.  ``per_launch`` adds launch_ms (and graph_ms with ``graph``) to
-    the log."""
+    the log; ``library_per_launch`` the same for the library call, and
+    returns all four under ``"device"``."""
     import torch
 
     got = kernel_fn()
@@ -425,19 +432,30 @@ def compare(name, kernel_fn, plain_fn, rtol, work, library_fn=None, reps=10,
     bound_ms, bound_by = bound(*work)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     extra = ""
+    device = {}
     if per_launch:
-        per = launch_ms(kernel_fn)
+        per = device["launch_ms"] = launch_ms(kernel_fn)
         extra = f"; per launch {per:.4f} ms ({bound_ms / per:.4f} of bound)"
         if graph:
-            extra += f", in a graph {graph_ms(kernel_fn):.4f} ms"
+            device["graph_ms"] = graph_ms(kernel_fn)
+            extra += f", in a graph {device['graph_ms']:.4f} ms"
+        if library_per_launch and library_fn is not None:
+            device["library_launch_ms"] = launch_ms(library_fn)
+            extra += f"; library per launch {device['library_launch_ms']:.4f} ms"
+            if graph:
+                device["library_graph_ms"] = graph_ms(library_fn)
+                extra += f", in a graph {device['library_graph_ms']:.4f} ms"
     log(
         f"[{tag}] {name}: max_abs_err {err:.6e} (max|plain| {scale:.6e}, "
         f"rel tol {rtol:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
         f"library {lib} bound {bound_ms:.4f} ms ({bound_by}; "
         f"{bound_ms / ms:.4f} of bound){extra}"
     )
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    if library_per_launch:
+        rec["device"] = device
+    return rec
 
 
 def first_chunk(tel):
@@ -2243,8 +2261,14 @@ def profile_timestream(outdir, mapfile, nside):
 
 
 def probe_phase():
-    """The two Pallas probes' ports: one run of each (counted), then each
-    against its plain version, with Tflop/s for the matmul."""
+    """The two Pallas probes' ports: one run of each at the probe's shapes
+    (counted), then each against its plain version at the probe's shapes
+    (the records of the kernels line; bfloat16 ``mm`` kept beside them)
+    and at the larger ones, with kernel and library times per call, per
+    launch and in a CUDA graph, and the bound by the units the kernel
+    uses: bytes for ``double``; bfloat16 ``mm`` on the tensor cores,
+    float32 ``mm`` as 3xTF32 (the float32 CUDA cores' bound logged
+    beside it)."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -2266,32 +2290,63 @@ def probe_phase():
         raise AssertionError("probe outputs not finite")
     require_launched("probe", launches, PROBE_KERNELS)
     log(f"[probe] launches {launches}")
+    del outs
 
-    res = {
-        "probe_double": compare(
-            f"probe_double ({n}x{n} f32, exact)", lambda: probe.double(x),
-            lambda: probe.double_ref(x), rtol=0.0, tag="probe",
-            work=(2 * nbytes(x), [(float(x.numel()), F32_FLOPS)]),
-            library_fn=lambda: torch.mul(x, 2.0),
-        )
-    }
-    flops = 2.0 * n**3
-    for label, (p, q), rtol in (("f32", (a, b), 1e-5), ("bf16", (a16, b16), 1e-3)):
-        # float32 inputs run at the float32 CUDA-core peak; bfloat16 inputs
-        # could run on the tensor cores
-        rec = compare(
-            f"probe_mm ({n}^3 {label} in, f32 out)", lambda: probe.mm(p, q),
-            lambda: probe.mm_ref(p, q), rtol=rtol, tag="probe",
-            work=(nbytes(p, q) + n * n * 4,
-                  [(flops, F32_FLOPS if label == "f32" else BF16_FLOPS)]),
-            library_fn=lambda: torch.matmul(p, q),
-        )
-        log(
-            f"[probe] probe_mm {label}: kernel {flops / rec['ms'] / 1e9:.4f} Tflop/s, "
-            f"plain {flops / rec['plain_ms'] / 1e9:.4f} Tflop/s"
-        )
-        if label == "f32":
-            res["probe_mm"] = rec
+    def timed(name, kernel_fn, plain_fn, rtol, work, library_fn, flops=None):
+        rec = compare(name, kernel_fn, plain_fn, rtol=rtol, tag="probe", work=work,
+                      library_fn=library_fn, bitwise=True, per_launch=True, graph=True,
+                      library_per_launch=True)
+        d = rec.pop("device")
+        rate = "" if flops is None else (
+            f"; Tflop/s in a graph: kernel {flops / d['graph_ms'] / 1e9:.4f}, "
+            f"library {flops / d['library_graph_ms'] / 1e9:.4f}")
+        log(f"[probe] {name}: device times (kernel / library ms): per launch "
+            f"{d['launch_ms']:.4f} / {d['library_launch_ms']:.4f}, in a graph "
+            f"{d['graph_ms']:.4f} / {d['library_graph_ms']:.4f}; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), in a graph "
+            f"{rec['bound_ms'] / d['graph_ms']:.4f} of it{rate}")
+        return rec, d
+
+    res, summary = {}, {}
+    for size in (n, PROBE_DOUBLE_LARGE):
+        xs = x if size == n else torch.arange(size * size, dtype=torch.float32,
+                                              device=dev).reshape(size, size)
+        rec, d = timed(
+            f"probe_double ({size}x{size} f32, exact)", lambda: probe.double(xs),
+            lambda: probe.double_ref(xs), 0.0,
+            (2 * nbytes(xs), [(float(xs.numel()), F32_FLOPS)]), lambda: torch.mul(xs, 2.0))
+        summary[f"probe_double {size}^2"] = {**rec, **d}
+        if size == n:
+            res["probe_double"] = rec
+        del xs
+    for size in (n, PROBE_MM_LARGE):
+        p32, q32 = (a, b) if size == n else (
+            torch.as_tensor(rng.standard_normal((size, size)), dtype=torch.float32, device=dev)
+            for _ in range(2))
+        flops = 2.0 * size**3
+        for label, (p, q), rtol, rate in (
+                ("f32", (p32, q32), 1e-5, GRAM_FLOPS),
+                ("bf16", (p32.to(torch.bfloat16), q32.to(torch.bfloat16)), 1e-3, BF16_FLOPS)):
+            plan = probe.mm_plan(size, size, size, p.dtype, (size, size), 16,
+                                 backend.sm_count(dev))
+            log(f"[probe] probe_mm {size}^3 {label}: route {plan.route}, tile "
+                f"{probe.MM_ROWS} x {plan.nw}, {plan.blocks} blocks on "
+                f"{backend.sm_count(dev)} SMs")
+            if label == "f32":
+                # float32 inputs run as 3xTF32 on the tensor cores; the
+                # float32 CUDA cores would take flops / 67 TFLOP/s
+                log(f"[probe] probe_mm {size}^3 f32: CUDA-core bound "
+                    f"{flops / F32_FLOPS * 1e3:.4f} ms")
+            rec, d = timed(
+                f"probe_mm ({size}^3 {label} in, f32 out)", lambda: probe.mm(p, q),
+                lambda: probe.mm_ref(p, q), rtol,
+                (nbytes(p, q) + size * size * 4, [(flops, rate)]),
+                lambda: torch.matmul(p, q), flops=flops)
+            summary[f"probe_mm {size}^3 {label}"] = {**rec, **d}
+            if size == n:
+                res["probe_mm" if label == "f32" else "probe_mm_bf16"] = rec
+        del p32, q32, p, q
+    log(f"[probe] records {json.dumps(summary)}")
     return launches, res
 
 

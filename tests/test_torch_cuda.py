@@ -779,6 +779,26 @@ def test_probe_double(cuda):
     _check(probe.PROBE_DOUBLE, lambda: probe.double(x), lambda: probe.double_ref(x), 0.0)
 
 
+def _check_repeats(kernel, fn, ref, rtol):
+    """_check, then a second launch bitwise equal to the first."""
+    _check(kernel, fn, ref, rtol)
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,shift", [(999 * 1001, 0), (1000 * 1001, 1), (999 * 1001, 3),
+                                     (3, 1), (8192 * 33, 2)])
+def test_probe_double_head_tail(cuda, n, shift):
+    """An odd count (scalar tail) and views whose data pointer is not
+    16-byte aligned (scalar head; the output shares the offset)."""
+    base = torch.arange(n + shift, dtype=torch.float32, device=cuda) - 7.5
+    x = base[shift:]
+    assert x.data_ptr() % 16 == 4 * shift
+    _check_repeats(probe.PROBE_DOUBLE, lambda: probe.double(x), lambda: probe.double_ref(x), 0.0)
+    assert probe.double(x).data_ptr() % 16 == 4 * shift
+
+
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
 def test_probe_mm(cuda, dtype, rtol):
     rng = np.random.default_rng(2)
@@ -786,6 +806,51 @@ def test_probe_mm(cuda, dtype, rtol):
     a = torch.as_tensor(rng.standard_normal((130, 70)), dtype=dtype, device=cuda)
     b = torch.as_tensor(rng.standard_normal((70, 97)), dtype=dtype, device=cuda)
     _check(probe.PROBE_MM, lambda: probe.mm(a, b), lambda: probe.mm_ref(a, b), rtol)
+
+
+_MM_CASES = {
+    "probe 1024^3 (TMA)": (1024, 1024, 1024, 0),
+    "one tile": (64, 128, 16, 0),
+    "K 1000": (256, 192, 1000, 0),
+    "aligned, ragged tiles": (200, 136, 256, 0),
+    "unaligned pointer": (150, 96, 128, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MM_CASES))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
+def test_probe_mm_cases(cuda, dtype, rtol, case):
+    """mm against mm_ref by the wrapper's own plan, two launches bitwise
+    equal; ``shift`` elements of offset put A's and B's data pointers off
+    16-byte alignment (the staged route)."""
+    M, N, K, shift = _MM_CASES[case]
+    rng = np.random.default_rng(3)
+
+    def operand(rows, cols):
+        flat = torch.as_tensor(rng.standard_normal(rows * cols + shift), dtype=dtype,
+                               device=cuda)
+        return flat[shift:].view(rows, cols)
+
+    a, b = operand(M, K), operand(K, N)
+    plan = probe.mm_plan(M, N, K, dtype, (K, N), probe._align(a.data_ptr(), b.data_ptr()),
+                         backend.sm_count(cuda))
+    assert plan.route == ("staged" if shift else "tma")
+    _check_repeats(probe.PROBE_MM, lambda: probe.mm(a, b), lambda: probe.mm_ref(a, b), rtol)
+
+
+@pytest.mark.parametrize("route", ["tma", "staged"])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
+def test_probe_mm_every_width(cuda, dtype, rtol, route):
+    """Every tile width of either route, forced, on a shape ragged in all
+    three dimensions (rows 16-byte aligned, so either route applies)."""
+    rng = np.random.default_rng(4)
+    M, N, K = 200, 456, 264
+    a = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype, device=cuda)
+    b = torch.as_tensor(rng.standard_normal((K, N)), dtype=dtype, device=cuda)
+    for nw in probe.MM_WIDTHS[dtype]:
+        plan = probe.MMPlan(route, nw, (0, 0))
+        _check_repeats(probe.PROBE_MM, lambda: probe.mm_launch(a, b, plan),
+                       lambda: probe.mm_ref(a, b), rtol)
 
 
 def _small_products(outdir, kl=True, **cfg):

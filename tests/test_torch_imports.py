@@ -29,6 +29,9 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.experiments.k14_m_ranges",
     "driftscan_tpu_torch.experiments.map_rounding",
     "driftscan_tpu_torch.experiments.ns2_btm_breakdown",
+    "driftscan_tpu_torch.experiments.double_grids",
+    "driftscan_tpu_torch.experiments.probe_breakdown",
+    "driftscan_tpu_torch.experiments.probe_tiles",
     "driftscan_tpu_torch.ops.fpencil",
     "driftscan_tpu_torch.ops.healpix",
     "driftscan_tpu_torch.ops.kernels",
