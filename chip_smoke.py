@@ -103,7 +103,13 @@ script exits non-zero:
    chunked route in 2 chunks (BTM only; units against the plain CPU
    versions; its peak host RSS; :func:`chunked_128_phase`); MonteCarlo,
    MonteCarloAlt and Cross on ``[products]``' KL filter against its
-   ``Full`` Fisher and the CPU (:func:`psmc_phase`);
+   ``Full`` Fisher and the CPU (:func:`psmc_phase`); between ``[chunked]``
+   and ``[chunked 128]``, ``[mp products]``: ``[chunked]``'s config with a
+   seeded MonteCarlo through ``drift-makeproducts-torch run`` under
+   torchrun with two ranks on the card, then ``run-config`` with
+   ``[timestream]``'s noiseless ts1 under two ranks; each rank's kernels,
+   the files against ``[chunked]``'s and the maps against
+   ``[timestream]``'s (:func:`mp_products_phase`);
 9. probe -- the ports of the two Pallas probes of
    ``scratch/pallas_probe.py`` against their plain versions: o = 2 x at
    the probe's 1024^2 and at 8192^2 (512 MiB moved, past the L2), the
@@ -140,6 +146,7 @@ import functools
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -234,6 +241,14 @@ CHUNKED_CHUNKS = 3
 # chunks of 18
 CHUNKED_POL_MEM_GB = 0.03
 CHUNKED_128_CHUNKS = 2
+# [mp products]: [chunked]'s config under torchrun, two ranks on the one
+# card: mem_chunk CHUNKED_MEM_GB a rank, so 2 chunks of 128 units
+MP_NPROC = 2
+MP_CHUNKS = 2
+MP_MC_SAMPLES = 500
+MP_TIMEOUT_S = 600
+FILE_PATH_KERNELS = ["k1k2_beam_vis", "k3k5_legendre_sht", "k9_signal_gram", "k15a_sandwich",
+                     "k15b_fisher_trace"]
 NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet, dense): device
@@ -1998,7 +2013,7 @@ def chunked_phase(outdir, workdir):
     with ``resident: never`` and ``mem_chunk: 0.1`` (64 units a chunk, so 3
     chunks) into ``workdir``, its whole chain against the resident run in
     ``outdir``; then the polarised cylinder's BTM by both routes.  Returns
-    the launches of both runs."""
+    the launches of both runs, and the manager of the first."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -2028,8 +2043,9 @@ def chunked_phase(outdir, workdir):
         raise AssertionError(f"{tag}: took {bt.num_chunks} chunks (resident tables "
                              f"{bt._mem_beam is not None}), expected the chunked route in "
                              f"{CHUNKED_CHUNKS}")
-    require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht", "k9_signal_gram",
-                                     "k15a_sandwich", "k15b_fisher_trace"])
+    log(f"[{tag}] m-modes/s of the file path (beams + SVD + KL + PSExact, "
+        f"{bt.telescope.mmax + 1} m) {file_path_rate(bt.telescope.mmax + 1, tm):.4f}")
+    require_launched(tag, launches, FILE_PATH_KERNELS)
     bad = [f for f in products_files(m) if not store.readable(f)]
     if bad:
         raise AssertionError(f"{tag}: {len(bad)} product files missing or unreadable: {bad[:4]}")
@@ -2081,7 +2097,192 @@ def chunked_phase(outdir, workdir):
         f"{'bitwise equal' if same else 'differ'} (max {err:.3e} of max |BTM|; tol 1e-6)")
     if not err <= 1e-6:
         raise AssertionError(f"{tag}: polarised chunked BTM vs resident {err:.3e} > 1e-6")
-    return launches, pol_launches["never"]
+    return (launches, pol_launches["never"]), m
+
+
+def file_path_rate(nm, tm):
+    """m-modes/s of the file path (beams + SVD + KL + PSExact) from a
+    manager's ``timings``."""
+    return nm / (tm["beams"] + tm["kl.kl"] + tm["ps.ps"])
+
+
+def torchrun(module, *args, timeout=MP_TIMEOUT_S):
+    """``python -m torch.distributed.run --standalone`` with ``MP_NPROC``
+    processes of ``module`` (a script of the port) from this checkout;
+    returns (wall seconds, its output).  A failed rendezvous, a rank's
+    exception or the time limit fails the phase."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (HERE, env.get("PYTHONPATH")) if p)
+    env.setdefault("OMP_NUM_THREADS", "4")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MP_NPROC), "-m", module, *args]
+    t = time.time()
+    # its own session, so that the launcher's workers go with it on a timeout
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"torchrun {module}: over {timeout} s:\n" + out[-6000:])
+    wall = time.time() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {module} {' '.join(args)}: exit {proc.returncode}:\n"
+                             + out[-6000:])
+    return wall, out
+
+
+def rank_stats(tag, path, out):
+    """Every rank's ``--stats`` JSON, each checked to be its rank of
+    ``MP_NPROC`` and to have logged its device."""
+    ranks = []
+    for r in range(MP_NPROC):
+        with open(path.replace("{rank}", str(r))) as f:
+            st = json.load(f)
+        if (st["rank"], st["size"]) != (r, MP_NPROC):
+            raise AssertionError(f"{tag}: stats of rank {r}: rank {st['rank']} of {st['size']}")
+        line = next((ln for ln in out.splitlines()
+                     if f"process {r} of {MP_NPROC} on " in ln), None)
+        if line is None or "cuda" not in line:
+            raise AssertionError(f"{tag}: rank {r} logged no card")
+        log(f"[{tag}] rank {r}: {line.split(' - ')[-1].split(': ', 1)[-1]}")
+        ranks.append(st)
+    return ranks
+
+
+def mp_products_phase(workdir, chunked, nside, mapfile, ts_ref):
+    """``drift-makeproducts-torch run`` and ``drift-runpipeline-torch
+    run-config`` under torchrun, two ranks sharing the one card, on
+    ``[chunked]``'s config (``resident: never``, ``mem_chunk``
+    ``CHUNKED_MEM_GB`` a rank: 2 chunks) with a seeded MonteCarlo beside
+    its Full estimator.  Gates: both processes exit 0 and log their card;
+    every kernel of the file path launched in each rank; the files against
+    ``[chunked]``'s one-process run (manager ``chunked``): beam files bit
+    for bit (else within 1e-12 of max), singular values and KL spectra
+    within 1e-10 of each row's top, Full Fisher and bias within 1e-10 of
+    max, the MonteCarlo's against one process's over the same KL modes
+    within 1e-10; then the noiseless ts1 of ``[timestream]`` from
+    ``mapfile`` under two ranks, its maps against ``[timestream]``'s ts1
+    (directory ``ts_ref``) within 1e-10 (its power spectrum printed).  Prints
+    the two-rank walls and m-modes/s beside ``[chunked]``'s.  Returns each
+    rank's launches of both runs."""
+    import torch
+
+    from driftscan_tpu_torch.core import manager, psmc
+    from driftscan_tpu_torch.util import store
+
+    tag = "mp products"
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    log(f"[{tag}] {card_line()} | {MP_NPROC} ranks on {torch.cuda.device_count()} card(s); "
+        f"this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    mpdir = os.path.join(workdir, "mp")
+    conf = products_config(mpdir)
+    conf["config"].update(resident="never", mem_chunk=CHUNKED_MEM_GB)
+    mc = dict(conf["psfisher"][0], type="MonteCarlo", name="mc", nsamples=MP_MC_SAMPLES,
+              seed=SEED)
+    conf["psfisher"].append(mc)
+    stats = os.path.join(workdir, "mp_stats_{rank}.json")
+    wall, out = torchrun("driftscan_tpu_torch.scripts.makeproducts", "run",
+                         write_yaml(conf, os.path.join(workdir, "mp.yaml")), "--stats", stats)
+    ranks = rank_stats(tag, stats, out)
+    if f"Splitting into {MP_CHUNKS} chunks" not in out:
+        raise AssertionError(f"{tag}: the BTM did not take the chunked route in {MP_CHUNKS} chunks")
+    nm = chunked.telescope.mmax + 1
+    rates = []
+    for r, st in enumerate(ranks):
+        tm = st["timings"]
+        rates.append(file_path_rate(nm, tm))
+        log(f"[{tag}] rank {r}: t_beams {tm['beams']:.4f} s (BTM compute "
+            f"{tm['beams.btm_compute']:.4f}, write {tm['beams.btm_write']:.4f})  t_svd "
+            f"{tm['beams.svd']:.4f} s  t_kl {tm['kl.kl']:.4f} s  t_doublekl {tm['kl.dk']:.4f} s"
+            f"  t_ps {tm['ps.ps']:.4f} s  t_mc {tm['ps.mc']:.4f} s  launches {st['launches']}")
+        require_launched(f"{tag} rank {r}", st["launches"], FILE_PATH_KERNELS)
+    log(f"[{tag}] {card_line()}: {MP_NPROC} ranks, torchrun wall {wall:.4f} s; m-modes/s of the "
+        f"file path (beams + SVD + KL + PSExact, {nm} m, the slower rank) {min(rates):.4f}; "
+        f"[chunked] (one process) {file_path_rate(nm, chunked.timings):.4f}")
+
+    m = manager.ProductManager().apply_config(conf)
+    bad = [f for f in products_files(m) if not store.readable(f)]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} product files missing or unreadable: {bad[:4]}")
+    same, err = beam_files_equal(tag, m, chunked)
+    log(f"[{tag}] beam.hdf5 of {nm} m, 2 ranks vs [chunked]: "
+        f"{'bitwise equal' if same else 'differ'} (max {err:.3e} of max |BTM|)")
+    if not same:
+        _gate(tag, "beam.hdf5, 2 ranks vs [chunked], of max |BTM|", err, 1e-12)
+
+    def rows(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape:
+            raise AssertionError(f"{tag}: shapes {a.shape} and {b.shape}")
+        top = np.maximum(np.abs(b).max(axis=-1, keepdims=True), 1e-300)
+        return float((np.abs(a - b) / top).max()), np.array_equal(a, b)
+
+    for what, a, b in (
+        ("singular values", m.beamtransfer.svd_all(), chunked.beamtransfer.svd_all()),
+        ("KL spectra (kl)", m.kltransforms["kl"].evals_all(), chunked.kltransforms["kl"].evals_all()),
+        ("KL spectra (dk)", m.kltransforms["dk"].evals_all(), chunked.kltransforms["dk"].evals_all()),
+    ):
+        err, eq = rows(a, b)
+        _gate(tag, f"{what}, 2 ranks vs [chunked] ({'bitwise equal' if eq else 'differ'}), "
+              "of each row's top", err, 1e-10)
+    def rel0(a, b):
+        """:func:`_rel`, or max |a| where b is all zeros (Full's bias)."""
+        return _rel(a, b) if np.abs(b).max() > 0 else float(np.abs(a).max())
+
+    for i, what in enumerate(("Fisher", "bias")):
+        a = m.psestimators["ps"].fisher_bias()[i]
+        b = chunked.psestimators["ps"].fisher_bias()[i]
+        _gate(tag, f"Full {what}, 2 ranks vs [chunked] "
+              f"({'bitwise equal' if np.array_equal(a, b) else 'differ'}), of max", rel0(a, b), 1e-10)
+    # the seeded MonteCarlo of one process over the same KL modes
+    t = time.time()
+    one = psmc.PSMonteCarlo.from_config(mc, m.kltransforms["kl"], subdir="mc_one")
+    one.generate()
+    torch.cuda.synchronize()
+    log(f"[{tag}] MonteCarlo ({MP_MC_SAMPLES} samples, seed {SEED}) in this process: "
+        f"{time.time() - t:.4f} s")
+    for i, what in enumerate(("Fisher", "bias")):
+        a, b = m.psestimators["mc"].fisher_bias()[i], one.fisher_bias()[i]
+        _gate(tag, f"MonteCarlo {what}, 2 ranks vs 1 over the same KL modes "
+              f"({'bitwise equal' if np.array_equal(a, b) else 'differ'}), of max", rel0(a, b), 1e-10)
+
+    # the noiseless timestream of [timestream] on these products, 2 ranks
+    tsdir = os.path.join(workdir, "mp_ts")
+    pconf = {
+        "config": {"product_directory": mpdir, "klmodes": ["kl"], "nside": nside,
+                   "powerspectra": [{"psname": "ps", "klname": "kl"}]},
+        "timestreams": [{"name": "ts1", "directory": f"{tsdir}/ts1",
+                         "simulate": {"product_directory": mpdir, "maps": [mapfile],
+                                      "ndays": 0}}],
+    }
+    pstats = os.path.join(workdir, "mp_ts_stats_{rank}.json")
+    wall_ts, out = torchrun("driftscan_tpu_torch.scripts.runpipeline", "run-config",
+                            write_yaml(pconf, os.path.join(workdir, "mp_ts.yaml")),
+                            "--stats", pstats)
+    ts_ranks = rank_stats(tag, pstats, out)
+    for r, st in enumerate(ts_ranks):
+        stages = "  ".join(f"t_{k} {v:.4f} s" for k, v in st["timings"].items())
+        log(f"[{tag}] timestream rank {r}: {stages}  launches {st['launches']}")
+    log(f"[{tag}] timestream: torchrun wall {wall_ts:.4f} s")
+    for name, dset in (("map_full", "map"), ("map_svd", "map"), ("ps_ps", "powerspectrum")):
+        with store.File(os.path.join(tsdir, "ts1", f"{name}.hdf5"), "r") as f, \
+                store.File(os.path.join(ts_ref, f"{name}.hdf5"), "r") as g:
+            a, b = f[dset][:], g[dset][:]
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{tag}: ts1 {name} not finite")
+        what = (f"ts1 {name}, 2 ranks vs [timestream] "
+                f"({'bitwise equal' if np.array_equal(a, b) else 'differ'}), of max")
+        if name != "ps_ps":
+            _gate(tag, what, _rel(a, b), 1e-10)
+        else:
+            # F^-1 (q - b) carries the last-bit change of the Fisher
+            # allreduce's sum order times F's condition number: printed
+            cond = np.linalg.cond(np.asarray(m.psestimators["ps"].fisher_bias()[0]).real)
+            log(f"[{tag}] {what}: {_rel(a, b):.3e} (Fisher condition number {cond:.3e}; "
+                "not gated)")
+    return [st["launches"] for st in ranks + ts_ranks]
 
 
 def chunked_128_phase(workdir):
@@ -2858,7 +3059,10 @@ def main():
             profile_timestream(outdir, mapfile, nside)
         chunkdir = tempfile.mkdtemp(prefix="driftscan_chunked_")
         try:
-            launches = chunked_phase(outdir, chunkdir)
+            launches, chunked = chunked_phase(outdir, chunkdir)
+            launches += tuple(mp_products_phase(chunkdir, chunked, nside, mapfile,
+                                                os.path.join(outdir, "timestreams", "ts1")))
+            del chunked
             launches += (chunked_128_phase(chunkdir), psmc_phase(outdir))
         finally:
             shutil.rmtree(chunkdir, ignore_errors=True)

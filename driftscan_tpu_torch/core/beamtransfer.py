@@ -460,13 +460,19 @@ class BeamTransfer(config.Reader):
         ``_generate_mfiles``, the reference's route).
 
         The (frequency, baseline) units, frequency-major, go in chunks of
-        ``mem_chunk`` GiB of their (2, npol, nl, nm) m-packed rows.  A
-        chunk's SHT calls (:meth:`TransitTelescope.btm_blocks`) run on the
-        device and fill an m-major (nm, units, 2, npol, nl) host array
-        directly: positive m, then B(-m) packed as (-1)^m conj(B(-m)).  Its
-        full-l rows are bit-truncated, and each m-file, created empty up
-        front, takes the chunk as at most three slabs (a partial first
-        frequency, whole frequencies, a partial last one).
+        ``mem_chunk`` GiB a process of their (2, npol, nl, nm) m-packed rows.
+        Each process takes its block of a chunk's units, dealt round-robin
+        (as the JAX package deals them).  Their SHT calls
+        (:meth:`TransitTelescope.btm_blocks`) run on the process's device
+        and fill an m-major (nm, units, 2, npol, nl) host array directly:
+        positive m, then B(-m) packed as (-1)^m conj(B(-m)).  One exchange
+        (``comm.transpose_blocks``) gives every process its m-block
+        (``split_local(nm)``) of all the chunk's units, which go back to
+        frequency-major order; their full-l rows are bit-truncated, and each
+        of the process's m-files, created empty up front, takes the chunk as
+        at most three slabs (a partial first frequency, whole frequencies,
+        a partial last one).  For one process the exchange is the identity
+        and the array is used in place.
         """
         st = time.time()
         tel = self.telescope
@@ -513,11 +519,34 @@ class BeamTransfer(config.Reader):
         comm.barrier()
 
         t_write = 0.0
+        _, sm, em = comm.split_local(nm)
         for ci, (fbnum, fbstart, fbend) in enumerate(comm.split_m(nfb, num_chunks).T):
             if comm.rank0():
                 logger.info("Starting chunk %i of %i", ci + 1, num_chunks)
-            fb_ind = np.arange(fbstart, fbend)
-            m_array = self._chunk_m_major(fbmap[1, fb_ind], fbmap[0, fb_ind], np_inc, nm)
+            # this process's units of the chunk, dealt round-robin for balance
+            _, loc_start, loc_end = comm.split_local(int(fbnum))
+            fb_ind_chunk = np.arange(fbstart, fbend)
+            fb_ind_chunk = np.concatenate(
+                [fb_ind_chunk[i :: comm.size()] for i in range(comm.size())]
+            )
+            fb_ind = fb_ind_chunk[loc_start:loc_end]
+            m_major = self._chunk_m_major(fbmap[1, fb_ind], fbmap[0, fb_ind], np_inc, nm)
+
+            # units -> m exchange: every process gets its m-block of all the
+            # chunk's units, m-major (for one process, m_major itself)
+            m_array = np.moveaxis(
+                comm.transpose_blocks(
+                    np.moveaxis(m_major, 0, -1), (int(fbnum), 2, np_inc, nl, nm)
+                ),
+                -1,
+                0,
+            )
+            del m_major
+            order = np.argsort(fb_ind_chunk)
+            if not np.array_equal(order, np.arange(len(order))):
+                m_array = m_array[:, order]  # back to fb order for the slabs
+            # contiguous full-l rows: the truncation works in place
+            m_array = np.ascontiguousarray(m_array)
 
             if self.truncate:
                 truncate.bit_truncate_max_complex(
@@ -526,12 +555,12 @@ class BeamTransfer(config.Reader):
 
             wt = time.time()
             slabs = list(_fb_slabs(int(fbstart), int(fbend), nb_inc))
-            for mi in range(nm):
+            for lmi, mi in enumerate(range(sm, em)):
                 with store.File(
                     self._mfile(mi), "r+", rdcc_nbytes=(self.chunk_cache_size << 20)
                 ) as mfile:
                     dset = mfile["beam_m"]
-                    blk = m_array[mi, ..., mi:]  # (units, 2, np_inc, nl - mi)
+                    blk = m_array[lmi, ..., mi:]  # (units, 2, np_inc, nl - mi)
                     for u0, u1, fci, bci, nfull in slabs:
                         if nfull:
                             dset[fci : fci + nfull] = (
@@ -563,6 +592,8 @@ class BeamTransfer(config.Reader):
         tel = self.telescope
         nl = tel.lmax + 1
         out = np.zeros((nm, len(bl_ind), 2, np_inc, nl), dtype=np.complex128)
+        if not len(bl_ind):  # a process with none of the chunk's units
+            return out
         for sel, pos, neg in tel.btm_blocks(bl_ind, f_ind):
             npt = min(pos.shape[1], np_inc)
             nl_s = pos.shape[2]

@@ -9,8 +9,11 @@ beam-transfers -> KL filters -> PS estimators.
 
 Everything runs on ``device``: the card unless the caller names another
 (``device="cpu"``), so a host without CUDA fails at once unless asked for
-the CPU.  ``apply_config`` takes a parsed dictionary and needs no YAML
-package; ``from_config`` and the config dump import ``yaml`` themselves.
+the CPU.  Under several processes (``parallel.comm``) each takes the card
+of its local rank; process 0 creates the directory and writes the config
+copies, and ``timings`` are each process's own.  ``apply_config`` takes a
+parsed dictionary and needs no YAML package; ``from_config`` and the
+config dump import ``yaml`` themselves.
 The registries list what the port has; an unknown name gives the
 registry's error with the known ones.
 """
@@ -208,7 +211,7 @@ class ProductManager:
     skip_svd_inv = False
 
     def __init__(self, device=None):
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = comm.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "the product pipeline runs on a CUDA device and none is "
@@ -338,9 +341,10 @@ class ProductManager:
 
     def generate(self):
         """Run every enabled generation stage, in dependency order."""
-        if not os.path.exists(self.directory):
-            os.makedirs(self.directory)
-        self._dump_config()
+        if comm.rank0():
+            os.makedirs(self.directory, exist_ok=True)
+            self._dump_config()
+        comm.barrier()
 
         for enabled, stage in (
             (self.gen_beams, self._generate_beams),

@@ -3,8 +3,11 @@
 Port of ``driftscan_tpu/core/psmc.py``: Cov(q_a, q_b) = F_ab (Padmanabhan &
 Pen 2003; Dillon et al. 2012), so Gaussian KL-space draws give the Fisher
 matrix and the bias.  The draws are numpy ``Generator`` draws on the host,
-seeded as the JAX package seeds them (``seed + 31 m + rank``, unseeded
-when ``seed`` is None), and go to the estimator's device once per m and
+seeded from the seed and m alone (``seed + 31 m``, unseeded when ``seed``
+is None), so an m draws the same samples on whichever process takes it
+and the Fisher matrix of N processes is the one-process one.  The JAX
+package adds the process rank to the seed; its one-process stream is this
+one.  The draws go to the estimator's device once per m and
 sample chunk; everything after them (whitening, KL -> SVD -> sky, the band
 contraction, covariance and mean, Alt's Gram) runs there in complex128.
 
@@ -20,7 +23,6 @@ import numpy as np
 import torch
 
 from .. import config
-from ..parallel import comm
 from . import psestimation
 
 
@@ -56,7 +58,7 @@ class MonteCarloMixin:
     def _rng(self, mi):
         if self.seed is None:
             return np.random.default_rng()
-        return np.random.default_rng(self.seed + 31 * mi + comm.rank())
+        return np.random.default_rng(self.seed + 31 * mi)
 
     def gen_sample(self, mi, nsamples=None, noiseonly=False, rng=None):
         """Draw KL-space data realisations from the eigenvalue spectrum.

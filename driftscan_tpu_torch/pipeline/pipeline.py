@@ -18,6 +18,7 @@ import torch
 
 from .. import config
 from ..core import manager
+from ..parallel import comm
 from . import timestream
 
 logger = logging.getLogger(__name__)
@@ -103,7 +104,7 @@ class PipelineManager(config.Reader):
     def _timed(self, name, fn):
         t = time.time()
         fn()
-        dev = torch.device("cuda" if self.device is None else self.device)
+        dev = comm.device(self.device)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.timings[name] = self.timings.get(name, 0.0) + time.time() - t
@@ -113,7 +114,8 @@ class PipelineManager(config.Reader):
     def _simulate(self):
         for tsname, simconf in self.simulations.items():
             ts = self.timestreams[tsname]
-            if os.path.exists(ts._ffile(0)):
+            # one answer for every process: process 0's, before any writes
+            if comm.bcast(os.path.exists(ts._ffile(0))):
                 logger.info("Timestream %s already exists; skipping simulation", tsname)
                 continue
             kwargs = {k: v for k, v in simconf.items() if k != "product_directory"}

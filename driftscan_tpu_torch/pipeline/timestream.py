@@ -220,10 +220,11 @@ class Timestream:
 
         for chunk in _chunks(todo):
             tm = np.stack([self.mmode(mi).reshape(tel.nfreq, bt.ntel) for mi in chunk])
-            ut = np.stack([bt.beam_ut(mi) for mi in chunk])  # (M, F, S, T)
-            out = projections.block_matvec(
-                torch.as_tensor(ut.reshape(-1, bt.svd_len, bt.ntel), device=self.device),
-                tm.reshape(-1, bt.ntel),
+            ut = torch.as_tensor(np.stack([bt.beam_ut(mi) for mi in chunk]), device=self.device)
+            # one m a call: on the card a batched product's bits depend on
+            # the batch, and the m of a chunk depend on the process count
+            out = torch.stack(
+                [projections.block_matvec(ut[i], tm[i]) for i in range(len(chunk))]
             ).reshape(len(chunk), tel.nfreq * bt.svd_len).cpu().numpy()
 
             for i, mi in enumerate(chunk):
@@ -549,10 +550,12 @@ def _project_maps_to_vis(bt, maps, lfreq, sfreq, efreq, sm, em, ntime):
     vis_m = torch.zeros((em - sm, nfreq, bt.ntel), dtype=c128, device=dev)
     for chunk in _chunks(list(range(sm, em))):
         beam = np.stack([bt.beam_m(mi).reshape(nfreq, bt.ntel, bt.nsky) for mi in chunk])
-        sel = slice(chunk[0] - sm, chunk[-1] + 1 - sm)
-        vis_m[sel] = mstep.btm_forward_step(
-            col_alm[sel], torch.as_tensor(beam, dtype=c128, device=dev)
-        )
+        beam = torch.as_tensor(beam, dtype=c128, device=dev)
+        # one m a call, so that an m's bits do not depend on its chunk (the
+        # chunks depend on the process count)
+        for i, mi in enumerate(chunk):
+            j = mi - sm
+            vis_m[j : j + 1] = mstep.btm_forward_step(col_alm[j : j + 1], beam[i : i + 1])
 
     # m-major -> freq-major
     freq_major = comm.transpose_blocks(

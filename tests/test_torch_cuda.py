@@ -924,3 +924,72 @@ def test_q_estimator_on_the_card_matches_the_cpu(cuda, tmp_path):
         f_cpu, b_cpu = cpu.fisher_bias_m(mi)
         assert np.abs(f_card - f_cpu).max() <= 1e-8 * np.abs(f_cpu).max()
         assert np.abs(b_card - b_cpu).max() <= 1e-8 * np.abs(b_cpu).max()
+
+
+def test_two_ranks_on_the_card_match_one(cuda, tmp_path):
+    """``drift-makeproducts-torch run`` under torchrun with two ranks on the
+    card (both on the one card of a one-card host): the chunked route's
+    beam files bit for bit those of one rank, the KL spectra and Fisher
+    matrix within 1e-10, and every kernel of the file path launched in
+    each rank."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    import yaml
+
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.util import store
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    confs = {}
+    for kind in ("two", "one"):
+        conf = _small_products(tmp_path / kind, resident="never", psfisher=True)
+        conf["psfisher"] = [{"type": "Full", "name": "ps", "klname": "kl", "threshold": 0.1,
+                             "k_bands": [{"spacing": "linear", "start": 0.0, "stop": 0.25,
+                                          "num": 3}]}]
+        confs[kind] = conf
+    tel = manager.ProductManager(device=cuda).apply_config(confs["one"]).telescope
+    unit = tel.num_pol_sky * (tel.lmax + 1) * 2 * (tel.mmax + 1) * 16.0
+    for conf in confs.values():
+        conf["config"]["mem_chunk"] = 3.5 * unit / 2**30  # three units a rank
+    one = manager.ProductManager(device=cuda).apply_config(confs["one"])
+    one.generate()
+
+    cfg = tmp_path / "two.yaml"
+    cfg.write_text(yaml.safe_dump(confs["two"]))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (repo, env.get("PYTHONPATH")) if p)
+    # its own session, so that the launcher's workers go with it on a timeout
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "driftscan_tpu_torch.scripts.makeproducts", "run", str(cfg),
+         "--stats", str(tmp_path / "stats_{rank}.json")],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+    )
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    for r in range(2):
+        with open(tmp_path / f"stats_{r}.json") as f:
+            st = json.load(f)
+        assert st["size"] == 2 and st["device"].startswith("cuda")
+        for name in ("k1k2_beam_vis", "k3k5_legendre_sht", "k9_signal_gram", "k15a_sandwich",
+                     "k15b_fisher_trace"):
+            assert st["launches"][name] > 0, (r, name)
+
+    two = manager.ProductManager(device=cuda).apply_config(confs["two"])
+    for mi in range(tel.mmax + 1):
+        with store.File(two.beamtransfer._mfile(mi), "r") as f, \
+                store.File(one.beamtransfer._mfile(mi), "r") as g:
+            assert np.array_equal(f["beam_m"][:], g["beam_m"][:]), mi
+    for a, b in ((two.kltransforms["kl"].evals_all(), one.kltransforms["kl"].evals_all()),
+                 (two.psestimators["ps"].fisher_bias()[0], one.psestimators["ps"].fisher_bias()[0])):
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
