@@ -37,7 +37,11 @@ script exits non-zero:
    float32 plain version from the float64 truth on the same inputs;
    K3+K5 over an m-window at the ``[ns2 window]`` shape (m 270..314,
    complex64, rel 1e-5), whose columns must equal a full-range call's
-   bit for bit;
+   bit for bit; K17 (the top-band engine's Chebyshev filter step,
+   complex128) at the slice's shape (M 8, n 352, K 352, k 44) and at
+   ns2's full size (M 1, n 3200, K 3200, k 400): V_out within 1e-12 of
+   its max, the running scale within 1e-13 rel, bitwise repeats, the
+   library being ``torch.baddbmm`` and an inf-norm (two calls);
 4. slice -- the bench telescope (``bench.build_telescope``'s full config)
    through ``btm_resident`` and ``product_all_resident`` with the fused
    Fisher over all m; every path leaves ``bucket`` to its auto rule and
@@ -59,7 +63,15 @@ script exits non-zero:
 5b. slice windows, ns2 window -- m-windows and m-bucketing: the bench
    telescope in two m-windows against path 4 (:func:`slice_windows_phase`),
    and the JAX package's north-star telescope ``ns2`` at full width in its
-   run's last m-window, bucketed (:func:`ns2_window_phase`);
+   run's last m-window, bucketed (:func:`ns2_window_phase`), then
+   ``[topband ns2]``: four of its m at full size (n 3200) by the exact
+   and the top-band engine (:func:`topband_ns2_phase`);
+5c. topband -- path 4's tables through ``product_all_resident(topband=True,
+   kl_cut=0.1)`` with the fused Fisher (:func:`topband_phase`): K17
+   launched, every failed certificate solved again, the card against the
+   port's CPU engine on the CPU check's m (retained eigenvalues rel 1e-6),
+   the exact engine's spectra and Fisher beside it, both engines'
+   m-modes/s;
 6. products -- the file pipeline behind ``drift-makeproducts``: the bench
    unpolarised cylinder as a config dictionary through
    ``ProductManager.apply_config(...).generate()`` into a fresh temporary
@@ -83,7 +95,11 @@ script exits non-zero:
    cross power -> full, SVD and ``klinv`` maps; its checks (every file
    opens, m-modes against the direct projection, maps against the CPU
    synthesis of their alm, SVD/KL modes and power spectra against the CPU,
-   a second run that rewrites only the full and SVD maps);
+   a second run that rewrites only the full and SVD maps); then
+   ``[topband products]``: the KL and DoubleKL filters again with
+   ``engine: topband`` added to that directory's config and generated
+   (:func:`topband_products_phase`; eigenvalues rel 1e-6 and
+   ``num_modes`` equal to the exact filters', fallbacks printed);
 8a. example -- the repository's ``examples/disharray`` (DishArray,
    ``nosvd``, a KL filter with an inverse), its two YAML files copied
    unedited into a temporary directory and run there by
@@ -595,6 +611,9 @@ def kernel_phases(tel, ptel):
             keep("k15b_fisher_trace", trace_compare(n, rng))
             trace_compare(n, rng, dtype=torch.complex64, M=8)
     keep("k14_legendre_synth", k14_compare(tel, rng))
+    n = resident.pencil_size(tel)
+    k, K = k17_shape(n)
+    keep("k17_cheb_step", k17_compare(8, n, K, k, rng, "slice"))
     return res
 
 
@@ -978,6 +997,67 @@ def trace_compare(k, rng, dtype=None, M=None, tag="kernels"):
     return rec
 
 
+def k17_shape(n):
+    """(k, K) of K17 on a pencil of dimension n: the top-band engine's
+    starting basis width (resident._run_topband) and the whitened signal
+    factor's width (n: the compact signal path)."""
+    from driftscan_tpu_torch.parallel import resident
+
+    return resident._quant_frac(max(n // resident._TB_START_FRAC, 8), n), n
+
+
+def k17_compare(M, n, K, k, rng, what, tag="kernels"):
+    """K17 (one Chebyshev filter step, complex128) at (M, n, K, k) against
+    its plain version: V_out within 1e-12 of max|V_out|, and the running
+    scale s = 1 / (amax + 1e-30) within 1e-13 rel (below that the plain
+    version's own summation order shows: a K-term complex sum rounds at
+    ~eps sqrt(K) of its size); two launches repeat bit for bit.  The
+    library time is two PyTorch calls computing the same function:
+    ``torch.baddbmm`` (one alpha for all m) and an inf-norm for amax.
+    bytes: Y, W, V_k, V_p read once, V_out written once; operations:
+    8 M n K k float64 flops (the product Y W) at the float64 peak."""
+    import torch
+
+    from driftscan_tpu_torch.ops import cheb
+
+    dev = torch.device("cuda")
+    y = _crandn(rng, (M, n, K), torch.complex128, dev)
+    vk = _crandn(rng, (M, n, k), torch.complex128, dev)
+    vp = _crandn(rng, (M, n, k), torch.complex128, dev)
+    w = (y.mH @ vk).contiguous()
+    a0, beta, gamma = 2.0 * 2.0 / 7.5, -2.0, -1.0
+    alpha = torch.full((M,), a0, dtype=torch.float64, device=dev)
+    c = beta * vk + gamma * vp
+
+    def library():
+        out = torch.baddbmm(c, y, w, alpha=a0)
+        return out, torch.linalg.vector_norm(torch.view_as_real(out), ord=float("inf"),
+                                             dim=(-3, -2, -1))
+
+    rec = compare(
+        f"k17_cheb_step ({what}: M {M}, n {n}, K {K}, k {k}, complex128)",
+        lambda: cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma),
+        lambda: cheb.cheb_step_ref(y, w, vk, vp, alpha, beta, gamma),
+        rtol=1e-12, tag=tag,
+        work=(nbytes(y, w, vk, vp, alpha) + 16 * M * n * k + 8 * M,
+              [(8.0 * M * n * K * k, F64_FLOPS)]),
+        library_fn=library, bitwise=True, per_launch=True, graph=True,
+        library_per_launch=True,
+    )
+    got = cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma)[1]
+    ref = cheb.cheb_step_ref(y, w, vk, vp, alpha, beta, gamma)[1]
+    s_err = float(((1.0 / (got + 1e-30)) / (1.0 / (ref + 1e-30)) - 1.0).abs().max())
+    t_mm = median_ms(lambda: torch.baddbmm(c, y, w, alpha=a0))
+    out = torch.baddbmm(c, y, w, alpha=a0)
+    t_norm = median_ms(lambda: torch.linalg.vector_norm(
+        torch.view_as_real(out), ord=float("inf"), dim=(-3, -2, -1)))
+    log(f"[{tag}] k17_cheb_step ({what}): scale s rel err {s_err:.3e} (tol 1e-13); library "
+        f"calls apart: baddbmm {t_mm:.4f} ms, inf-norm {t_norm:.4f} ms ({card_line()})")
+    if not s_err <= 1e-13:
+        raise AssertionError(f"k17_cheb_step ({what}): scale off by {s_err:.3e}")
+    return rec
+
+
 def path_k13(tag, tel, evals, ps_threshold, chunks, launches, m_lo=0):
     """K13 at the k the product path launched it with: per m-chunk of the
     run (``chunks``, :class:`resident.Chunk`), the chunk's largest retained
@@ -1334,7 +1414,7 @@ def ns2_window_phase(ntel, tag="ns2 window"):
     above 1e-3 of each m's top; the whole spectrum 1e-4 of the top).
     Printed only: mode counts and the top 20 eigenvalues of each m against
     the JAX run's record (a TPU in float32).  Returns the launch counts of
-    the bucketed run."""
+    the bucketed run and of :func:`topband_ns2_phase` on the same tables."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -1443,7 +1523,255 @@ def ns2_window_phase(ntel, tag="ns2 window"):
             f"{int(dn.max())} total {int(dn.sum())} of {int(jnmo[:k].sum())}; top 20 "
             f"eigenvalues, |card - record| / record top: max {float(top20.max()):.3e} "
             f"median {float(np.median(top20)):.3e}")
+    tb_launches = topband_ns2_phase(ntel, pos, neg, ls, lf, noisew, kw, m0, m1)
     del pos, neg
+    return launches, tb_launches
+
+
+TB_CHECK_RTOL = 1e-6  # card vs the port's CPU engine, retained eigenvalues
+TB_AB_TIER = 1e-4  # the JAX package's TPU A/B tier, topband vs exact
+NS2_TB_M = 4  # m of [topband ns2]
+NS2_TB_BAND = 100  # modes a m that [topband ns2]'s band cut keeps at least
+
+
+def topband_counts(before):
+    """The top-band dispatches since ``before`` (a copy of
+    resident.TB_COUNTS): solves, failed certificates, exact fallbacks."""
+    from driftscan_tpu_torch.parallel import resident
+
+    return {k: resident.TB_COUNTS[k] - before[k] for k in before}
+
+
+def retained_diff(ev, ref, cut):
+    """(max rel of ev against ref on the modes either retains above cut,
+    modes retained by one only, ref's modes within 1e-6 rel of the cut)."""
+    ka, kb = ev > cut, ref > cut
+    both = ka & kb
+    rel = float((np.abs(ev - ref)[both] / ref[both]).max()) if both.any() else 0.0
+    near = int((np.abs(ref / cut - 1.0) <= 1e-6).sum())
+    return rel, int((ka ^ kb).sum()), near
+
+
+def topband_phase(tel, slice_run, tag="topband"):
+    """The resident slice with the top-band engine: ``[slice]``'s tables
+    through ``product_all_resident(topband=True, kl_cut=0.1)`` with the
+    fused Fisher, the launch counts zeroed just before and read just after.
+    Gates: K17 launched (and the Fisher's kernels), finite spectra and
+    Fisher, every chunk whose certificate failed solved again (solves minus
+    failures = chunks minus exact fallbacks), and the card against the
+    port's CPU engine on ``cpu_check``'s m (first and last CPU_CHECK_M,
+    through the same chunks): retained eigenvalues within rel 1e-6.
+    Printed: against the exact engine on the same tables (``[slice]``'s
+    run), beside the TPU A/B's 1e-4 tier, and both engines' m-modes/s of
+    the product step (the gated run, then one exact and one top-band run
+    here).  Returns the launch counts."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    pos, neg = slice_run["tables"]
+    nm = tel.mmax + 1
+    cl_s, cl_n, noisew = covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    band_lt = mstep.band_factor_table(
+        iter(fisher_bands(tel)), out_dtype=np.float32, rank_rtol=1e-9
+    )
+    kw = dict(band_lt=band_lt, ps_threshold=PS_THRESHOLD, kl_cut=PS_THRESHOLD)
+    before = dict(resident.TB_COUNTS)
+    backend.reset_launch_counts()
+    chunks = []
+    t = time.time()
+    evals, nmodes, fisher = resident.product_all_resident(
+        tel, pos, neg, ls, lf, noisew, topband=True, chunks=chunks, **kw
+    )
+    torch.cuda.synchronize()
+    t_tb = time.time() - t
+    launches = launch_counts()
+    tb = topband_counts(before)
+    n = resident.pencil_size(tel)
+    log(f"[{tag}] product_all_resident(topband=True, kl_cut {PS_THRESHOLD:g}) {t_tb:.4f} s; "
+        f"m-chunks: {describe_chunks(chunks)}; top-band solves {tb['solves']}, failed "
+        f"certificates (each solved again) {tb['failed']}, exact fallbacks {tb['exact']}; "
+        f"final (k, levels) by pencil n {dict(resident._TB_STATE)}; launches {launches}")
+    if not (np.isfinite(evals).all() and np.isfinite(fisher).all()):
+        raise AssertionError(f"{tag}: non-finite spectra or Fisher")
+    if tb["solves"] - tb["failed"] != len(chunks) - tb["exact"]:
+        raise AssertionError(f"{tag}: a chunk with a failed certificate was not solved again")
+    names = ["k17_cheb_step", "k13_fisher_cov", "k15b_fisher_trace"]
+    if mstep.uses_compact_signal(n, (tel.lmax + 1) * ls.shape[-1]):
+        names.append("k9_signal_gram")
+    require_launched(tag, launches, names)
+
+    # against the exact engine on the same tables ([slice]'s run)
+    rel, ndiff, near = retained_diff(evals, slice_run["evals"], PS_THRESHOLD)
+    fx = slice_run["fisher"]
+    f_err = float(np.abs(fisher - fx).max() / np.abs(fx).max())
+    log(f"[{tag}] vs the exact engine ([slice]'s run, same tables; not gated): retained "
+        f"{int((evals > PS_THRESHOLD).sum())} vs {int((slice_run['evals'] > PS_THRESHOLD).sum())}"
+        f" modes, retained by one engine only {ndiff}, max rel on retained {rel:.3e} (TPU A/B "
+        f"tier {TB_AB_TIER:g}), exact modes within 1e-6 rel of the cut {near}, Fisher "
+        f"|diff| / max|F| {f_err:.3e}")
+
+    # the card against the port's CPU engine, through the same chunks
+    ls_c, lf_c, _ = mstep.factors_from_numpy(ls, lf, None, "cpu", pos.real.dtype)
+    nw_c = torch.as_tensor(noisew, dtype=pos.real.dtype)
+    pos_c, neg_c = pos.cpu(), neg.cpu()
+    row = {}
+    for i, ch in enumerate(chunks):
+        for j, m in enumerate(ch.m_values):
+            if m >= 0:
+                row[int(m)] = (i, j)
+    ms = sorted(row)
+    k_chk = min(CPU_CHECK_M, len(ms))
+    for name, want in (("first", ms[:k_chk]), ("last", ms[-k_chk:])):
+        t = time.time()
+        got = {}
+        for i in sorted({row[m][0] for m in want}):
+            ch = chunks[i]
+            ev_c, _, _ = resident.product_m_batch(
+                tel, pos_c, neg_c, ls_c, lf_c, nw_c, ch.m_values, chunk=ch,
+                kl_cut=PS_THRESHOLD,
+            )
+            if ch.compacted:
+                ev_c = np.pad(ev_c, ((0, 0), (evals.shape[1] - ev_c.shape[1], 0)))
+            got.update({int(m): ev_c[j] for j, m in enumerate(ch.m_values) if m >= 0})
+        ev_c = np.stack([got[m] for m in want])
+        ev_g = evals[np.asarray(want)]
+        rel_c, ndiff_c, _ = retained_diff(ev_g, ev_c, PS_THRESHOLD)
+        log(f"[{tag}] cpu check {name} m {want[0]}..{want[-1]} ({time.time() - t:.2f} s): "
+            f"retained {int((ev_c > PS_THRESHOLD).sum())} modes, retained by one side only "
+            f"{ndiff_c}, max rel card vs cpu {rel_c:.3e} (tol {TB_CHECK_RTOL:g})")
+        if ndiff_c or not rel_c <= TB_CHECK_RTOL:
+            raise AssertionError(f"{tag} {name}: card vs cpu {rel_c:.3e}, {ndiff_c} modes differ")
+
+    # both engines' product step on the same tables, after the run above
+    # (its escalation paid): exact, then topband
+    times = {"topband": [t_tb]}
+    for engine in ("exact", "topband"):
+        t = time.time()
+        resident.product_all_resident(tel, pos, neg, ls, lf, noisew,
+                                      topband=engine == "topband", **kw)
+        torch.cuda.synchronize()
+        times.setdefault(engine, []).append(time.time() - t)
+    log(f"[{tag}] product step with the fused Fisher, s (topband, exact, topband): exact "
+        f"{times['exact']}, topband {times['topband']}; m-modes/s exact "
+        f"{nm / min(times['exact']):.4f}, topband {nm / min(times['topband']):.4f} "
+        f"({card_line()})")
+    return launches
+
+
+def band_cut(ev, nmin, depth=1e-6):
+    """A cut from the spectra ``ev`` (rows ascending) under which each row
+    holds its ``nmin`` largest eigenvalues, or those within ``depth`` of its
+    top where fewer (deeper, an eigenvalue's relative accuracy in float64
+    falls towards the tolerance): the lowest of the rows' candidates,
+    moved to the geometric midpoint of the gap under it, so that no
+    eigenvalue of that row lies at the cut."""
+    top = ev[:, -1]
+    cand = np.maximum(ev[:, -nmin], depth * top)
+    i = int(np.argmin(cand))
+    j = int(np.searchsorted(ev[i], cand[i]))  # the smallest eigenvalue >= cand
+    hi, lo = float(ev[i, j]), float(ev[i, j - 1])
+    return float(np.sqrt(hi * lo)) if lo > 0 else 0.5 * hi
+
+
+def topband_ns2_phase(ntel, pos, neg, ls, lf, noisew, kw, m0, m1, tag="topband ns2"):
+    """``[ns2 window]``'s tables at full size (n 3200, not bucketed), its
+    first NS2_TB_M m in one batch, by the exact engine and by the top-band
+    engine (counts zeroed just before the top-band runs, read just after;
+    K17 must launch).  The top-band engine runs twice: at the product cut
+    kl_cut = PS_THRESHOLD, where these m's band is empty (their top
+    eigenvalue is ~1e-9), and at a cut taken from the exact run's own
+    spectra (:func:`band_cut`) under which every m holds its
+    NS2_TB_BAND largest modes or those within 1e-6 of its top.  Gates on the second: the same retained set as the
+    exact engine and retained eigenvalues within rel TB_CHECK_RTOL.
+    Printed: seconds a m of each run (the whole product step, then the KL
+    stage alone on one SVD stage), and how many Gram eigensolves of the
+    exact route failed in cuSOLVER and took the SVD.  Returns the launch
+    counts of the top-band runs."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import fpencil
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    common = dict(bucket=False, m_range=(m0, m1), max_m=NS2_TB_M, mbatch=NS2_TB_M, **kw)
+    retries = fpencil.svd_retries
+    t = time.time()
+    ev_x, _, f_x = resident.product_all_resident(ntel, pos, neg, ls, lf, noisew, **common)
+    torch.cuda.synchronize()
+    t_x = time.time() - t
+    svd_x = fpencil.svd_retries - retries
+    n = ev_x.shape[1]
+    cut_b = band_cut(ev_x, NS2_TB_BAND)
+    log(f"[{tag}] m {m0}..{m0 + NS2_TB_M - 1} at pencil n {n}, one batch, exact engine: "
+        f"{t_x / NS2_TB_M:.4f} s a m (Gram eigensolves that failed in cuSOLVER and took the "
+        f"SVD: {svd_x}); top ev by m {ev_x[:, -1].tolist()}; retained above kl_cut "
+        f"{PS_THRESHOLD:g}: {int((ev_x > PS_THRESHOLD).sum())}; the band cut {cut_b:.6e} "
+        f"(each m's top {NS2_TB_BAND} or its modes within 1e-6 of its top) retains by m "
+        f"{(ev_x > cut_b).sum(axis=1).tolist()}")
+    before = dict(resident.TB_COUNTS)
+    backend.reset_launch_counts()
+    runs = []
+    for cut in (PS_THRESHOLD, cut_b, cut_b):
+        b4, retries = dict(resident.TB_COUNTS), fpencil.svd_retries
+        t = time.time()
+        ev_t, _, f_t = resident.product_all_resident(
+            ntel, pos, neg, ls, lf, noisew, topband=True, kl_cut=cut, **common
+        )
+        torch.cuda.synchronize()
+        runs.append((cut, time.time() - t, ev_t, f_t, topband_counts(b4),
+                     fpencil.svd_retries - retries, resident._TB_STATE.get(n)))
+    launches = launch_counts()
+    tb = topband_counts(before)
+    for i, (cut, dt, ev_t, f_t, c, svd_t, state) in enumerate(runs):
+        rel, ndiff, near = retained_diff(ev_t, ev_x, cut)
+        what = "the product cut" if cut == PS_THRESHOLD else "the band cut"
+        log(f"[{tag}] topband at kl_cut {cut:.6e} ({what}; run {i + 1} of {len(runs)}): "
+            f"{dt / NS2_TB_M:.4f} s a m (exact {t_x / NS2_TB_M:.4f}); solves {c['solves']}, "
+            f"failed certificates {c['failed']}, exact fallbacks {c['exact']}, (k, levels) "
+            f"after {state}, Gram eigensolves that took the SVD {svd_t}; retained "
+            f"{int((ev_t > cut).sum())} vs exact {int((ev_x > cut).sum())}, by one only "
+            f"{ndiff}, max rel {rel:.3e} (tol {TB_CHECK_RTOL:g} at the band cut), exact modes "
+            f"within 1e-6 rel of the cut {near} ({card_line()})")
+        if not (np.isfinite(ev_t).all() and np.isfinite(f_t).all()):
+            raise AssertionError(f"{tag}: non-finite spectra or Fisher")
+        if cut != PS_THRESHOLD and (ndiff or not rel <= TB_CHECK_RTOL):
+            raise AssertionError(f"{tag}: band cut {cut:.3e}: {ndiff} modes retained by one "
+                                 f"engine only, max rel {rel:.3e}")
+    log(f"[{tag}] top-band runs: solves {tb['solves']}, failed certificates {tb['failed']}, "
+        f"exact fallbacks {tb['exact']}; launches {launches}")
+    require_launched(tag, launches, ["k17_cheb_step"])
+
+    # the KL stage alone, on one SVD stage of the same m: the engines' own cost
+    dev, rdt = pos.device, pos.real.dtype
+    ls_t, lf_t, _ = mstep.factors_from_numpy(ls, lf, None, dev, rdt)
+    nw_t = torch.as_tensor(np.asarray(noisew), dtype=rdt, device=dev)
+    nl, npol = ntel.lmax + 1, ntel.num_pol_sky
+    mvt = torch.arange(m0, m0 + NS2_TB_M, device=dev)
+    beam = resident._build_beam_batch(pos, neg, mvt, ntel.npairs, ntel.nfreq, npol, nl,
+                                      m_lo=m0)
+    comp = mstep.compress_step(beam, nw_t, ls_t, lf_t, mvt, npol=npol, nl=nl)
+    k, lv = resident._TB_STATE.get(n, (n // resident._TB_START_FRAC, 5))
+    stage = {}
+    for name, kwargs in (
+        ("exact (1 Gram level, as the resident route's first solve)", dict(sig_levels=1)),
+        (f"topband at the product cut ({k}, {lv})",
+         dict(kl_cut=PS_THRESHOLD, kl_top_k=k, kl_levels=lv)),
+        (f"topband at the band cut ({k}, {lv})", dict(kl_cut=cut_b, kl_top_k=k, kl_levels=lv)),
+    ):
+        retries = fpencil.svd_retries
+        torch.cuda.synchronize()
+        t = time.time()
+        res = mstep.kl_solve_step(comp, **kwargs)
+        torch.cuda.synchronize()
+        stage[name] = (time.time() - t, fpencil.svd_retries - retries, bool(res.ok.all()))
+    del comp, beam
+    log(f"[{tag}] the KL stage alone (one SVD stage, {NS2_TB_M} m), s a m, Gram eigensolves "
+        f"that took the SVD, certificates passed: "
+        + "; ".join(f"{k_}: {v[0] / NS2_TB_M:.4f}, {v[1]}, {v[2]}" for k_, v in stage.items())
+        + f" ({card_line()})")
     return launches
 
 
@@ -1693,7 +2021,7 @@ def products_phase(slice_run, outdir):
         raise AssertionError(
             f"{tag}: dense path m {mi} vs factored: {d_err:.3e}, {n_dense} vs {nkl[mi]} modes"
         )
-    return launches, nkl
+    return launches, nkl, (mi, ev_fact)
 
 
 def products_kernels(tel, nkl):
@@ -1799,6 +2127,74 @@ def klinv_phase(outdir):
     log(f"[{tag}] generate() {t_klinv:.4f} s  launches {launches}")
     require_launched(tag, launches, ["k15a_sandwich"])
     return launches, m
+
+
+def topband_products_phase(outdir, factored, tag="topband products"):
+    """``[products]``' config with two more filters, ``kl_tb`` and ``dk_tb``:
+    its KL and DoubleKL sections with ``engine: topband``, added to the
+    directory's ``config.yaml`` (after ``klinv``) and generated by a second
+    ``generate()``, which writes only them; counts zeroed just before and
+    read just after (K17 must launch).  Gates, per m against ``kl`` and
+    ``dk``: ``num_modes`` equal, retained eigenvalues within rel 1e-6.
+    ``[products]`` rewrote one m of ``kl`` through the dense per-m path
+    (``factored`` = (that m, its factored ``evals_full`` from before)); that
+    m is held against its factored spectrum.  Printed: the chunks that fell
+    back to the exact engine.  Returns the launch counts."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.util import store
+
+    conf = products_config(outdir)
+    conf["kltransform"] += [
+        {"type": "KLTransform", "name": "klinv", "threshold": PS_THRESHOLD, "inverse": True},
+        {"type": "KLTransform", "name": "kl_tb", "threshold": PS_THRESHOLD,
+         "engine": "topband"},
+        {"type": "DoubleKL", "name": "dk_tb", "engine": "topband"},
+    ]
+    write_yaml(conf, os.path.join(outdir, "config.yaml"))
+    backend.reset_launch_counts()
+    t = time.time()
+    m = manager.ProductManager.from_config(outdir)
+    m.generate()
+    torch.cuda.synchronize()
+    t_gen = time.time() - t
+    launches = launch_counts()
+    nm = m.telescope.mmax + 1
+    fallback = {}
+    for tb_name, ex_name in (("kl_tb", "kl"), ("dk_tb", "dk")):
+        tb_kl, ex_kl = m.kltransforms[tb_name], m.kltransforms[ex_name]
+        worst, at, modes, fell = 0.0, None, 0, tb_kl.topband_fallback_chunks
+        for mi in range(nm):
+            with store.File(tb_kl._evfile % mi, "r") as f:
+                ev_t, n_t = f["evals"][:], int(f.attrs["num_modes"])
+            with store.File(ex_kl._evfile % mi, "r") as f:
+                ev_x, n_x = f["evals"][:], int(f.attrs["num_modes"])
+            if ex_name == "kl" and mi == factored[0]:
+                ev_x = np.sort(factored[1][factored[1] >= PS_THRESHOLD])
+                n_x = ev_x.size
+            if n_t != n_x:
+                raise AssertionError(f"{tag}: {tb_name} m {mi} keeps {n_t} modes, {ex_name} {n_x}")
+            if n_x:
+                rel = np.abs(ev_t - ev_x) / ev_x
+                if rel.max() > worst:
+                    j = int(rel.argmax())
+                    worst, at = float(rel[j]), (mi, j, ev_t[max(j - 1, 0):j + 2],
+                                                ev_x[max(j - 1, 0):j + 2])
+            modes += n_x
+        fallback[tb_name] = sum(map(len, fell))
+        where = "" if at is None else (f" at m {at[0]} mode {at[1]} (topband {at[2].tolist()}, "
+                                       f"exact {at[3].tolist()})")
+        log(f"[{tag}] {tb_name} vs {ex_name}: num_modes equal for all {nm} m ({modes} modes), "
+            f"retained eigenvalues max rel {worst:.3e}{where} (tol 1e-6); chunks that fell "
+            f"back to the exact engine {len(fell)} ({fallback[tb_name]} m)")
+        if not worst <= 1e-6:
+            raise AssertionError(f"{tag}: {tb_name} eigenvalues off {ex_name}'s by {worst:.3e}")
+    log(f"[{tag}] generate() of kl_tb and dk_tb {t_gen:.4f} s ({nm / t_gen:.4f} m-modes/s "
+        f"for both filters); launches {launches}")
+    require_launched(tag, launches, ["k17_cheb_step"])
+    return launches
 
 
 def timestream_phase(outdir, m):
@@ -2986,6 +3382,7 @@ def main():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, HERE)
     from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.parallel import resident
     from driftscan_tpu_torch.telescope import cylinder, disharray, restrictedcylinder
 
     card = card_line()
@@ -3012,6 +3409,9 @@ def main():
         {"restricted": rtel, "restricted pol": rptel, "dish": dtel}))
     k3k5_dish_compare(dtel, np.random.default_rng(SEED + 3))
     k3k5_window_compare(ntel, np.random.default_rng(SEED + 4))
+    n2 = resident.pencil_size(ntel)
+    k17_compare(1, n2, k17_shape(n2)[1], k17_shape(n2)[0], np.random.default_rng(SEED + 5),
+                "ns2 full size")
     counted = {}
     for tag, t_, ps in (("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD),
                         ("dish", dtel, None), ("restricted", rtel, None),
@@ -3027,7 +3427,8 @@ def main():
             host_beam_share(tag, dtel)
         del run
     del dtel
-    for launches in (slice_windows_phase(tel, slice_run), ns2_window_phase(ntel)):
+    for launches in (slice_windows_phase(tel, slice_run), *ns2_window_phase(ntel),
+                     topband_phase(tel, slice_run)):
         for name, count in launches.items():
             if count:
                 counted[name] = counted.get(name, 0) + count
@@ -3040,7 +3441,7 @@ def main():
     outdir = tempfile.mkdtemp(prefix="driftscan_products_")
     profiling = "--profile" in sys.argv[1:]
     try:
-        launches, nkl = products_phase(slice_run, outdir)
+        launches, nkl, factored = products_phase(slice_run, outdir)
         for name, count in launches.items():
             if count:
                 counted[name] = counted.get(name, 0) + count
@@ -3053,6 +3454,9 @@ def main():
                 counted[name] = counted.get(name, 0) + count
         launches, mapfile, nside = timestream_phase(outdir, m)
         for name, count in launches.items():
+            if count:
+                counted[name] = counted.get(name, 0) + count
+        for name, count in topband_products_phase(outdir, factored).items():
             if count:
                 counted[name] = counted.get(name, 0) + count
         if profiling:

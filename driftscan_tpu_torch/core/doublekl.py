@@ -6,8 +6,10 @@ whose S/F exceeds ``foreground_threshold``; stage 2 re-solves the full
 signal/noise pencil restricted to that cleaned subspace.  The eigenfiles
 additionally record the stage-1 spectrum (``f_evals``).  The batched path
 runs the fully-factored two-stage pencil
-(ops.projections.doublekl_factored_batched) on the device; the dense
-per-m path whitens dense covariances (ops.linalg.eigh_gen).
+(ops.projections.doublekl_factored_batched) on the device, or with
+``engine: topband`` its top-band form, with the exact engine for a chunk
+whose certificate fails; the dense per-m path whitens dense covariances
+(ops.linalg.eigh_gen).
 """
 
 from __future__ import annotations
@@ -106,12 +108,23 @@ class DoubleKL(kltransform.KLTransform):
         ls, lf = self._cl_factors()
 
         nc1 = (1e-3 / tel.tsys_flat) ** 2  # suppressed-thermal floor
+        kw = dict(nc=1.0, nc1=nc1, fg_threshold=self.foreground_threshold,
+                  fg_reg_rel=self._foreground_regulariser)
 
-        f_ev_t, ev_t, evecs_t, nkept_t = projections.doublekl_factored_batched(
-            bsvd, ls, lf, nc=1.0, nc1=nc1,
-            fg_threshold=self.foreground_threshold,
-            fg_reg_rel=self._foreground_regulariser,
-        )
+        # the top-band engine: both stages compute only the modes they
+        # keep, and the sub-threshold tails of `evals_full` / `f_evals` are
+        # exact zeros; a failed certificate sends the chunk to the exact
+        # engine
+        topband_ok = False
+        if self._use_topband:
+            f_ev_t, ev_t, evecs_t, nkept_t, ok = projections.doublekl_factored_batched_topband(
+                bsvd, ls, lf, cut=self.threshold, **kw
+            )
+            topband_ok = not self._topband_failed(m_chunk, ok)
+        if not topband_ok:
+            f_ev_t, ev_t, evecs_t, nkept_t = projections.doublekl_factored_batched(
+                bsvd, ls, lf, **kw
+            )
         f_ev_b = f_ev_t.cpu().numpy()
         ev_b = ev_t.cpu().numpy()
         nkept_b = nkept_t.cpu().numpy()

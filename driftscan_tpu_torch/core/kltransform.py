@@ -14,8 +14,10 @@ spectra.  Two paths:
   with the sandwich kernel and solves the whitened dense eigenproblem
   (ops.linalg.eigh_gen).
 
-The per-m orchestration, files and thresholds stay host-side.  The
-``topband`` engine is not ported (ROADMAP.md, modules to port, item 10).
+The per-m orchestration, files and thresholds stay host-side.  With
+``engine: topband`` (and ``subset``) the batched path computes only the
+retained eigenpairs (ops.projections.kl_factored_batched_topband); a chunk
+whose certificate fails is solved again by the exact engine.
 """
 
 from __future__ import annotations
@@ -69,7 +71,12 @@ class KLTransform(config.Reader):
 
     threshold = config.Property(proptype=float, default=0.1, key="threshold")
 
-    # Eigensolver of the batched path: "exact" only; "topband" is not ported.
+    # Eigensolver of the batched path: "exact" (the whole whitened-Gram
+    # eigendecomposition) or "topband" (fpencil.gram_topband: only the
+    # retained band).  With "topband" the sub-threshold tail of the
+    # `evals_full` dataset is exact zeros (the retained `evals`/`evecs` are
+    # unchanged); it needs ``subset`` and falls back to "exact" for any
+    # chunk whose completeness certificate fails.
     engine = config.Property(proptype=str, default="exact", key="engine")
 
     _foreground_regulariser = config.Property(
@@ -99,6 +106,8 @@ class KLTransform(config.Reader):
         self.telescope = self.beamtransfer.telescope
         # m that the batched path handed to the dense per-m transform
         self.dense_fallback_m = []
+        # m-chunks whose top-band certificate failed (solved again exactly)
+        self.topband_fallback_chunks = []
 
         subdir = "ev" if subdir is None else subdir
         self.evdir = self.beamtransfer.directory + "/" + subdir
@@ -107,10 +116,26 @@ class KLTransform(config.Reader):
         comm.barrier()
 
     def _finalise_config(self):
-        if self.engine != "exact":
-            raise NotImplementedError(
-                f"KL engine {self.engine!r}: {projections._TOPBAND}"
+        if self.engine not in ("exact", "topband"):
+            raise ValueError(
+                f"KL engine {self.engine!r}: the engines are 'exact' and 'topband'"
             )
+
+    @property
+    def _use_topband(self) -> bool:
+        return self.engine == "topband" and self.subset
+
+    def _topband_failed(self, m_chunk, ok) -> bool:
+        """Whether a top-band chunk's certificate failed somewhere (then
+        logged and recorded: the caller solves the chunk again exactly)."""
+        if bool(ok.all()):
+            return False
+        logger.info(
+            "m chunk %s: top-band certificate failed; re-solving with the exact engine.",
+            list(m_chunk),
+        )
+        self.topband_fallback_chunks.append(list(m_chunk))
+        return True
 
     @property
     def device(self) -> torch.device:
@@ -423,11 +448,21 @@ class KLTransform(config.Reader):
         ls, lf = self._cl_factors()
         nc = 1.0 if self.use_thermal else (1e-3 / self.telescope.tsys_flat) ** 2
 
-        evals_t, evecs_t = projections.kl_factored_batched(
-            bsvd, ls, lf, nc=nc, with_thermal=True,
-            fg_reg_rel=self._foreground_regulariser,
-        )
-        return m_chunk, idx_list, evals_t, evecs_t
+        def exact():
+            return projections.kl_factored_batched(
+                bsvd, ls, lf, nc=nc, with_thermal=True,
+                fg_reg_rel=self._foreground_regulariser,
+            )
+
+        ok = None
+        if self._use_topband:
+            evals_t, evecs_t, ok = projections.kl_factored_batched_topband(
+                bsvd, ls, lf, cut=self.threshold, nc=nc,
+                fg_reg_rel=self._foreground_regulariser,
+            )
+        else:
+            evals_t, evecs_t = exact()
+        return m_chunk, idx_list, evals_t, evecs_t, ok, exact
 
     def _kl_finish_mbatch(self, state):
         """Fetch a dispatched chunk's results and write its eigenfiles.
@@ -437,7 +472,10 @@ class KLTransform(config.Reader):
         statistics (reduced on the device) and those columns come to the
         host.
         """
-        m_chunk, idx_list, evals_t, evecs_t = state
+        m_chunk, idx_list, evals_t, evecs_t, ok, exact = state
+        topband_ok = ok is not None and not self._topband_failed(m_chunk, ok)
+        if ok is not None and not topband_ok:
+            evals_t, evecs_t = exact()
         evals_b = evals_t.cpu().numpy()
         M, n = evals_b.shape
 
@@ -476,6 +514,14 @@ class KLTransform(config.Reader):
             idx = idx_list[i]
             ndof = len(idx)
             w = evals_b[i]
+
+            if topband_ok:
+                # the columns above the cut are genuine by construction
+                # (padded and svcut directions come out at exactly 0), and
+                # the sub-threshold spectrum is written as zeros
+                sel = np.nonzero(w > self.threshold)[0]
+                self._write_ev_file(mi, ndof, w[sel], cols(i, sel)[idx, :].T.conj())
+                continue
 
             keep = support_b[i] > 0.5 * total_b[i]
             if keep.sum() != ndof:

@@ -44,12 +44,6 @@ K15B = backend.register(
     "driftscan_tpu/ops/projections.py:352",
 )
 
-_TOPBAND = (
-    "the top-band KL engine is not ported yet: ROADMAP.md, modules to port, "
-    "item 10 (opt-in engines)"
-)
-
-
 def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     """``x`` as a tensor: a tensor stays on its device unless ``device`` is
     given; an array goes to ``device`` (the card when None)."""
@@ -539,12 +533,84 @@ def doublekl_factored_batched(
     )
 
 
-def kl_factored_batched_topband(*args, **kwargs):
-    raise NotImplementedError(_TOPBAND)
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "device meshes are not ported yet: ROADMAP.md, modules to port, item 11"
+        )
 
 
-def doublekl_factored_batched_topband(*args, **kwargs):
-    raise NotImplementedError(_TOPBAND)
+def _topband_k(k: int, n: int) -> int:
+    """The top-band basis width: ``k``, or max(n // 8, 8) for 0, at most n."""
+    return int(min(k or max(n // 8, 8), n))
+
+
+def kl_factored_batched_topband(
+    bsvd5,
+    ls,
+    lf,
+    cut: float,
+    nc: float = 1.0,
+    k: int = 0,
+    levels: int = 6,
+    fg_reg_rel: float = 0.0,
+    device=None,
+    mesh=None,
+):
+    """m-batched retained-band KL solve (fpencil.kl_solve_qr_topband).
+
+    The conventions of :func:`kl_factored_batched`, but only the eigenpairs
+    with eigenvalue >= ``cut`` (the caller's KL retention threshold) are
+    computed; everything below is exact zeros with zero eigenvector
+    columns.  The signal factor is not compacted.  ``k`` 0 sizes the
+    filter basis at max(n // 8, 8) columns.  Returns (evals (M, n), evecs
+    (M, n, n), ok (M,) bool): a False certificate means that m's band
+    overflowed the basis or the levels; re-solve it with the exact engine.
+    """
+    _no_mesh(mesh)
+    bsvd5 = as_tensor(bsvd5, device)
+    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact=False)
+    kl, ok = fpencil.kl_solve_qr_topband(
+        a_s, a_f, cut=cut, k=_topband_k(k, a_s.shape[-2]), levels=int(levels),
+        fg_reg_rel=fg_reg_rel,
+    )
+    return kl.evals, kl.evecs, ok
+
+
+def doublekl_factored_batched_topband(
+    bsvd5,
+    ls,
+    lf,
+    cut: float,
+    nc: float = 1.0,
+    nc1: float | None = None,
+    fg_threshold: float = 100.0,
+    fg_floor: float = 1e-6,
+    fg_reg_rel: float = 1e-14,
+    k: int = 0,
+    levels: int = 6,
+    device=None,
+    mesh=None,
+):
+    """m-batched two-stage DoubleKL through the top-band engine
+    (fpencil.doublekl_solve_qr_topband): the outputs of
+    :func:`doublekl_factored_batched` and a trailing per-m ``ok`` (both
+    stages' certificates).  Stage 1 computes only the modes it keeps (S/F
+    above ``fg_threshold``), stage 2 those above ``cut``; everything below
+    either cut is exact zeros."""
+    _no_mesh(mesh)
+    bsvd5 = as_tensor(bsvd5, device)
+    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact=False)
+    return fpencil.doublekl_solve_qr_topband(
+        a_s, a_f,
+        cut=cut,
+        k=_topband_k(k, a_s.shape[-2]),
+        levels=int(levels),
+        fg_threshold=fg_threshold,
+        fg_floor=fg_floor,
+        nc1=None if nc1 is None else float(nc1 / nc),
+        fg_reg_rel=fg_reg_rel,
+    )
 
 
 def generalised_eigh_batched(A, B, device=None):

@@ -67,6 +67,10 @@ class ProductStepResult(NamedTuple):
     nmodes: torch.Tensor  # (M, F) retained mode counts
     evals: torch.Tensor  # (M, F*S) KL eigenvalues (ascending, 0-padded)
     evecs: torch.Tensor  # (M, F*S, F*S) KL modes (rows)
+    # per-m certificate of the top-band engine (fpencil.gram_topband):
+    # False where kl_top_k was set and the m's band was not wholly captured
+    # (redispatch those m); True on padding m and for the exact engine
+    ok: torch.Tensor  # (M,) bool
 
 
 def svd_compress(beam, noisew, m_values, npol: int, nl: int, polsvcut: float = 1e-4,
@@ -101,6 +105,78 @@ def svd_compress(beam, noisew, m_values, npol: int, nl: int, polsvcut: float = 1
     return ut, bsvd, sig, nmodes
 
 
+class Compressed(NamedTuple):
+    """The SVD stage and the pencil factors of :func:`kl_product_step`, the
+    part that does not depend on the KL engine (:func:`compress_step`)."""
+
+    ut: torch.Tensor  # (M, F, S, T)
+    beam_svd: torch.Tensor  # (M, F, S, P*L)
+    sig: torch.Tensor  # (M, F, S)
+    nmodes: torch.Tensor  # (M, F)
+    a_s: torch.Tensor  # (M, n, Ks) signal factor
+    a_f: torch.Tensor  # (M, n, Kf) foreground factor
+    m_values: torch.Tensor  # (M,), m < 0 marking padding
+    dtype: torch.dtype  # the beams' complex dtype
+
+
+def compress_step(beam, noisew, ls, lf, m_values, npol: int, nl: int,
+                  polsvcut: float = 1e-4, svcut: float = 1e-6, s_cap: int = 0) -> Compressed:
+    """The SVD stage of :func:`kl_product_step` and its pencil's factors;
+    arguments as there.  A caller that solves one pencil more than once
+    (a deeper exact solve, a top-band redispatch) computes this once and
+    passes it to :func:`kl_solve_step` each time."""
+    M, F = beam.shape[0], beam.shape[1]
+    mv = m_values.to(beam.device)
+    ut, bsvd, sig, nmodes = svd_compress(beam, noisew, mv, npol, nl, polsvcut, svcut)
+    S = ut.shape[-2]
+    # modes are sorted by singular value per frequency, so the top-s_cap
+    # slice keeps every non-zero mode
+    s_kl = s_cap if 0 < s_cap < S else S
+
+    b5 = bsvd[:, :, :s_kl].reshape(M, F, s_kl, npol, nl)
+    if uses_compact_signal(F * s_kl, nl * ls.shape[-1]):
+        # re-factor the signal side to width n (K9 + shifted Cholesky)
+        a_s = fpencil.beam_factor_compact(b5.to(beam.dtype), ls)
+    else:
+        a_s = fpencil.beam_factor(b5, ls)
+    a_f = fpencil.beam_factor(b5, lf)
+    return Compressed(ut, bsvd, sig, nmodes, a_s, a_f, mv, beam.dtype)
+
+
+def kl_solve_step(
+    comp: Compressed,
+    sig_levels: int = 2,
+    band_rel: float = 3e-2,
+    kl_cut: float = 0.0,
+    kl_top_k: int = 0,
+    kl_levels: int = 5,
+) -> ProductStepResult:
+    """The KL stage of :func:`kl_product_step` on a :func:`compress_step`
+    result; arguments as there."""
+    cdt = comp.dtype
+    rdt = backend.real_dtype(cdt)
+    keep_m = comp.m_values >= 0
+    if kl_top_k:
+        kl, ok = fpencil.kl_solve_qr_topband(comp.a_s, comp.a_f, cut=kl_cut, k=kl_top_k,
+                                             levels=kl_levels)
+        ok = ok | ~keep_m  # padding m never block a dispatch
+    else:
+        kl = fpencil.kl_solve(comp.a_s, comp.a_f, sig_levels=sig_levels, band_rel=band_rel)
+        ok = torch.ones_like(keep_m)
+    evecs = kl.evecs.conj().transpose(-1, -2)  # rows are KL modes
+
+    keep = keep_m.double()
+    return ProductStepResult(
+        ut=(comp.ut * keep[:, None, None, None]).to(cdt),
+        beam_svd=(comp.beam_svd * keep[:, None, None, None]).to(cdt),
+        sig=(comp.sig * keep[:, None, None]).to(rdt),
+        nmodes=(comp.nmodes * keep_m[:, None]).to(torch.int32),
+        evals=(kl.evals * keep[:, None]).to(rdt),
+        evecs=(evecs * keep[:, None, None]).to(cdt),
+        ok=ok,
+    )
+
+
 def kl_product_step(
     beam: torch.Tensor,
     noisew: torch.Tensor,
@@ -114,8 +190,12 @@ def kl_product_step(
     sig_levels: int = 2,
     band_rel: float = 3e-2,
     s_cap: int = 0,
+    kl_cut: float = 0.0,
+    kl_top_k: int = 0,
+    kl_levels: int = 5,
 ) -> ProductStepResult:
-    """SVD-compress and KL-filter a batch of m-modes.
+    """SVD-compress and KL-filter a batch of m-modes: :func:`compress_step`
+    then :func:`kl_solve_step`.
 
     beam : (M, F, T, npol*nl) complex, m-major; noisew (F, T) inverse noise
     weights (noisepower^-1/2), so the projected radiometer noise is the
@@ -125,36 +205,15 @@ def kl_product_step(
     largest polarised singular value.  ``s_cap`` > 0 keeps the top
     ``s_cap`` SVD modes of each frequency in the KL pencil (its dimension
     is then F * s_cap; the caller keeps every retained mode inside the
-    cap): the m-bucketing's compacted mode axis.
+    cap): the m-bucketing's compacted mode axis.  ``kl_top_k`` > 0 solves
+    the pencil with the top-band engine (:func:`fpencil.kl_solve_qr_topband`):
+    only the eigenvalues >= ``kl_cut`` are computed, in ``kl_levels``
+    deflation levels of a ``kl_top_k``-column filtered basis, the rest are
+    exact zeros, and ``ok`` carries each m's certificate.
     """
-    M, F = beam.shape[0], beam.shape[1]
-    cdt, rdt = beam.dtype, backend.real_dtype(beam.dtype)
-    mv = m_values.to(beam.device)
-    ut, bsvd, sig, nmodes = svd_compress(beam, noisew, mv, npol, nl, polsvcut, svcut)
-    S = ut.shape[-2]
-    # modes are sorted by singular value per frequency, so the top-s_cap
-    # slice keeps every non-zero mode
-    s_kl = s_cap if 0 < s_cap < S else S
-
-    b5 = bsvd[:, :, :s_kl].reshape(M, F, s_kl, npol, nl)
-    if uses_compact_signal(F * s_kl, nl * ls.shape[-1]):
-        # re-factor the signal side to width n (K9 + shifted Cholesky)
-        a_s = fpencil.beam_factor_compact(b5.to(cdt), ls)
-    else:
-        a_s = fpencil.beam_factor(b5, ls)
-    a_f = fpencil.beam_factor(b5, lf)
-    kl = fpencil.kl_solve(a_s, a_f, sig_levels=sig_levels, band_rel=band_rel)
-    evecs = kl.evecs.conj().transpose(-1, -2)  # rows are KL modes
-
-    keep = (mv >= 0).double()
-    return ProductStepResult(
-        ut=(ut * keep[:, None, None, None]).to(cdt),
-        beam_svd=(bsvd * keep[:, None, None, None]).to(cdt),
-        sig=(sig * keep[:, None, None]).to(rdt),
-        nmodes=(nmodes * (mv >= 0)[:, None]).to(torch.int32),
-        evals=(kl.evals * keep[:, None]).to(rdt),
-        evecs=(evecs * keep[:, None, None]).to(cdt),
-    )
+    comp = compress_step(beam, noisew, ls, lf, m_values, npol, nl, polsvcut, svcut, s_cap)
+    return kl_solve_step(comp, sig_levels=sig_levels, band_rel=band_rel, kl_cut=kl_cut,
+                         kl_top_k=kl_top_k, kl_levels=kl_levels)
 
 
 def band_factor_table(clbands, out_dtype=np.float32, l_chunk=64, rank_rtol=1e-15):

@@ -16,9 +16,10 @@ columns, the streaming axis for telescopes whose full tables outgrow the
 card.  :func:`product_all_resident` can also bucket the m-modes
 (``bucket``): a cheap SVD-only pass counts each (m, frequency)'s modes,
 and each m-chunk runs with its frequency axis compacted to the active
-frequencies and its mode axis capped at the chunk's largest count.  The
-top-band engine and device meshes are not ported yet; asking for them
-raises.
+frequencies and its mode axis capped at the chunk's largest count.  With
+``topband`` the KL stage takes the top-band engine (only the eigenpairs
+above the retention cut, with an escalation on a failed certificate).
+Device meshes are not ported yet; asking for one raises.
 """
 
 from __future__ import annotations
@@ -138,6 +139,19 @@ _SIG1_TOP_BOUND = 1.0
 # the JAX package.
 _MBATCH_CAP = 8
 _BUCKET_MBATCH_CAP = 16
+
+# Working (basis width, levels) of the top-band engine per pencil
+# dimension, remembered across chunks and windows, so that the escalation
+# is paid once a shape; its starting width is n / _TB_START_FRAC, the JAX
+# package's n / 8.
+_TB_STATE: dict = {}
+_TB_START_FRAC = 8
+
+# Top-band dispatches of this process: chunk solves, failed certificates
+# (each followed by a redispatch at (2k, levels + 1)), and chunks that
+# went past k = n/2 to the exact engine.
+TB_COUNTS = {"solves": 0, "failed": 0, "exact": 0}
+
 
 # Least reduction of the pencil dimension F * S for which an m-chunk runs
 # compacted; below it the chunk runs at full size.
@@ -302,7 +316,7 @@ def plan_chunks(counts, m_lo, F, S, mbatch, mb_for):
 def product_all_resident(
     tel, pos, neg, ls, lf, noisew, mbatch=None, max_m=None, mesh=None,
     sig_levels=None, bucket=None, m_range=None, topband=False,
-    band_lt=None, ps_threshold=0.1, chunks=None,
+    band_lt=None, ps_threshold=0.1, chunks=None, kl_cut=0.1,
 ):
     """Run the SVD+KL product step (and the fused Fisher) over every m.
 
@@ -329,15 +343,17 @@ def product_all_resident(
     telescope's analytic per-m dimension promises at least a halving of
     the cubic KL cost (:func:`auto_bucket`).  ``chunks``, a list, receives
     one :class:`Chunk` per dispatch.
+
+    ``topband=True`` solves the KL pencil with the top-band engine
+    (:func:`_run_topband`): only the eigenvalues >= ``kl_cut`` (the
+    retention cut the spectrum will be cut at) are computed, the rest are
+    exact zeros; a chunk with a failed certificate is redispatched with a
+    doubled basis and one more level, and past a basis of half the pencil
+    it takes the exact engine.
     """
     if mesh is not None:
         raise NotImplementedError(
             "device meshes are not ported yet: ROADMAP.md, modules to port, item 11"
-        )
-    if topband:
-        raise NotImplementedError(
-            "the top-band KL engine is not ported yet: ROADMAP.md, modules to "
-            "port, item 10"
         )
     if m_range is not None:
         m_lo, m_hi = int(m_range[0]), int(m_range[1])
@@ -397,7 +413,7 @@ def product_all_resident(
         ev, nmo, fm = product_m_batch(
             tel, pos, neg, ls, lf, noisew, ch.m_values, band_lt=band_dev,
             ps_threshold=ps_threshold, sig_levels=sig_levels,
-            m_lo=m_tab, chunk=ch,
+            m_lo=m_tab, chunk=ch, kl_cut=kl_cut if topband else None,
         )
         if fisher:
             fish_total += fm
@@ -424,8 +440,34 @@ def fisher_k(evals, ps_threshold) -> int:
     return int((np.asarray(evals) > ps_threshold).sum(axis=1).max())
 
 
+def _run_topband(run, n_chunk, kl_cut, exact_levels):
+    """One chunk through the top-band engine, with the escalation.
+
+    ``run(levels, **kw)`` runs the product step's KL stage on the chunk's
+    SVD stage, computed once (:func:`mstep.kl_solve_step`).  Starts from the (k,
+    levels) remembered for this pencil dimension (n / _TB_START_FRAC
+    columns, quantised, at least 8; 5 levels); while some m fails its
+    certificate the chunk is redispatched at (2k, levels + 1); past k =
+    n/2 the filtered engine no longer pays and the chunk takes the exact
+    engine at ``exact_levels``.  Returns the product step's result."""
+    k, lv = _TB_STATE.get(
+        n_chunk, (_quant_frac(max(n_chunk // _TB_START_FRAC, 8), n_chunk), 5)
+    )
+    while k <= n_chunk // 2:
+        TB_COUNTS["solves"] += 1
+        res = run(2, kl_cut=float(kl_cut), kl_top_k=int(min(k, n_chunk)), kl_levels=int(lv))
+        if bool(res.ok.all()):
+            _TB_STATE[n_chunk] = (k, lv)
+            return res
+        TB_COUNTS["failed"] += 1
+        k, lv = 2 * k, lv + 1
+    TB_COUNTS["exact"] += 1
+    return run(exact_levels)
+
+
 def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
-                    ps_threshold=0.1, sig_levels=None, m_lo=None, chunk=None):
+                    ps_threshold=0.1, sig_levels=None, m_lo=None, chunk=None,
+                    kl_cut=None):
     """One m-batch of :func:`product_all_resident`, any m's.
 
     The batch's beams are gathered from the resident tables and go
@@ -439,7 +481,10 @@ def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
     and band_lt to its frequency slots and caps the pencil at its sq modes
     a frequency.  Returns host (evals (M, F*S), nmodes (M, F), Fisher
     (nbands, nbands) complex128 summed over the batch, or None without
-    band_lt), with the chunk's fq and sq for F and S.
+    band_lt), with the chunk's fq and sq for F and S.  ``kl_cut`` set
+    solves the pencil with the top-band engine (:func:`_run_topband`; a
+    chunk that falls back to the exact engine takes the default depth
+    where ``sig_levels`` is None, as in the JAX package).
     """
     if band_lt is not None and float(ps_threshold) <= 0:
         raise ValueError("ps_threshold must be > 0 for the Fisher pass")
@@ -456,17 +501,23 @@ def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
         fmask=None if chunk is None else chunk.fmask,
     )
 
-    def run(levels):
-        return mstep.kl_product_step(
-            beam, noisew, ls, lf, mvt, npol=npol, nl=nl, sig_levels=levels,
-            s_cap=s_cap or 0,
-        )
+    # the SVD stage once; each solve of the pencil (a deeper exact solve, a
+    # top-band redispatch) reuses it
+    comp = mstep.compress_step(beam, noisew, ls, lf, mvt, npol=npol, nl=nl, s_cap=s_cap or 0)
 
-    res = run(1 if sig_levels is None else sig_levels)
-    ev = res.evals.cpu().numpy()
-    if sig_levels is None and ev.max() > _SIG1_TOP_BOUND:
-        res = run(2)
+    def run(levels, **kw):
+        return mstep.kl_solve_step(comp, sig_levels=levels, **kw)
+
+    if kl_cut is not None:
+        n_chunk = pencil_size(tel) if chunk is None else chunk.fq * chunk.sq
+        res = _run_topband(run, n_chunk, kl_cut, 2 if sig_levels is None else sig_levels)
         ev = res.evals.cpu().numpy()
+    else:
+        res = run(1 if sig_levels is None else sig_levels)
+        ev = res.evals.cpu().numpy()
+        if sig_levels is None and ev.max() > _SIG1_TOP_BOUND:
+            res = run(2)
+            ev = res.evals.cpu().numpy()
     fish = None
     if band_lt is not None:
         fish = np.zeros((band_lt.shape[0],) * 2, np.complex128)

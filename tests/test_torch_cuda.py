@@ -993,3 +993,63 @@ def test_two_ranks_on_the_card_match_one(cuda, tmp_path):
     for a, b in ((two.kltransforms["kl"].evals_all(), one.kltransforms["kl"].evals_all()),
                  (two.psestimators["ps"].fisher_bias()[0], one.psestimators["ps"].fisher_bias()[0])):
         assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
+
+
+K17_SHAPES = [(1, 5, 3, 2), (2, 70, 33, 17), (3, 130, 200, 45), (1, 64, 16, 32)]
+
+
+@pytest.mark.parametrize("first", [False, True], ids=["step", "first"])
+@pytest.mark.parametrize("shape", K17_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k17_cheb_step(cuda, shape, first):
+    from driftscan_tpu_torch.ops import cheb
+
+    M, n, K, k = shape
+    rng = np.random.default_rng(17)
+
+    def c(*s):
+        z = rng.standard_normal(s) + 1j * rng.standard_normal(s)
+        return torch.as_tensor(z, device=cuda)
+
+    y, w, vk, vp = c(M, n, K), c(M, K, k), c(M, n, k), None if first else c(M, n, k)
+    alpha = torch.as_tensor(rng.random(M) + 0.5, device=cuda)
+    beta, gamma = (-1.0, 0.0) if first else (-2.0, -1.0)
+    _check(cheb.K17, lambda: cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma),
+           lambda: cheb.cheb_step_ref(y, w, vk, vp, alpha, beta, gamma), 1e-12)
+    a = cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma)
+    b = cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k17_rejects_complex64(cuda):
+    from driftscan_tpu_torch.ops import cheb
+
+    y = torch.zeros((1, 4, 3), dtype=torch.complex64, device=cuda)
+    w = torch.zeros((1, 3, 2), dtype=torch.complex64, device=cuda)
+    v = torch.zeros((1, 4, 2), dtype=torch.complex64, device=cuda)
+    with pytest.raises(TypeError):
+        cheb.cheb_step(y, w, v, None, torch.ones(1, device=cuda), -1.0, 0.0)
+
+
+def test_topband_engine_on_the_card(cuda):
+    """kl_solve_qr_topband on CUDA tensors (K17 in the filter) against the
+    same solve on the CPU (its plain version): the certificate equal,
+    retained eigenvalues within rel 1e-9."""
+    from driftscan_tpu_torch.ops import cheb
+
+    rng = np.random.default_rng(11)
+    n = 96
+    a_s = rng.standard_normal((2, n, 60)) + 1j * rng.standard_normal((2, n, 60))
+    a_s *= np.logspace(2.5, -4.5, 60)[None, None, :]
+    a_f = rng.standard_normal((2, n, 40)) + 1j * rng.standard_normal((2, n, 40))
+    a_f *= np.logspace(4, 0, 40)[None, None, :]
+    before = cheb.K17.launches
+    g, gok = fpencil.kl_solve_qr_topband(torch.as_tensor(a_s, device=cuda),
+                                         torch.as_tensor(a_f, device=cuda), cut=0.1, k=24)
+    assert cheb.K17.launches > before
+    c, cok = fpencil.kl_solve_qr_topband(torch.as_tensor(a_s), torch.as_tensor(a_f), cut=0.1,
+                                         k=24)
+    assert torch.equal(gok.cpu(), cok) and bool(cok.all())
+    ge, ce = g.evals.cpu().numpy(), c.evals.numpy()
+    kept = ce > 0
+    assert np.array_equal(ge > 0, kept) and kept.sum() > 10
+    np.testing.assert_allclose(ge[kept], ce[kept], rtol=1e-9)

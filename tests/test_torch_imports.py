@@ -32,6 +32,8 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.experiments.double_grids",
     "driftscan_tpu_torch.experiments.probe_breakdown",
     "driftscan_tpu_torch.experiments.probe_tiles",
+    "driftscan_tpu_torch.experiments.topband_lock",
+    "driftscan_tpu_torch.ops.cheb",
     "driftscan_tpu_torch.ops.fpencil",
     "driftscan_tpu_torch.ops.healpix",
     "driftscan_tpu_torch.ops.kernels",

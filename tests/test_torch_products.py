@@ -530,9 +530,23 @@ def test_plugin_telescope_loads(tmp_path):
     ({"kltransform": {"engine": "topband"}}, r"topband.*ROADMAP\.md.*item 10"),
 ])
 def test_unported_options_name_their_roadmap_line(tmp_path, sections, match):
-    with pytest.raises(NotImplementedError, match=match):
-        m = manager.ProductManager(device="cpu").apply_config(_small(tmp_path / "out", **sections))
-        m.generate()
+    """``engine: topband`` was the last unported option of this config; it
+    is ported now: it generates and writes the KL files (no top-band
+    chunk falls back to the exact engine here), and an unknown engine
+    still raises, naming the value."""
+    m = manager.ProductManager(device="cpu").apply_config(_small(tmp_path / "out", **sections))
+    m.generate()
+    kl = m.kltransforms["kl"]
+    assert kl.engine == "topband" and kl.topband_fallback_chunks == []
+    kept = 0
+    for mi in range(m.telescope.mmax + 1):
+        with h5py.File(kl._evfile % mi, "r") as f:
+            kept += int(f.attrs["num_modes"])
+            assert f["evecs"].shape[0] == f.attrs["num_modes"]
+    assert kept > 0
+    bad = _small(tmp_path / "bad", kltransform={"engine": "nonesuch"})
+    with pytest.raises(ValueError, match="nonesuch"):
+        manager.ProductManager(device="cpu").apply_config(bad).generate()
 
 
 @pytest.mark.parametrize("variant", ["nosvd", "fullsvd", "tempsvd"])

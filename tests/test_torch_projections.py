@@ -366,9 +366,19 @@ def test_doublekl_factored_batched(nc1):
 
 
 def test_topband_dispatchers_name_their_roadmap_line():
-    for fn in (TP.kl_factored_batched_topband, TP.doublekl_factored_batched_topband):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 10"):
-            fn(None, None, None, cut=0.1)
+    """The top-band dispatchers are ported: each returns its per-m
+    certificate (their parity is in tests/test_torch_topband*.py); a device
+    mesh and the ``gram`` engine still name their ROADMAP lines."""
+    bsvd, ls, lf = _factor_inputs(24)
+    lf = lf * 1e-3
+    for fn, kw in ((TP.kl_factored_batched_topband, {}),
+                   (TP.doublekl_factored_batched_topband, dict(fg_threshold=5.0))):
+        out = fn(bsvd, ls, lf, cut=1e-3, device="cpu", **kw)
+        ok = out[-1]
+        assert ok.dtype == torch.bool and ok.shape == (bsvd.shape[0],)
+        assert out[0].shape == (bsvd.shape[0], bsvd.shape[1] * bsvd.shape[2])
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+            fn(bsvd, ls, lf, cut=1e-3, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="item 10"):
         fpencil.kl_solve(None, None, method="gram")
 

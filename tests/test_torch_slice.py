@@ -106,6 +106,6 @@ def test_fisher_matches(runs):
 def test_unported_options_raise():
     tt = cylinder.UnpolarisedCylinderTelescope.from_config(CFG, device="cpu")
     z = torch.zeros((1, 1, 2, 2), dtype=torch.complex128)
-    for kw in ({"topband": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            resident.product_all_resident(tt, z, z, None, None, None, **kw)
+    # the top-band engine is ported (tests/test_torch_topband_resident.py)
+    with pytest.raises(NotImplementedError):
+        resident.product_all_resident(tt, z, z, None, None, None, mesh=object())
