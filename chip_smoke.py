@@ -65,13 +65,15 @@ script exits non-zero:
    and the JAX package's north-star telescope ``ns2`` at full width in its
    run's last m-window, bucketed (:func:`ns2_window_phase`), then
    ``[topband ns2]``: four of its m at full size (n 3200) by the exact
-   and the top-band engine (:func:`topband_ns2_phase`);
+   and the top-band engine (:func:`topband_ns2_phase`), with K17's
+   launches by distinct (M, n, K, k) and the tile each got;
 5c. topband -- path 4's tables through ``product_all_resident(topband=True,
    kl_cut=0.1)`` with the fused Fisher (:func:`topband_phase`): K17
    launched, every failed certificate solved again, the card against the
    port's CPU engine on the CPU check's m (retained eigenvalues rel 1e-6),
    the exact engine's spectra and Fisher beside it, both engines'
-   m-modes/s;
+   m-modes/s, K17's launches by distinct (M, n, K, k) and the tile each
+   got;
 6. products -- the file pipeline behind ``drift-makeproducts``: the bench
    unpolarised cylinder as a config dictionary through
    ``ProductManager.apply_config(...).generate()`` into a fresh temporary
@@ -99,7 +101,8 @@ script exits non-zero:
    ``[topband products]``: the KL and DoubleKL filters again with
    ``engine: topband`` added to that directory's config and generated
    (:func:`topband_products_phase`; eigenvalues rel 1e-6 and
-   ``num_modes`` equal to the exact filters', fallbacks printed);
+   ``num_modes`` equal to the exact filters', fallbacks and K17's launches
+   by distinct (M, n, K, k) printed);
 8a. example -- the repository's ``examples/disharray`` (DishArray,
    ``nosvd``, a KL filter with an inverse), its two YAML files copied
    unedited into a temporary directory and run there by
@@ -1015,9 +1018,11 @@ def k17_compare(M, n, K, k, rng, what, tag="kernels"):
     library time is two PyTorch calls computing the same function:
     ``torch.baddbmm`` (one alpha for all m) and an inf-norm for amax.
     bytes: Y, W, V_k, V_p read once, V_out written once; operations:
-    8 M n K k float64 flops (the product Y W) at the float64 peak."""
+    8 M n K k float64 flops (the product Y W) at the float64 peak.  Prints
+    the tile ``cheb.plan`` chose for the shape."""
     import torch
 
+    from driftscan_tpu_torch import backend
     from driftscan_tpu_torch.ops import cheb
 
     dev = torch.device("cuda")
@@ -1047,6 +1052,10 @@ def k17_compare(M, n, K, k, rng, what, tag="kernels"):
     got = cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma)[1]
     ref = cheb.cheb_step_ref(y, w, vk, vp, alpha, beta, gamma)[1]
     s_err = float(((1.0 / (got + 1e-30)) / (1.0 / (ref + 1e-30)) - 1.0).abs().max())
+    p = cheb.plan(M, n, K, k, backend.sm_count(dev))
+    log(f"[{tag}] k17_cheb_step ({what}): plan {p.bm} x {p.bn} tiles (mt {p.mt}, nt {p.nt}, "
+        f"warps {p.wr} x {p.wc}, depth split {p.wks}), grid {p.grid}, {p.blocks} blocks, "
+        f"{p.threads} threads, {p.smem} B shared memory")
     t_mm = median_ms(lambda: torch.baddbmm(c, y, w, alpha=a0))
     out = torch.baddbmm(c, y, w, alpha=a0)
     t_norm = median_ms(lambda: torch.linalg.vector_norm(
@@ -1542,6 +1551,32 @@ def topband_counts(before):
     return {k: resident.TB_COUNTS[k] - before[k] for k in before}
 
 
+def k17_shapes():
+    """K17's launches since ``cheb.SHAPES`` was last cleared, by distinct
+    (M, n, K, k), each with the tile ``cheb.plan`` gave it, as a log line."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import cheb
+
+    sms = backend.sm_count(torch.device("cuda"))
+    parts = []
+    for (M, n, K, k), count in sorted(cheb.SHAPES.items()):
+        p = cheb.plan(M, n, K, k, sms)
+        parts.append(f"(M {M}, n {n}, K {K}, k {k}) x {count} [{p.bm} x {p.bn}, depth split "
+                     f"{p.wks}, {p.blocks} blocks]")
+    return "; ".join(parts) or "none"
+
+
+def path_k17(tag, shapes, rng):
+    """K17 against its plain version, timed as in ``[kernels]``, at the
+    shape a path launched it most (``shapes``: a copy of ``cheb.SHAPES``
+    taken just after the path's counted run)."""
+    (M, n, K, k), count = max(shapes.items(), key=lambda kv: (kv[1], kv[0]))
+    return k17_compare(M, n, K, k, rng, f"{tag}'s most launched shape, {count} launches",
+                       tag=f"{tag} kernels")
+
+
 def retained_diff(ev, ref, cut):
     """(max rel of ev against ref on the modes either retains above cut,
     modes retained by one only, ref's modes within 1e-6 rel of the cut)."""
@@ -1564,10 +1599,12 @@ def topband_phase(tel, slice_run, tag="topband"):
     Printed: against the exact engine on the same tables (``[slice]``'s
     run), beside the TPU A/B's 1e-4 tier, and both engines' m-modes/s of
     the product step (the gated run, then one exact and one top-band run
-    here).  Returns the launch counts."""
+    here), then K17 against its plain version at the shape the run launched
+    it most (:func:`path_k17`).  Returns the launch counts."""
     import torch
 
     from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import cheb
     from driftscan_tpu_torch.parallel import mstep, resident
 
     pos, neg = slice_run["tables"]
@@ -1580,6 +1617,7 @@ def topband_phase(tel, slice_run, tag="topband"):
     kw = dict(band_lt=band_lt, ps_threshold=PS_THRESHOLD, kl_cut=PS_THRESHOLD)
     before = dict(resident.TB_COUNTS)
     backend.reset_launch_counts()
+    cheb.SHAPES.clear()
     chunks = []
     t = time.time()
     evals, nmodes, fisher = resident.product_all_resident(
@@ -1588,6 +1626,8 @@ def topband_phase(tel, slice_run, tag="topband"):
     torch.cuda.synchronize()
     t_tb = time.time() - t
     launches = launch_counts()
+    shapes = dict(cheb.SHAPES)
+    log(f"[{tag}] K17 launches by (M, n, K, k): {k17_shapes()}")
     tb = topband_counts(before)
     n = resident.pencil_size(tel)
     log(f"[{tag}] product_all_resident(topband=True, kl_cut {PS_THRESHOLD:g}) {t_tb:.4f} s; "
@@ -1658,6 +1698,7 @@ def topband_phase(tel, slice_run, tag="topband"):
         f"{times['exact']}, topband {times['topband']}; m-modes/s exact "
         f"{nm / min(times['exact']):.4f}, topband {nm / min(times['topband']):.4f} "
         f"({card_line()})")
+    path_k17(tag, shapes, np.random.default_rng(SEED + 6))
     return launches
 
 
@@ -1687,13 +1728,15 @@ def topband_ns2_phase(ntel, pos, neg, ls, lf, noisew, kw, m0, m1, tag="topband n
     NS2_TB_BAND largest modes or those within 1e-6 of its top.  Gates on the second: the same retained set as the
     exact engine and retained eigenvalues within rel TB_CHECK_RTOL.
     Printed: seconds a m of each run (the whole product step, then the KL
-    stage alone on one SVD stage), and how many Gram eigensolves of the
-    exact route failed in cuSOLVER and took the SVD.  Returns the launch
+    stage alone on one SVD stage), how many Gram eigensolves of the
+    exact route failed in cuSOLVER and took the SVD, and K17 against its
+    plain version at the shape the runs launched it most
+    (:func:`path_k17`).  Returns the launch
     counts of the top-band runs."""
     import torch
 
     from driftscan_tpu_torch import backend
-    from driftscan_tpu_torch.ops import fpencil
+    from driftscan_tpu_torch.ops import cheb, fpencil
     from driftscan_tpu_torch.parallel import mstep, resident
 
     common = dict(bucket=False, m_range=(m0, m1), max_m=NS2_TB_M, mbatch=NS2_TB_M, **kw)
@@ -1713,6 +1756,7 @@ def topband_ns2_phase(ntel, pos, neg, ls, lf, noisew, kw, m0, m1, tag="topband n
         f"{(ev_x > cut_b).sum(axis=1).tolist()}")
     before = dict(resident.TB_COUNTS)
     backend.reset_launch_counts()
+    cheb.SHAPES.clear()
     runs = []
     for cut in (PS_THRESHOLD, cut_b, cut_b):
         b4, retries = dict(resident.TB_COUNTS), fpencil.svd_retries
@@ -1724,6 +1768,8 @@ def topband_ns2_phase(ntel, pos, neg, ls, lf, noisew, kw, m0, m1, tag="topband n
         runs.append((cut, time.time() - t, ev_t, f_t, topband_counts(b4),
                      fpencil.svd_retries - retries, resident._TB_STATE.get(n)))
     launches = launch_counts()
+    shapes = dict(cheb.SHAPES)
+    log(f"[{tag}] K17 launches by (M, n, K, k): {k17_shapes()}")
     tb = topband_counts(before)
     for i, (cut, dt, ev_t, f_t, c, svd_t, state) in enumerate(runs):
         rel, ndiff, near = retained_diff(ev_t, ev_x, cut)
@@ -1772,6 +1818,7 @@ def topband_ns2_phase(ntel, pos, neg, ls, lf, noisew, kw, m0, m1, tag="topband n
         f"that took the SVD, certificates passed: "
         + "; ".join(f"{k_}: {v[0] / NS2_TB_M:.4f}, {v[1]}, {v[2]}" for k_, v in stage.items())
         + f" ({card_line()})")
+    path_k17(tag, shapes, np.random.default_rng(SEED + 7))
     return launches
 
 
@@ -2139,11 +2186,14 @@ def topband_products_phase(outdir, factored, tag="topband products"):
     ``[products]`` rewrote one m of ``kl`` through the dense per-m path
     (``factored`` = (that m, its factored ``evals_full`` from before)); that
     m is held against its factored spectrum.  Printed: the chunks that fell
-    back to the exact engine.  Returns the launch counts."""
+    back to the exact engine, and K17 against its plain version at the
+    shape the run launched it most (:func:`path_k17`).  Returns the launch
+    counts."""
     import torch
 
     from driftscan_tpu_torch import backend
     from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.ops import cheb
     from driftscan_tpu_torch.util import store
 
     conf = products_config(outdir)
@@ -2155,12 +2205,15 @@ def topband_products_phase(outdir, factored, tag="topband products"):
     ]
     write_yaml(conf, os.path.join(outdir, "config.yaml"))
     backend.reset_launch_counts()
+    cheb.SHAPES.clear()
     t = time.time()
     m = manager.ProductManager.from_config(outdir)
     m.generate()
     torch.cuda.synchronize()
     t_gen = time.time() - t
     launches = launch_counts()
+    shapes = dict(cheb.SHAPES)
+    log(f"[{tag}] K17 launches by (M, n, K, k): {k17_shapes()}")
     nm = m.telescope.mmax + 1
     fallback = {}
     for tb_name, ex_name in (("kl_tb", "kl"), ("dk_tb", "dk")):
@@ -2194,6 +2247,7 @@ def topband_products_phase(outdir, factored, tag="topband products"):
     log(f"[{tag}] generate() of kl_tb and dk_tb {t_gen:.4f} s ({nm / t_gen:.4f} m-modes/s "
         f"for both filters); launches {launches}")
     require_launched(tag, launches, ["k17_cheb_step"])
+    path_k17(tag, shapes, np.random.default_rng(SEED + 8))
     return launches
 
 

@@ -1,7 +1,8 @@
 // Warp-level tensor-core products (mma.sync) and cp.async staging, shared by
 // the projection sandwich (K15a, sandwich.cu), the Legendre stages of the
-// forward and inverse SHT (K3+K5, legendre_sht.cu; K14, legendre_synth.cu)
-// and the Fisher trace (K15b, fisher_trace.cu).
+// forward and inverse SHT (K3+K5, legendre_sht.cu; K14, legendre_synth.cu),
+// the Fisher trace (K15b, fisher_trace.cu) and the top-band engine's
+// Chebyshev filter step (K17, cheb_step.cu).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k*"), with
 // g = lane / 4 and t = lane % 4, A (16 x K) row-major, B (K x 8), C (16 x 8):

@@ -10,8 +10,10 @@ beams and visibility maps (``_beam_map_batch``: the beam gather and
 K1+K2), the phase stage (``sht.phase_stage``: a cuFFT a group of rings of
 equal length, then the window's gather) and the Legendre stage
 (``sht.legendre_contract``, K3+K5), printing each stage's seconds, its
-share of the pass and the number of calls.  Prints the card's name and
-power limit first.
+share of the pass and the number of calls; for the phase stage (K4 of the
+port's kernel table) also the bytes it must move (each call's padded maps
+read once, its F and G written once) and their time at 3.35 TB/s, its
+bound.  Prints the card's name and power limit first.
 """
 
 import os
@@ -46,7 +48,7 @@ def main():
 
     t_warm, _ = btm()
     t_btm, _ = btm()
-    spent, calls = {}, {}
+    spent, calls, moved = {}, {}, {}
 
     def timed(owner, name, label):
         fn = getattr(owner, name)
@@ -58,6 +60,8 @@ def main():
             torch.cuda.synchronize()
             spent[label] = spent.get(label, 0.0) + time.time() - t
             calls[label] = calls.get(label, 0) + 1
+            if name == "phase_stage":
+                moved[label] = moved.get(label, 0) + cs.nbytes(a[0], *out)
             return out
         return wrapper, fn
 
@@ -81,6 +85,10 @@ def main():
     for label, sec in spent.items():
         print(f"[ns2 btm] {label}: {sec:.4f} s ({sec / t_sync:.4f} of the pass) in "
               f"{calls[label]} calls", flush=True)
+        if label in moved:
+            b = moved[label] / cs.HBM_BYTES_PER_S
+            print(f"[ns2 btm] {label}: {moved[label] / 1e9:.4f} GB moved, bound {b:.4f} s "
+                  f"(bytes at 3.35 TB/s; {b / sec:.4f} of it)", flush=True)
     rest = t_sync - sum(spent.values())
     print(f"[ns2 btm] the rest (unit bookkeeping, table writes): {rest:.4f} s "
           f"({rest / t_sync:.4f})", flush=True)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from driftscan_tpu_torch import backend
-from driftscan_tpu_torch.ops import fpencil, healpix, kernels, probe, projections, sht
+from driftscan_tpu_torch.ops import cheb, fpencil, healpix, kernels, probe, projections, sht
 from driftscan_tpu_torch.parallel import mstep
 from driftscan_tpu_torch.telescope import cylbeam, cylinder
 
@@ -995,29 +995,75 @@ def test_two_ranks_on_the_card_match_one(cuda, tmp_path):
         assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
 
 
-K17_SHAPES = [(1, 5, 3, 2), (2, 70, 33, 17), (3, 130, 200, 45), (1, 64, 16, 32)]
+# small and ragged shapes; the bench cylinder's slice (M 8, n 352, K 352,
+# k 44), its escalated width (k 88) and the ns2 telescope's full size
+# (M 1, n 3200, K 3200, k 400), each on the tile ops/cheb.py plans for it;
+# n, K and k all off the tiles (and the 8-deep slices) at full size
+K17_SHAPES = [(1, 5, 3, 2), (2, 70, 33, 17), (3, 130, 200, 45), (1, 64, 16, 32),
+              (8, 352, 352, 44), (8, 352, 352, 88), (1, 3200, 3200, 400), (2, 1000, 1001, 131),
+              (1, 3203, 3205, 403), (2, 333, 517, 83)]
+
+
+def _k17_inputs(rng, shape, first, device):
+    M, n, K, k = shape
+
+    def c(*s):
+        z = rng.standard_normal(s) + 1j * rng.standard_normal(s)
+        return torch.as_tensor(z, device=device)
+
+    y, w, vk, vp = c(M, n, K), c(M, K, k), c(M, n, k), None if first else c(M, n, k)
+    alpha = torch.as_tensor(rng.random(M) + 0.5, device=device)
+    beta, gamma = (-1.0, 0.0) if first else (-2.0, -1.0)
+    return y, w, vk, vp, alpha, beta, gamma
+
+
+def _scale_err(got, want):
+    """Largest relative difference of the running scale 1 / (amax + 1e-30)."""
+    return float(((1.0 / (got + 1e-30)) / (1.0 / (want + 1e-30)) - 1.0).abs().max())
 
 
 @pytest.mark.parametrize("first", [False, True], ids=["step", "first"])
 @pytest.mark.parametrize("shape", K17_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_k17_cheb_step(cuda, shape, first):
-    from driftscan_tpu_torch.ops import cheb
-
-    M, n, K, k = shape
-    rng = np.random.default_rng(17)
-
-    def c(*s):
-        z = rng.standard_normal(s) + 1j * rng.standard_normal(s)
-        return torch.as_tensor(z, device=cuda)
-
-    y, w, vk, vp = c(M, n, K), c(M, K, k), c(M, n, k), None if first else c(M, n, k)
-    alpha = torch.as_tensor(rng.random(M) + 0.5, device=cuda)
-    beta, gamma = (-1.0, 0.0) if first else (-2.0, -1.0)
-    _check(cheb.K17, lambda: cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma),
-           lambda: cheb.cheb_step_ref(y, w, vk, vp, alpha, beta, gamma), 1e-12)
-    a = cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma)
-    b = cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma)
+    """V_out within 1e-12 of its max, the running scale within 1e-13 rel,
+    two launches bit for bit."""
+    args = _k17_inputs(np.random.default_rng(17), shape, first, cuda)
+    _check(cheb.K17, lambda: cheb.cheb_step(*args), lambda: cheb.cheb_step_ref(*args), 1e-12)
+    a = cheb.cheb_step(*args)
+    b = cheb.cheb_step(*args)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert _scale_err(a[1], cheb.cheb_step_ref(*args)[1]) <= 1e-13
+
+
+@pytest.mark.parametrize("tile", cheb.TILES, ids=lambda t: "x".join(map(str, t)))
+def test_k17_every_tile(cuda, tile):
+    """Each tile the library is built with, forced at a ragged shape."""
+    M, n, K, k = 2, 333, 517, 83
+    args = _k17_inputs(np.random.default_rng(18), (M, n, K, k), False, cuda)
+    mt, nt, wr, wc = tile[:4]
+    p = cheb.ChebPlan(*tile, (-(-k // (wc * 8 * nt)), -(-n // (wr * 16 * mt)), M))
+    _check(cheb.K17, lambda: cheb.cheb_step_launch(*args, p),
+           lambda: cheb.cheb_step_ref(*args), 1e-12)
+    a = cheb.cheb_step_launch(*args, p)
+    b = cheb.cheb_step_launch(*args, p)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("shape", [(2, 70, 33, 17), (8, 352, 352, 44)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k17_nan_reaches_amax(cuda, shape):
+    """A NaN in V_k reaches its batch element's amax (and V_out there); the
+    other elements keep their finite amax."""
+    y, w, vk, vp, alpha, beta, gamma = _k17_inputs(np.random.default_rng(19), shape, False,
+                                                   cuda)
+    vk[1, 5, 3] = complex(float("nan"), 0.0)
+    out, amax = cheb.cheb_step(y, w, vk, vp, alpha, beta, gamma)
+    ref, ref_amax = cheb.cheb_step_ref(y, w, vk, vp, alpha, beta, gamma)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(amax[1])) and bool(torch.isnan(ref_amax[1]))
+    assert bool(torch.isnan(out[1, 5, 3].real))
+    assert bool(torch.isfinite(amax[0])) and bool(torch.isfinite(amax[2:]).all())
+    assert _scale_err(amax[0], ref_amax[0]) <= 1e-13
 
 
 def test_k17_rejects_complex64(cuda):

@@ -33,6 +33,7 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.experiments.probe_breakdown",
     "driftscan_tpu_torch.experiments.probe_tiles",
     "driftscan_tpu_torch.experiments.topband_lock",
+    "driftscan_tpu_torch.experiments.k17_tiles",
     "driftscan_tpu_torch.ops.cheb",
     "driftscan_tpu_torch.ops.fpencil",
     "driftscan_tpu_torch.ops.healpix",
