@@ -59,14 +59,32 @@ script exits non-zero:
    cold ``[dish]`` BTM, and ``[float64 gate]``: the restricted and the
    bench cylinder at ``single_precision: False``, one ``btm_resident``
    each, K2-host in float64 against the CPU; ``[dish]`` buckets under
-   its auto rule and also times its product step at full size;
+   its auto rule;
 5b. slice windows, ns2 window -- m-windows and m-bucketing: the bench
    telescope in two m-windows against path 4 (:func:`slice_windows_phase`),
    and the JAX package's north-star telescope ``ns2`` at full width in its
    run's last m-window, bucketed (:func:`ns2_window_phase`), then
    ``[topband ns2]``: four of its m at full size (n 3200) by the exact
    and the top-band engine (:func:`topband_ns2_phase`), with K17's
-   launches by distinct (M, n, K, k) and the tile each got;
+   launches by distinct (M, n, K, k) and the tile each got; then
+   ``[ns2 retained]``: ns2 in its run's second m-window [45, 90), where
+   modes pass 0.1, cut to its first 8 m (one m-chunk), by the exact and
+   the top-band engine on the same tables, m 45 and 52 against the CPU,
+   K13 and K15b timed at the shapes it launched them with, and those m
+   held against the JAX run's record (:func:`ns2_retained_phase`,
+   :func:`record_compare`; ``experiments/ns2_retained.py`` runs the whole
+   window, its Fisher against the record's);
+5d. oldcylinder -- the legacy sinc-beam polarised cylinder
+   (``telescope/oldcylinder.py``, reached by the manager's plugin form) at
+   bench's polarised layout and 4 channels through the entry points of 4,
+   its host beams on K2-host Stokes, with path 5's CPU check
+   (:func:`oldcylinder_phase`);
+5e. ns1b window -- the JAX package's scale-axis telescope ``ns1b`` (lmax
+   1035, nside 1024 under its run's cap) in its run's first m-window
+   [0, 33): K3+K5 at the path's shape (B 64 Stokes maps, 4,095 rings)
+   against its plain version, with its library call and bound
+   (:func:`ns1b_window_phase`; ``experiments/ns1b_window.py`` runs the
+   window itself against the JAX run's record);
 5c. topband -- path 4's tables through ``product_all_resident(topband=True,
    kl_cut=0.1)`` with the fused Fisher (:func:`topband_phase`): K17
    launched, every failed certificate solved again, the card against the
@@ -107,7 +125,9 @@ script exits non-zero:
    ``nosvd``, a KL filter with an inverse), its two YAML files copied
    unedited into a temporary directory and run there by
    ``makeproducts.run_config`` and ``runpipeline.run_config`` after the
-   input map of the example's walkthrough script (K14, the port's store); every file
+   input map of the example's walkthrough script, made by the port's copy
+   of its driver (``driftscan_tpu_torch/examples/disharray_driver.py``:
+   K14, the port's store); every file
    opens, the NoSVD telescope basis, maps against the CPU synthesis of
    their alm; then ``[svd variants]``: TempSVD and FullSVD beam transfers
    of the same telescope, their singular values against the CPU's
@@ -119,8 +139,10 @@ script exits non-zero:
    every file against the resident run's, and the polarised cylinder's
    BTM by both routes (:func:`chunked_phase`); the bench cylinder at 128
    channels, whose tables are over the resident host budget, through the
-   chunked route in 2 chunks (BTM only; units against the plain CPU
-   versions; its peak host RSS; :func:`chunked_128_phase`); MonteCarlo,
+   chunked route in 2 chunks (the BTM of 226 m; units against the plain CPU
+   versions; its peak host RSS; :func:`chunked_128_phase`), then its product
+   chain (SVD, KL, PSExact) cut to its first 8 m, two m against the CPU
+   (:func:`chunked_128_products`); MonteCarlo,
    MonteCarloAlt and Cross on ``[products]``' KL filter against its
    ``Full`` Fisher and the CPU (:func:`psmc_phase`); between ``[chunked]``
    and ``[chunked 128]``, ``[mp products]``: ``[chunked]``'s config with a
@@ -241,9 +263,62 @@ NS2_PARAMS = dict(
 )
 NS2_WINDOW = (270, 315)
 NS2_CPU_M = (270, 313)
-NS2_FULL_M = 8  # m of the one bucket=False batch held against the bucketed run
+NS2_FULL_M = 4  # m of the one bucket=False batch held against the bucketed run
 NS2_BAND_EDGES = np.linspace(0.0, 0.4, 11)
 NS2_RECORD = "ckpt/ns2_windows/w06_270_315_exact_highest_solve_bcast_f1.npz"
+# [ns2 retained]: the same telescope in the JAX run's second m-window, where
+# modes pass 0.1 (the record: 1,026 retained, top 0.245, a 10-band Fisher of
+# max 0.453), cut in depth to its first NS2_RETAINED_M m; m
+# NS2_RETAINED_CPU_M against the CPU
+NS2_RETAINED_WINDOW = (45, 90)
+NS2_RETAINED_M = 8  # the window's m that chip_smoke.py runs (one m-chunk)
+NS2_RETAINED_CPU_M = (45, 52)
+NS2_RETAINED_RECORD = "ckpt/ns2_windows/w01_45_90_exact_highest_solve_bcast_f1.npz"
+# [ns1b window]: the JAX package's scale-axis telescope "ns1b"
+# (scratch/northstar2.py's preset: a PolarisedCylinder, 2 x 4 feeds 31 m
+# wide, 32 channels over 400-800 MHz, ndays 733; lmax 1035, mmax 1032, 40
+# baseline pairs, 1,280 units, pencil up to 2,560) at full width in the JAX
+# run's first m-window, under the run's nside cap of 1024 (the boost would
+# take the longest units to nside 2048); the SHT budget lets 16 units of
+# nside 1024 share one call (the default 2 GB lets one)
+NS1B_PARAMS = dict(
+    num_freq=32,
+    freq_start=400.0,
+    freq_end=800.0,
+    freq_mode="edge",
+    num_cylinders=2,
+    cylinder_width=31.0,
+    num_feeds=4,
+    feed_spacing=1.5,
+    tsys=50.0,
+    single_precision=True,
+    ndays=733,
+)
+NS1B_WINDOW = (0, 33)
+NS1B_NSIDE_CAP = 1024
+NS1B_SHT_BUDGET_GB = 32.0
+NS1B_RECORD = "ckpt/ns1b_windows/w00_0_33_exact_highest_solve_bcast_f1.npz"
+# Tolerances of the comparisons with the JAX run's records (a TPU: float32
+# tables, a float32 Gram-eigendecomposition SVD that keeps the polarisation
+# filter's rounding residue as modes, a float32 KL engine; PERF.md section
+# 6): where the record retains modes, its retained count within
+# REC_COUNT_RTOL, its retained eigenvalues rank by rank within
+# REC_RETAINED_TOP of each m's top eigenvalue (a float32 SVD and pencil's
+# error on this card, ROADMAP's precision rule: its rounding is a fraction of
+# the top, not of each eigenvalue) and its Fisher within REC_FISHER_RTOL of
+# max|F|; where it retains none, none retained.  SVD mode counts and sub-cut
+# spectra are printed.
+REC_COUNT_RTOL = 5e-2
+REC_RETAINED_TOP = 4.3e-2
+REC_FISHER_RTOL = 1e-1
+# [oldcylinder]: the legacy sinc-beam polarised cylinder
+# (telescope/oldcylinder.py, the manager's plugin form) at bench's polarised
+# layout and 4 channels
+OLDCYL_PARAMS = POL_PARAMS
+# [chunked 128] past the BTM: the product chain on a subset of its 228 m,
+# the first four (pencils up to 128 x 44 = 5,632) and four high m (the
+# l >= m rows thin out: up to 128 x 18)
+CHUNKED_128_M = (0, 1, 2, 3, 214, 217, 220, 223)
 # [slice windows]: the bench cylinder's 226 m in two m-windows
 SLICE_WINDOWS = ((0, 113), (113, 226))
 PROBE_N = 1024  # scratch/pallas_probe.py's shapes
@@ -287,8 +362,16 @@ BF16_FLOPS = 989e12
 RECURRENCE_FLOPS = 5.0
 
 
+T_START = time.time()
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def mark(what):
+    """A line with the seconds since the script started, after a phase."""
+    log(f"[time] {what}: {time.time() - T_START:.1f} s since the start")
 
 
 def covariances(tel):
@@ -838,10 +921,10 @@ def k3k5_window_compare(ntel, rng):
     return rec
 
 
-def k13_compare(t, M, k, rng, tag="kernels", F=None, S=None):
+def k13_compare(t, M, k, rng, tag="kernels", F=None, S=None, nb=NBANDS):
     """K13 against its plain version for an m-batch of M items with k
-    retained modes, at ``t``'s path shapes (4 bands of rank <= F, the l
-    axis padded to 64), or a compacted chunk's F and S, with its library
+    retained modes, at ``t``'s path shapes (``nb`` bands of rank <= F, the
+    l axis padded to 64), or a compacted chunk's F and S, with its library
     call and bound."""
     import torch
 
@@ -859,7 +942,7 @@ def k13_compare(t, M, k, rng, tag="kernels", F=None, S=None):
     v = crandn((M, k, F, S))
     bt = crandn((M, F, S, nl))
     nlp = -(-nl // 64) * 64
-    nb, Kb = 4, F
+    Kb = F
     blt = torch.as_tensor(rng.standard_normal((nb, nlp, F, Kb)).astype(np.float32), device=dev)
     y = mstep.fisher_factor(v, bt, blt)
     # G = V B_T (8 flops a complex multiply-add) and Y_b = G L_b (4 a
@@ -948,8 +1031,8 @@ def sandwich_sky_compare(t, rng, tag="kernels"):
     )
 
 
-def trace_compare(k, rng, dtype=None, M=None, tag="kernels"):
-    """K15b at NBANDS bands of k modes (an m-batch of M where the fused
+def trace_compare(k, rng, dtype=None, M=None, tag="kernels", nb=NBANDS):
+    """K15b at ``nb`` bands of k modes (an m-batch of M where the fused
     Fisher step calls it): against the plain version; the library call is
     the JAX program's, a scale and one matmul of the flattened stacks."""
     import torch
@@ -959,18 +1042,18 @@ def trace_compare(k, rng, dtype=None, M=None, tag="kernels"):
     dtype = dtype or torch.complex128
     dev = torch.device("cuda")
     lead = () if M is None else (M,)
-    c = _crandn(rng, lead + (NBANDS, k, k), dtype, dev)
+    c = _crandn(rng, lead + (nb, k, k), dtype, dev)
     w = torch.as_tensor(rng.random(lead + (k,)), device=dev).to(c.real.dtype)
 
     def library():
         d = c * (w[..., None, :, None] * w[..., None, None, :])
-        flat = lead + (NBANDS, k * k)
+        flat = lead + (nb, k * k)
         return d.reshape(flat) @ c.transpose(-1, -2).reshape(flat).transpose(-1, -2)
 
     # one pass over the stack (C_a and C_b are the same tensor on every
     # path); per term a complex product, the weight and the sum, in float64
     nitem = M or 1
-    name = f"k15b_fisher_trace (M {M}, nb {NBANDS}, k {k}, {dtype})"
+    name = f"k15b_fisher_trace (M {M}, nb {nb}, k {k}, {dtype})"
     # float64 sums whatever the input type: 1e-12 for complex64 too
     rtol = 1e-12
     rec = compare(
@@ -978,8 +1061,8 @@ def trace_compare(k, rng, dtype=None, M=None, tag="kernels"):
         lambda: projections.fisher_trace(c, c, w),
         lambda: projections.fisher_trace_ref(c, c, w),
         rtol=rtol, tag=tag,
-        work=(nbytes(c, w) + nitem * NBANDS * NBANDS * 16,
-              [(10.0 * nitem * NBANDS * NBANDS * k * k, F64_FLOPS)]),
+        work=(nbytes(c, w) + nitem * nb * nb * 16,
+              [(10.0 * nitem * nb * nb * k * k, F64_FLOPS)]),
         library_fn=library, bitwise=True, per_launch=True, graph=True,
     )
     # the general form (C_b another tensor, as PSExact's cross-chunk trace
@@ -1067,7 +1150,7 @@ def k17_compare(M, n, K, k, rng, what, tag="kernels"):
     return rec
 
 
-def path_k13(tag, tel, evals, ps_threshold, chunks, launches, m_lo=0):
+def path_k13(tag, tel, evals, ps_threshold, chunks, launches, m_lo=0, nb=NBANDS):
     """K13 at the k the product path launched it with: per m-chunk of the
     run (``chunks``, :class:`resident.Chunk`), the chunk's largest retained
     count (``resident.fisher_k``, the path's own rule), one k per launch
@@ -1089,11 +1172,11 @@ def path_k13(tag, tel, evals, ps_threshold, chunks, launches, m_lo=0):
     import torch
 
     k, M, F, S = shapes[-1]
-    big = k13_compare(tel, M, k, rng, tag=f"{tag} kernels", F=F, S=S)
+    big = k13_compare(tel, M, k, rng, tag=f"{tag} kernels", F=F, S=S, nb=nb)
     k2, M2, F2, S2 = shapes[len(shapes) // 2]
-    k13_compare(tel, M2, k2, rng, tag=f"{tag} kernels", F=F2, S=S2)
+    k13_compare(tel, M2, k2, rng, tag=f"{tag} kernels", F=F2, S=S2, nb=nb)
     # the Fisher step's trace over K13's covariances, at the same k
-    trace_compare(k, rng, dtype=torch.complex64, M=M, tag=f"{tag} kernels")
+    trace_compare(k, rng, dtype=torch.complex64, M=M, tag=f"{tag} kernels", nb=nb)
     return big
 
 
@@ -1150,11 +1233,10 @@ def path_kernels(tel, ls_width):
     return names, n, width
 
 
-def path_phase(tag, tel, ps_threshold=None, compare_full=False):
+def path_phase(tag, tel, ps_threshold=None):
     """One product path on the card, its launch counts, and the CPU check.
     Without ``ps_threshold`` the cut is the top decade of the warm-up's
-    spectrum (:func:`top_decade`).  ``compare_full`` also times the product
-    step at full size (``bucket=False``) on the same tables."""
+    spectrum (:func:`top_decade`)."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -1241,22 +1323,11 @@ def path_phase(tag, tel, ps_threshold=None, compare_full=False):
     require_map_kernel(tag, tel, launches)
     log(f"[{tag}] fisher diag {np.round(diag.real, 12).tolist()}")
 
-    if compare_full:
-        # the same product step at full size (bucket=False), for the rate
-        # the bucketing changes; not gated
-        t3 = time.time()
-        full = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, bucket=False, **kw)
-        torch.cuda.synchronize()
-        t_full = time.time() - t3
-        log(f"[{tag}] bucket=False: t_product_fisher {t_full:.4f} s  m-modes/s "
-            f"{nm / (t_btm + t_full):.4f} (auto: {nm / (t_btm + t_prod):.4f}); svd modes equal: "
-            f"{bool(np.array_equal(full[1], nmodes))}")
-        del full
-
     cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks)
     k13_rec = path_k13(tag, tel, evals, ps_threshold, chunks, launches["k13_fisher_cov"])
     run = {"evals": evals, "nmodes": nmodes, "fisher": fisher, "rate": nm / (t_btm + t_prod),
-           "t_btm": t_btm, "ps_threshold": ps_threshold, "tables": (pos, neg)}
+           "t_btm": t_btm, "t_product": t_prod, "ps_threshold": ps_threshold,
+           "tables": (pos, neg)}
     return launches, required, k13_rec, run
 
 
@@ -1537,6 +1608,340 @@ def ns2_window_phase(ntel, tag="ns2 window"):
     return launches, tb_launches
 
 
+def record_compare(tag, evals, nmodes, fisher, path, cut=PS_THRESHOLD):
+    """The card's run of an m-window against the JAX run's record of the
+    same window (``path``: ``ev`` (nm, n) ascending, ``nmo`` (nm, F),
+    ``fish``; a TPU in float32).  Where the record retains modes above
+    ``cut``: the retained count within REC_COUNT_RTOL, the retained
+    eigenvalues rank by rank within each m (the modes both retain) within
+    REC_RETAINED_TOP of that m's top, the Fisher (``fisher``; None for a run of part of
+    the window) within REC_FISHER_RTOL of the record's max|F|; where it
+    retains none: none retained on the card.  SVD mode counts and each m's
+    top 20 eigenvalues are printed."""
+    with np.load(os.path.join(HERE, path)) as z:
+        jev, jnmo, jfish = z["ev"], z["nmo"], z["fish"]
+    z_ev = jev
+    k = min(len(jev), len(evals))
+    ev, jev = np.sort(evals[:k], axis=1)[:, ::-1], np.sort(jev[:k], axis=1)[:, ::-1]
+    dn = nmodes[:k].sum(axis=1) - jnmo[:k].sum(axis=1)
+    log(f"[{tag}] against the JAX run's record ({path}; a TPU, float32): svd modes a m, card "
+        f"{nmodes[:k].sum(axis=1).min()}..{nmodes[:k].sum(axis=1).max()} (total "
+        f"{int(nmodes[:k].sum())}), record {jnmo[:k].sum(axis=1).min()}.."
+        f"{jnmo[:k].sum(axis=1).max()} (total {int(jnmo[:k].sum())}); card minus record by m: "
+        f"min {int(dn.min())} max {int(dn.max())}")
+    n = min(ev.shape[1], jev.shape[1])
+    ev, jev = ev[:, :n], jev[:, :n]
+    top20 = np.abs(ev[:, :20] - jev[:, :20]) / np.maximum(jev[:, :1], 1e-300)
+    tops = np.abs(ev[:, 0] - jev[:, 0]) / np.maximum(jev[:, 0], 1e-300)
+    kept, jkept = int((ev > cut).sum()), int((jev > cut).sum())
+    log(f"[{tag}] record: top eigenvalue {float(jev.max()):.6e} (card {float(ev.max()):.6e}); "
+        f"each m's top, |card - record| / record: max {float(tops.max()):.3e} median "
+        f"{float(np.median(tops)):.3e}; top 20 of each m, of its top: max "
+        f"{float(top20.max()):.3e} median {float(np.median(top20)):.3e}; retained (ev > "
+        f"{cut:g}) card {kept}, record {jkept}")
+    if jkept == 0:
+        # the sub-cut spectrum: not gated (the JAX engine's adaptive depth
+        # leaves it inaccurate in absolute terms; ROADMAP's traps)
+        if kept:
+            raise AssertionError(f"{tag}: the card retains {kept} modes, the record none")
+        log(f"[{tag}] record: none retained on either side (gated); the sub-cut spectra above "
+            f"are printed, not gated")
+        return
+    both = (ev > cut) & (jev > cut)
+    rels = np.where(both, np.abs(ev - jev) / np.where(both, jev, 1.0), 0.0)
+    of_top = np.where(both, np.abs(ev - jev) / jev[:, :1], 0.0)
+    rel = float(rels.max())
+    wm, wr = np.unravel_index(int(np.argmax(rels)), rels.shape)
+    cm, jm = (ev > cut).sum(axis=1), (jev > cut).sum(axis=1)
+    odd = [(int(i), int(cm[i]), int(jm[i])) for i in np.nonzero(cm != jm)[0]]
+    log(f"[{tag}] record: retained eigenvalues rank by rank, rel: max {rel:.3e} (row {wm}, rank "
+        f"{wr}: card {float(ev[wm, wr]):.6e}, record {float(jev[wm, wr]):.6e}; that row's "
+        f"ranks {max(wr - 2, 0)}..{wr + 2}: card {ev[wm, max(wr - 2, 0):wr + 3].tolist()}, record "
+        f"{jev[wm, max(wr - 2, 0):wr + 3].tolist()}) median "
+        f"{float(np.median(rels[both])):.3e} over {int(both.sum())} modes both retain; of each "
+        f"m's top: max {float(of_top.max()):.3e}; rows whose retained counts differ (row, card, "
+        f"record) {odd}")
+    fscale = float(np.abs(jfish).max())
+    gates = [(f"retained count {kept} vs the record's {jkept}, rel", abs(kept - jkept) / jkept,
+              REC_COUNT_RTOL),
+             ("retained eigenvalues vs the record's, rank by rank, of each m's top",
+              float(of_top.max()), REC_RETAINED_TOP)]
+    if fisher is None:
+        log(f"[{tag}] record: its Fisher sums the whole window; a run of {k} of its "
+            f"{len(z_ev)} m is not held against it")
+    else:
+        gates.append((f"Fisher {fisher.shape} vs the record's (max|F| {fscale:.6e}, card "
+                      f"{float(np.abs(fisher).max()):.6e}), of max",
+                      float(np.abs(fisher - jfish).max()) / fscale, REC_FISHER_RTOL))
+    for what, err, tol in gates:  # every figure printed before any gate fails
+        log(f"[{tag}] {what}: {err:.3e} (tol {tol:g})")
+    bad = [f"{what} {err:.3e} > {tol:g}" for what, err, tol in gates if not err <= tol]
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+
+
+def window_tables(tag, tel, window, band_edges):
+    """Covariance factors, the band table of ``band_edges`` and the window's
+    BTM tables of ``tel``, with the log line of its shapes; returns (pos,
+    neg, ls, lf, noisew, band_lt, t_btm)."""
+    import torch
+
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    m0, m1 = window
+    blg, fig = units(tel)
+    cl_s, cl_n, noisew = covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    band_lt = mstep.band_factor_table(
+        iter(fisher_bands(tel, edges=band_edges)), out_dtype=np.float32, rank_rtol=1e-9
+    )
+    log(f"[{tag}] lmax {tel.lmax} mmax {tel.mmax} npairs {tel.npairs} nfreq {tel.nfreq} "
+        f"npol {tel.num_pol_sky} units {len(blg)} pencil n {resident.pencil_size(tel)} "
+        f"window m {m0}..{m1 - 1} ls {ls.shape} lf {lf.shape} band_lt {band_lt.shape}; "
+        f"bucket auto {'bucketed' if resident.auto_bucket(tel, m1 - m0, m0) else 'full size'}")
+    t = time.time()
+    pos, neg = resident.btm_resident(tel, blg, fig, m_range=window)
+    torch.cuda.synchronize()
+    return pos, neg, ls, lf, noisew, band_lt, time.time() - t
+
+
+def ns2_retained_phase(ntel, tag="ns2 retained", nm=NS2_RETAINED_M, ntb=NS2_RETAINED_M,
+                       cpu_m=NS2_RETAINED_CPU_M):
+    """ns2 at full width in the m-window ``NS2_RETAINED_WINDOW``, where
+    modes pass 0.1: ``btm_resident(m_range=)`` and ``product_all_resident``
+    over its first ``nm`` m (all with None; bucketed, as the JAX run that
+    made the record and ``[ns2 window]``: the auto rule's analytic bound
+    would run these m at full size, n 3,200, where the SVD keeps ~550 modes
+    a m; the 10 bands of k 0-0.4, ps_threshold 0.1), the counts zeroed just
+    before and read just after, then its first ``ntb`` m (one m-chunk) on
+    the same tables with ``topband=True, kl_cut=0.1``.  Gates: spectra and
+    Fisher finite, the Fisher Hermitian and non-zero; K13 and K15b launched
+    (and the map kernel, K3+K5, K9 where the path takes it); m ``cpu_m``
+    against the CPU (:func:`cpu_check`); the top-band engine's retained set
+    equal to the exact engine's and its retained eigenvalues within
+    TB_CHECK_RTOL, K17 launched; the record (:func:`record_compare`; its
+    Fisher sums the whole window, so only a run of the whole window holds
+    the Fisher against it).  Printed: SVD modes a m, the times beside the
+    TPU run's, K13 and K15b against their plain versions at the shapes the
+    path launched (:func:`path_k13`).  ``chip_smoke.py`` runs the first
+    NS2_RETAINED_M m (the whole window's exact product takes ~145 s of its
+    time budget); ``driftscan_tpu_torch/experiments/ns2_retained.py`` runs
+    the whole window.  Returns the launch counts of both runs."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import cheb
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    m0, m1 = NS2_RETAINED_WINDOW
+    nreal = min(m1, ntel.mmax + 1) - m0
+    if nm is not None:
+        nreal = min(nreal, nm)
+    backend.reset_launch_counts()
+    pos, neg, ls, lf, noisew, band_lt, t_btm = window_tables(tag, ntel, NS2_RETAINED_WINDOW,
+                                                             NS2_BAND_EDGES)
+    kw = dict(band_lt=band_lt, ps_threshold=PS_THRESHOLD)
+    chunks = []
+    t = time.time()
+    evals, nmodes, fisher = resident.product_all_resident(
+        ntel, pos, neg, ls, lf, noisew, bucket=True, m_range=NS2_RETAINED_WINDOW,
+        max_m=nm, chunks=chunks, **kw)
+    torch.cuda.synchronize()
+    t_prod = time.time() - t
+    launches = launch_counts()
+    evals, nmodes = evals[:nreal], nmodes[:nreal]
+    with np.load(os.path.join(HERE, NS2_RETAINED_RECORD)) as z:
+        tb_rec, tp_rec = float(z["tb"]), float(z["tp"])
+    retained = int((evals > PS_THRESHOLD).sum())
+    log(f"[{tag}] t_btm {t_btm:.4f} s  t_product_fisher {t_prod:.4f} s  m-modes/s "
+        f"{nreal / (t_btm + t_prod):.4f} (the TPU run's record: btm {tb_rec:.1f} s, product "
+        f"{tp_rec:.1f} s, on a TPU)  top ev {float(evals.max()):.6e}  retained (ev > "
+        f"{PS_THRESHOLD:g}) {retained}  svd modes a m {nmodes.sum(axis=1).min()}.."
+        f"{nmodes.sum(axis=1).max()} (mean {float(nmodes.sum(axis=1).mean()):.1f})  launches "
+        f"{launches}")
+    log(f"[{tag}] m-chunks: {describe_chunks(chunks)} ({card_line()})")
+    if not (np.isfinite(evals).all() and np.isfinite(fisher).all()):
+        raise AssertionError(f"{tag}: non-finite spectra or Fisher")
+    fscale = float(np.abs(fisher).max())
+    if not (fscale > 0 and np.abs(fisher - fisher.conj().T).max() <= 1e-4 * fscale):
+        raise AssertionError(f"{tag}: Fisher zero or not Hermitian (max|F| {fscale:.3e})")
+    log(f"[{tag}] Fisher max |F| {fscale:.6e}, diag {np.round(np.diagonal(fisher).real, 9).tolist()}")
+    names = [map_kernel(ntel), "k3k5_legendre_sht", "k13_fisher_cov", "k15b_fisher_trace"]
+    if any(mstep.uses_compact_signal(c.fq * c.sq, (ntel.lmax + 1) * ls.shape[-1])
+           for c in chunks):
+        names.append("k9_signal_gram")
+    require_launched(tag, launches, names)
+    require_map_kernel(tag, ntel, launches)
+
+    alone = []
+    for m in cpu_m:
+        ch = next(c for c in chunks if m in c.m_values)
+        alone.append(ch._replace(m_values=np.array([m])))
+    cpu_check(tag, ntel, pos, neg, ls, lf, noisew, band_lt, PS_THRESHOLD, alone, m_lo=m0,
+              checks=[(f"m {m}", [m]) for m in cpu_m])
+    whole = nreal == min(m1, ntel.mmax + 1) - m0
+    record_compare(tag, evals, nmodes, fisher if whole else None, NS2_RETAINED_RECORD)
+    path_k13(tag, ntel, evals, PS_THRESHOLD, chunks, launches["k13_fisher_cov"], m_lo=m0,
+             nb=band_lt.shape[0])
+
+    # the top-band engine on the same tables
+    before = dict(resident.TB_COUNTS)
+    backend.reset_launch_counts()
+    cheb.SHAPES.clear()
+    t = time.time()
+    ev_t, _, f_t = resident.product_all_resident(
+        ntel, pos, neg, ls, lf, noisew, bucket=True, m_range=NS2_RETAINED_WINDOW,
+        max_m=ntb, topband=True, kl_cut=PS_THRESHOLD, **kw)
+    torch.cuda.synchronize()
+    t_tb = time.time() - t
+    tb_launches = launch_counts()
+    tb = topband_counts(before)
+    ev_t = ev_t[:ntb]
+    rel, ndiff, near = retained_diff(ev_t, evals[:ntb], PS_THRESHOLD)
+    log(f"[{tag}] topband (kl_cut {PS_THRESHOLD:g}) on m {m0}..{m0 + ntb - 1}: {t_tb:.4f} s "
+        f"(exact {t_prod * ntb / nreal:.4f} s pro rata): "
+        f"solves {tb['solves']}, failed certificates {tb['failed']}, exact fallbacks "
+        f"{tb['exact']}; retained {int((ev_t > PS_THRESHOLD).sum())} vs exact "
+        f"{int((evals[:ntb] > PS_THRESHOLD).sum())}, by one only {ndiff}, max rel {rel:.3e} (tol "
+        f"{TB_CHECK_RTOL:g}), exact modes within 1e-6 rel of the cut {near}; K17 by (M, n, K, k): "
+        f"{k17_shapes()}; launches {tb_launches}")
+    if not (np.isfinite(ev_t).all() and np.isfinite(f_t).all()):
+        raise AssertionError(f"{tag}: top-band spectra or Fisher not finite")
+    if ndiff or not rel <= TB_CHECK_RTOL:
+        raise AssertionError(f"{tag}: topband vs exact: {ndiff} modes retained by one engine "
+                             f"only, max rel {rel:.3e}")
+    require_launched(tag, tb_launches, ["k17_cheb_step", "k13_fisher_cov", "k15b_fisher_trace"])
+    del pos, neg
+    return launches, tb_launches
+
+
+def k3k5_ns1b_compare(tel, rng):
+    """K3+K5 at the ``[ns1b window]`` path's shape: one SHT call of its
+    largest nside's first chunk (B = units x 4 Stokes, under the phase's
+    SHT budget and nside cap) at lmax 1035 over m ``NS1B_WINDOW``,
+    complex64, against its plain version (rel 1e-5), with its library
+    call and bound (:func:`k3k5_compare`): the recurrence
+    (``csrc/legendre_rec.cuh``), the schedule and the launch limits past
+    lmax 1000."""
+    import torch
+
+    from driftscan_tpu_torch.ops import healpix
+
+    ns, blc, _, sub_lmax = first_chunk(tel)
+    g = healpix.ring_geometry(ns)
+    B = len(blc) * tel._npol_transform
+    m0, m1 = NS1B_WINDOW
+    F = _crandn(rng, (B, m1 - m0, g.nring), torch.complex64, tel.device)
+    G = _crandn(rng, (B, m1 - m0, g.nring), torch.complex64, tel.device)
+    rec = k3k5_compare(F, G, g, sub_lmax, 1e-5,
+                       f"[ns1b window] nside {ns}, m {m0}..{m1 - 1}: B {B}", reps=3, m_lo=m0)
+    legendre_table_lib.cache_clear()
+    return rec
+
+
+def ns1b_env():
+    """The environment of ``[ns1b window]``: its nside cap and SHT budget
+    (restored by the caller)."""
+    return {"DRIFTSCAN_TPU_NSIDE_CAP": str(NS1B_NSIDE_CAP),
+            "DRIFTSCAN_TPU_SHT_BUDGET_GB": f"{NS1B_SHT_BUDGET_GB:g}"}
+
+
+def ns1b_window_phase(tag="ns1b window", run_window=True):
+    """ns1b at full width in the m-window ``NS1B_WINDOW`` (lmax 1035, nside
+    1024 under the cap and the phase's SHT budget, set here and restored):
+    first K3+K5 at the path's shape (:func:`k3k5_ns1b_compare`), with the
+    unit batch's map bytes and the lambda table's printed before it; then,
+    with ``run_window``, ``btm_resident(m_range=)`` and
+    ``product_all_resident`` (bucket auto, 10 bands of k 0-0.4,
+    ps_threshold 0.1), the counts zeroed just before and read just after.
+    Gates: spectra and Fisher finite; the map kernel and K3+K5 launched; the
+    record (:func:`record_compare`: none retained; the sub-cut spectra
+    printed).  ``chip_smoke.py`` runs K3+K5 alone (the window's BTM and
+    product take ~90 s: ``driftscan_tpu_torch/experiments/ns1b_window.py``
+    runs them).  Returns (launches or None, K3+K5's record at this
+    shape)."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import healpix
+    from driftscan_tpu_torch.parallel import resident
+    from driftscan_tpu_torch.telescope import cylinder
+
+    saved = {k: os.environ.get(k) for k in ns1b_env()}
+    os.environ.update(ns1b_env())
+    try:
+        tel = cylinder.PolarisedCylinderTelescope.from_config(NS1B_PARAMS, device="cuda")
+        m0, m1 = NS1B_WINDOW
+        ns, blc, _, sub_lmax = first_chunk(tel)
+        g = healpix.ring_geometry(ns)
+        B = len(blc) * tel._npol_transform
+        maps_gb = B * g.nring * g.maxlen * 8 / 2**30
+        lam_gb = (sub_lmax + 1) * (m1 - m0) * g.nring * 8 / 2**30
+        log(f"[{tag}] {', '.join(f'{k}={v}' for k, v in ns1b_env().items())}: the largest "
+            f"nside {ns} ({g.nring} rings), {len(blc)} units a call, B {B} Stokes maps of "
+            f"{g.nring} x {g.maxlen} padded complex64 pixels: {maps_gb:.2f} GiB "
+            f"a call; the library's float64 lambda table ({sub_lmax + 1}, {m1 - m0}, "
+            f"{g.nring}): {lam_gb:.2f} GiB")
+        rec = k3k5_ns1b_compare(tel, np.random.default_rng(SEED + 8))
+        if not run_window:
+            return None, rec
+        nreal = min(m1, tel.mmax + 1) - m0
+        backend.reset_launch_counts()
+        pos, neg, ls, lf, noisew, band_lt, t_btm = window_tables(tag, tel, NS1B_WINDOW,
+                                                                 NS2_BAND_EDGES)
+        chunks = []
+        t = time.time()
+        evals, nmodes, fisher = resident.product_all_resident(
+            tel, pos, neg, ls, lf, noisew, m_range=NS1B_WINDOW, chunks=chunks,
+            band_lt=band_lt, ps_threshold=PS_THRESHOLD)
+        torch.cuda.synchronize()
+        t_prod = time.time() - t
+        launches = launch_counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    evals, nmodes = evals[:nreal], nmodes[:nreal]
+    with np.load(os.path.join(HERE, NS1B_RECORD)) as z:
+        tb_rec, tp_rec = float(z["tb"]), float(z["tp"])
+    log(f"[{tag}] t_btm {t_btm:.4f} s  t_product_fisher {t_prod:.4f} s  m-modes/s "
+        f"{nreal / (t_btm + t_prod):.4f} (the TPU run's record: btm {tb_rec:.1f} s, product "
+        f"{tp_rec:.1f} s, on a TPU)  tables {nbytes(pos, neg) / 2**30:.4f} GiB  top ev "
+        f"{float(evals.max()):.6e}  retained {int((evals > PS_THRESHOLD).sum())}  svd modes "
+        f"{int(nmodes.sum())}  m-chunks: {describe_chunks(chunks)}  launches {launches} "
+        f"({card_line()})")
+    if not (np.isfinite(evals).all() and np.isfinite(fisher).all()):
+        raise AssertionError(f"{tag}: non-finite spectra or Fisher")
+    require_launched(tag, launches, [map_kernel(tel), "k3k5_legendre_sht"])
+    require_map_kernel(tag, tel, launches)
+    record_compare(tag, evals, nmodes, fisher, NS1B_RECORD)
+    del pos, neg
+    return launches, rec
+
+
+def oldcylinder_phase(tag="oldcylinder"):
+    """The legacy polarised cylinder (``telescope/oldcylinder.py``, reached
+    by the manager's plugin form, as a YAML file names it) at bench's
+    polarised layout and 4 channels through :func:`path_phase`: its sinc
+    beams are evaluated on the host, so the path takes K2-host Stokes and
+    K3+K5 (no bank kernel), with path 5's CPU check.  Returns the launch
+    counts and the kernels the path requires."""
+    from driftscan_tpu_torch.core import manager
+
+    spec = {"module": "driftscan_tpu_torch.telescope.oldcylinder",
+            "class": "PolarisedCylinderTelescope"}
+    tel = manager._telescope_registry().resolve(spec).from_config(
+        OLDCYL_PARAMS, device="cuda")
+    log(f"[{tag}] {type(tel).__module__}.{type(tel).__name__}: bank beams "
+        f"{tel._bank_beams_apply()}, map kernel {map_kernel(tel)}")
+    launches, required, _, run = path_phase(tag, tel)
+    require_launched(tag, launches, ["k2_host_stokes", "k3k5_legendre_sht"])
+    del run
+    return launches, required
+
+
 TB_CHECK_RTOL = 1e-6  # card vs the port's CPU engine, retained eigenvalues
 TB_AB_TIER = 1e-4  # the JAX package's TPU A/B tier, topband vs exact
 NS2_TB_M = 4  # m of [topband ns2]
@@ -1598,8 +2003,7 @@ def topband_phase(tel, slice_run, tag="topband"):
     through the same chunks): retained eigenvalues within rel 1e-6.
     Printed: against the exact engine on the same tables (``[slice]``'s
     run), beside the TPU A/B's 1e-4 tier, and both engines' m-modes/s of
-    the product step (the gated run, then one exact and one top-band run
-    here), then K17 against its plain version at the shape the run launched
+    the product step (``[slice]``'s exact run and the gated run), then K17 against its plain version at the shape the run launched
     it most (:func:`path_k17`).  Returns the launch counts."""
     import torch
 
@@ -1685,19 +2089,11 @@ def topband_phase(tel, slice_run, tag="topband"):
         if ndiff_c or not rel_c <= TB_CHECK_RTOL:
             raise AssertionError(f"{tag} {name}: card vs cpu {rel_c:.3e}, {ndiff_c} modes differ")
 
-    # both engines' product step on the same tables, after the run above
-    # (its escalation paid): exact, then topband
-    times = {"topband": [t_tb]}
-    for engine in ("exact", "topband"):
-        t = time.time()
-        resident.product_all_resident(tel, pos, neg, ls, lf, noisew,
-                                      topband=engine == "topband", **kw)
-        torch.cuda.synchronize()
-        times.setdefault(engine, []).append(time.time() - t)
-    log(f"[{tag}] product step with the fused Fisher, s (topband, exact, topband): exact "
-        f"{times['exact']}, topband {times['topband']}; m-modes/s exact "
-        f"{nm / min(times['exact']):.4f}, topband {nm / min(times['topband']):.4f} "
-        f"({card_line()})")
+    # both engines' product step on the same tables: [slice]'s exact run and
+    # the gated run above (its escalation included)
+    t_x = slice_run["t_product"]
+    log(f"[{tag}] product step with the fused Fisher, s: exact {t_x:.4f} ([slice]), topband "
+        f"{t_tb:.4f}; m-modes/s exact {nm / t_x:.4f}, topband {nm / t_tb:.4f} ({card_line()})")
     path_k17(tag, shapes, np.random.default_rng(SEED + 6))
     return launches
 
@@ -1758,7 +2154,7 @@ def topband_ns2_phase(ntel, pos, neg, ls, lf, noisew, kw, m0, m1, tag="topband n
     backend.reset_launch_counts()
     cheb.SHAPES.clear()
     runs = []
-    for cut in (PS_THRESHOLD, cut_b, cut_b):
+    for cut in (PS_THRESHOLD, cut_b):
         b4, retries = dict(resident.TB_COUNTS), fpencil.svd_retries
         t = time.time()
         ev_t, _, f_t = resident.product_all_resident(
@@ -2804,7 +3200,113 @@ def chunked_128_phase(workdir):
         top = max(top, float(np.abs(ref).max()))
     _gate(tag, f"units (baselines {bls} x channels {fis}) at m {list(ms)} vs the plain CPU "
           f"versions ({t_cpu:.2f} s), of max |BTM| {top:.6e}", err / top, 1e-4)
+    for name, count in chunked_128_products(out, params).items():
+        launches[name] = launches.get(name, 0) + count
     shutil.rmtree(out)
+    return launches
+
+
+def chunked_128_products(out, params, tag="chunked 128"):
+    """The product chain of the 128-channel design past the BTM, on the
+    beam files of :func:`chunked_128_phase` in ``out``, cut in depth to the
+    m of CHUNKED_128_M (the first four, pencil n up to 128 x 44 = 5,632, and
+    four high m): the file path's own SVD stage, KL filter (threshold 0.1)
+    and PSExact with the four polar bands, called m-chunk by m-chunk on that
+    subset of the files, the counts zeroed just before and read just after.
+    Gates: the files of the subset open; the KL spectra of two m (the
+    subset's two smallest pencils) against the CPU run of
+    the same pencil on the same SVD beams, compacted to its active channels
+    and modes (1e-4 of each m's top); the Fisher terms
+    (``fisher_bias_m``) of the two m that retain most against the CPU on
+    the same KL files (3e-2 of max); the Fisher kernels launched.  Returns
+    the launches."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.core import manager
+    from driftscan_tpu_torch.ops import projections
+    from driftscan_tpu_torch.util import store, util
+
+    conf = products_config(out)
+    conf["telescope"] = dict(type="UnpolarisedCylinder", **params)
+    conf["kltransform"] = conf["kltransform"][:1]
+    m = manager.ProductManager().apply_config(conf)
+    tel, bt, kl, ps = m.telescope, m.beamtransfer, m.kltransforms["kl"], m.psestimators["ps"]
+    chunks = [list(CHUNKED_128_M[:4]), list(CHUNKED_128_M[4:])]
+    os.makedirs(kl.evdir, exist_ok=True)
+    backend.reset_launch_counts()
+    t0 = time.time()
+    writer = util.BackgroundWriter(maxsize=2)
+    try:
+        for ch in chunks:
+            bt._svd_finish_mbatch(*bt._svd_dispatch_mbatch(ch), writer=writer)
+    finally:
+        writer.close()
+    t1 = time.time()
+    for ch in chunks:
+        kl._transform_save_mbatch(ch)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    ps.genbands()
+    fisher = {mi: np.asarray(ps.fisher_bias_m(mi)[0]) for mi in CHUNKED_128_M}
+    torch.cuda.synchronize()
+    t3 = time.time()
+    launches = launch_counts()
+    ev = {}
+    for mi in CHUNKED_128_M:
+        with store.File(kl._evfile % mi, "r") as f:
+            ev[mi] = f["evals_full"][:]
+    n = {mi: len(v) for mi, v in ev.items()}
+    kept = sum(int((v > PS_THRESHOLD).sum()) for v in ev.values())
+    log(f"[{tag}] products on m {list(CHUNKED_128_M)} of {tel.mmax + 1} (pencil n {n}): SVD "
+        f"{t1 - t0:.4f} s, KL {t2 - t1:.4f} s, PSExact's Fisher terms {t3 - t2:.4f} s; s a m "
+        f"{(t3 - t0) / len(CHUNKED_128_M):.4f}; retained (ev > {PS_THRESHOLD:g}) {kept}; top ev "
+        f"{max(float(v.max()) for v in ev.values() if len(v)):.6e}; launches {launches} "
+        f"({card_line()})")
+    files = [bt._svdfile(mi) for mi in CHUNKED_128_M] + [kl._evfile % mi for mi in CHUNKED_128_M]
+    bad = [f for f in files if not store.readable(f)]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} of {len(files)} files unreadable: {bad[:4]}")
+    require_launched(tag, launches, ["k15a_sandwich", "k15b_fisher_trace"])
+
+    # the KL spectra of the subset's two smallest pencils on the CPU, each
+    # compacted to its active channels and its largest count a channel (the
+    # file path pads every m to F x S = 5,632; the zero rows decouple with
+    # eigenvalue 0): a pencil of 3,000 takes ~30 s of the card host's CPU
+    def compact_n(mi):
+        svnum = bt._svd_num(mi)[0]
+        return int((svnum > 0).sum()) * int(svnum.max())
+
+    want = sorted(sorted(CHUNKED_128_M, key=compact_n)[:2])
+    ls, lf = kl._cl_factors()
+    bsvd, idx_list = kl._load_bsvd_batch(want)
+    err, t, shapes = 0.0, time.time(), []
+    for i, mi in enumerate(want):
+        svnum, _ = bt._svd_num(mi)
+        act = np.nonzero(svnum)[0]
+        sq = int(svnum.max())
+        fi = torch.as_tensor(act, device=bsvd.device)
+        shapes.append((len(act), sq))
+        ev_c, _ = projections.kl_factored_batched(
+            bsvd[i:i + 1, fi, :sq].cpu(), ls[:, :, fi].cpu(), lf[:, :, fi].cpu(), nc=1.0,
+            fg_reg_rel=kl._foreground_regulariser)
+        ndof = len(idx_list[i])
+        a, b = np.sort(ev[mi])[-ndof:], np.sort(ev_c.numpy()[0])[-ndof:]
+        err = max(err, float(np.abs(a - b).max() / max(b.max(), 1e-30)))
+    _gate(tag, f"KL spectra m {want} (ndof {[len(i) for i in idx_list]}; compacted (F, S) "
+          f"{shapes}) vs the CPU ({time.time() - t:.2f} s), of each m's top", err, 1e-4)
+    # the Fisher terms of the two m that retain most, on the CPU from the
+    # same KL files
+    fwant = sorted(sorted(CHUNKED_128_M, key=lambda mi: -int((ev[mi] > PS_THRESHOLD).sum()))[:2])
+    ps_c = manager.ProductManager(device="cpu").apply_config(conf).psestimators["ps"]
+    ps_c.genbands()
+    t = time.time()
+    f_g = sum(fisher[mi] for mi in fwant)
+    f_c = sum(np.asarray(ps_c.fisher_bias_m(mi)[0]) for mi in fwant)
+    fscale = float(np.abs(f_c).max())
+    _gate(tag, f"Fisher terms of m {fwant} vs the CPU on the same KL files "
+          f"({time.time() - t:.2f} s; max|F| {fscale:.6e}), of max",
+          float(np.abs(f_g - f_c).max()) / max(fscale, 1e-300), 3e-2)
     return launches
 
 
@@ -3286,7 +3788,9 @@ def example_phase(workdir):
     its two YAML files copied unedited into ``workdir`` and run there as
     the example's README runs them, through the port: ``makeproducts``
     then ``runpipeline.run_config``, after the input map the example's
-    walkthrough script writes (made here by K14 through the port's store).  Checks:
+    walkthrough script writes (made by the port's copy of its driver,
+    ``driftscan_tpu_torch/examples/disharray_driver.py``: K14, the port's
+    store).  Checks:
     every file opens, the NoSVD telescope basis (ndof = ntel x nfreq), maps
     finite and equal to the CPU synthesis of their alm.  Returns the
     launches of the two runs and the telescope."""
@@ -3296,6 +3800,7 @@ def example_phase(workdir):
 
     from driftscan_tpu_torch import backend
     from driftscan_tpu_torch.core import beamtransfer
+    from driftscan_tpu_torch.examples import disharray_driver
     from driftscan_tpu_torch.ops import sht
     from driftscan_tpu_torch.scripts import makeproducts, runpipeline
     from driftscan_tpu_torch.util import store
@@ -3324,17 +3829,11 @@ def example_phase(workdir):
         require_map_kernel(tag, tel, launches)
         counted.update({k: v for k, v in launches.items() if v})
 
-        # the walkthrough script's input map: seeded band-limited alm (K14)
-        nside = 32
-        nl = tel.lmax + 1
-        rng = np.random.default_rng(42)
-        alm = rng.standard_normal((tel.nfreq, nl, nl)) + 1j * rng.standard_normal(
-            (tel.nfreq, nl, nl))
-        alm = np.where(np.arange(nl)[None, :] <= np.arange(nl)[:, None], alm, 0)
-        alm[..., 0] = alm[..., 0].real
-        skymap = sht.synthesis_real(torch.as_tensor(alm, device="cuda"), nside)
-        with store.File("simulated_input_map.hdf5", "w") as f:
-            f.create_dataset("map", data=skymap[:, None].cpu().numpy())
+        # the walkthrough script's input map, made by the port's copy of its
+        # driver: seeded band-limited alm, synthesised by K14
+        nside = disharray_driver.NSIDE
+        disharray_driver.write_map(disharray_driver.MAPFILE,
+                                   disharray_driver.input_map(tel, device="cuda"))
 
         backend.reset_launch_counts()
         t = time.time()
@@ -3466,11 +3965,12 @@ def main():
     n2 = resident.pencil_size(ntel)
     k17_compare(1, n2, k17_shape(n2)[1], k17_shape(n2)[0], np.random.default_rng(SEED + 5),
                 "ns2 full size")
+    mark("kernels")
     counted = {}
     for tag, t_, ps in (("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD),
                         ("dish", dtel, None), ("restricted", rtel, None),
                         ("restricted pol", rptel, None)):
-        launches, required, k13_rec, run = path_phase(tag, t_, ps, compare_full=tag == "dish")
+        launches, required, k13_rec, run = path_phase(tag, t_, ps)
         for name in required:
             counted[name] = counted.get(name, 0) + launches[name]
         if tag == "slice":
@@ -3480,17 +3980,26 @@ def main():
         if tag == "dish":
             host_beam_share(tag, dtel)
         del run
+        mark(tag)
     del dtel
+    launches, required = oldcylinder_phase()
+    for name in required:
+        counted[name] = counted.get(name, 0) + launches[name]
+    mark("oldcylinder")
     for launches in (slice_windows_phase(tel, slice_run), *ns2_window_phase(ntel),
-                     topband_phase(tel, slice_run)):
+                     *ns2_retained_phase(ntel), topband_phase(tel, slice_run)):
         for name, count in launches.items():
             if count:
                 counted[name] = counted.get(name, 0) + count
+    mark("slice windows, ns2 window, ns2 retained, topband")
     del slice_run["tables"], ntel
+    ns1b_window_phase(run_window=False)
+    mark("ns1b window's K3+K5")
     for klass, params in ((restrictedcylinder.RestrictedCylinder, RESTRICTED_PARAMS),
                           (cylinder.UnpolarisedCylinderTelescope, BENCH_PARAMS)):
         launches = precision_gate_phase("float64 gate", klass, params)
         counted["k2_host_vis"] += launches["k2_host_vis"]
+    mark("float64 gate")
     # the product directory of [products] serves [timestream]
     outdir = tempfile.mkdtemp(prefix="driftscan_products_")
     profiling = "--profile" in sys.argv[1:]
@@ -3502,11 +4011,14 @@ def main():
         convert_phase(outdir)
         # the sandwich and the trace at the largest nkl of the products run
         perf.update(products_kernels(tel, nkl))
+        mark("products")
         launches, m = klinv_phase(outdir)
         for name, count in launches.items():
             if count:
                 counted[name] = counted.get(name, 0) + count
+        mark("klinv")
         launches, mapfile, nside = timestream_phase(outdir, m)
+        mark("timestream")
         for name, count in launches.items():
             if count:
                 counted[name] = counted.get(name, 0) + count
@@ -3517,11 +4029,17 @@ def main():
             profile_timestream(outdir, mapfile, nside)
         chunkdir = tempfile.mkdtemp(prefix="driftscan_chunked_")
         try:
+            mark("topband products")
             launches, chunked = chunked_phase(outdir, chunkdir)
+            mark("chunked")
             launches += tuple(mp_products_phase(chunkdir, chunked, nside, mapfile,
                                                 os.path.join(outdir, "timestreams", "ts1")))
             del chunked
-            launches += (chunked_128_phase(chunkdir), psmc_phase(outdir))
+            mark("mp products")
+            launches += (chunked_128_phase(chunkdir),)
+            mark("chunked 128")
+            launches += (psmc_phase(outdir),)
+            mark("psmc")
         finally:
             shutil.rmtree(chunkdir, ignore_errors=True)
         for run in launches:
@@ -3536,14 +4054,17 @@ def main():
         for name, count in launches.items():
             counted[name] = counted.get(name, 0) + count
         svd_variants_phase(workdir)
+        mark("example, svd variants")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches, probe_perf = probe_phase()
+    mark("probe")
     perf.update(probe_perf)
     for name in PROBE_KERNELS:
         counted[name] = launches[name]
     # last, so that its float64 telescope and BTMs precede no timed phase
     svd_cut_phase("svd cut", tel, BENCH_PARAMS)
+    mark("svd cut")
     if profiling:
         profile_paths((("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD)))
         profile_products()

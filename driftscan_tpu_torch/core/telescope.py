@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import abc
 import os
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -49,6 +50,13 @@ def in_range(arr, min, max):
 
 def out_of_range(arr, min, max):
     return not in_range(arr, min, max)
+
+
+def map_half_plane(arr):
+    """Map 2D separations into the half plane with positive u (E pointing)."""
+    arr = np.asarray(arr)
+    west = (arr[:, 0] < 0.0) | ((arr[:, 0] == 0.0) & (arr[:, 1] < 0.0))
+    return np.where(west[:, np.newaxis], -arr, arr)
 
 
 def _label_classes(mask, *keys):
@@ -493,6 +501,11 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         return self.frequencies.shape[0]
 
     @property
+    def input_index(self):
+        """Correlator-input labels (draco compatible)."""
+        return np.array(np.arange(self.nfeed), dtype=[("chan_id", "u2")])
+
+    @property
     def nfeed(self):
         return self.feedpositions.shape[0]
 
@@ -664,6 +677,15 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         noisepower = self.tsys(f_indices) ** 2 / (2 * np.pi * delnu * ndays)
         return noisepower / self.redundancy[bl_indices]
 
+    def noisepower_feedpairs(self, fi, fj, f_indices, m, ndays=None):
+        """Noise power of the feed pairs (fi, fj) at ``f_indices`` and m:
+        half the per-channel radiometer power, broadcast over the inputs."""
+        ndays = self.ndays if not ndays else ndays
+        bw = np.abs(self.frequencies[1] - self.frequencies[0]) * 1e6
+        delnu = T_SIDEREAL * bw / (2 * np.pi)
+        noisepower = self.tsys(f_indices) ** 2 / (2 * np.pi * delnu * ndays)
+        return np.ones_like(fi) * np.ones_like(fj) * np.ones_like(m) * noisepower / 2.0
+
     # ================== pixel grid and beams ==================
 
     _nside = None
@@ -822,6 +844,48 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
     def _pxarea(self):
         """Pixel area at the current nside (not one over the padded length)."""
         return 4.0 * np.pi / (12 * self._nside**2)
+
+    # ================= draco-compatible maps ==================
+
+    @cached_property
+    def prodstack(self):
+        """(input_a, input_b) structured array over unique pairs."""
+        upairs = self.uniquepairs
+        dtype = [("input_a", upairs.dtype), ("input_b", upairs.dtype)]
+        return upairs.ravel().view(dtype)
+
+    @cached_property
+    def index_map_prod(self):
+        """Full upper-triangle `index_map/prod` structured array."""
+        tpairs = np.array(np.triu_indices(self.nfeed))
+        dtype = [("input_a", tpairs.dtype), ("input_b", tpairs.dtype)]
+        return tpairs.T.flatten().view(dtype)
+
+    @cached_property
+    def index_map_stack(self):
+        """`index_map/stack` (prod index, conjugate) per unique pair."""
+
+        def ind2tri(i, j, n):
+            return (n * (n + 1) // 2) - ((n - i) * (n - i + 1) // 2) + (j - i)
+
+        upairs = self.uniquepairs
+        stack_map = np.empty(len(upairs), dtype=[("prod", "<u4"), ("conjugate", "u1")])
+        stack_map["conjugate"] = upairs[:, 0] > upairs[:, 1]
+        input_a, input_b = np.where(stack_map["conjugate"], upairs[:, ::-1].T, upairs.T)
+        stack_map["prod"] = ind2tri(input_a, input_b, self.nfeed)
+        return stack_map
+
+    @cached_property
+    def reverse_map_stack(self):
+        """`reverse_map/stack` (stack index, conjugate) per product."""
+        stack_revmap = np.empty(
+            self.nfeed * (self.nfeed + 1) // 2,
+            dtype=[("stack", "<i4"), ("conjugate", "u1")],
+        )
+        upper = np.triu_indices(self.nfeed)
+        stack_revmap["stack"] = self.feedmap[upper]
+        stack_revmap["conjugate"] = self.feedconj[upper]
+        return stack_revmap
 
 
 class UnpolarisedTelescope(TransitTelescope, metaclass=abc.ABCMeta):

@@ -162,10 +162,12 @@ def _quant_frac(x: int, full: int) -> int:
     """Smallest power-of-two fraction of ``full`` (full, ~full/2, ~full/4,
     ...) that is >= x: the compacted chunk shapes are quantised, which
     bounds the number of distinct shapes (and cuSOLVER's workspace
-    variants) to log2(full) an axis."""
+    variants) to log2(full) an axis.  The halving stops at 1 (the JAX
+    package's loop never ends at x = 1: a chunk with one active frequency
+    or one mode a frequency)."""
     x = max(int(x), 1)
     q = full
-    while (q + 1) // 2 >= x:
+    while q > 1 and (q + 1) // 2 >= x:
         q = (q + 1) // 2
     return q
 

@@ -262,3 +262,40 @@ def test_s_cap_keeps_the_spectrum():
     pad = np.pad(part.evals.numpy(), ((0, 0), (ev.shape[1] - F * cap, 0)))
     np.testing.assert_allclose(pad, ev, rtol=1e-8, atol=1e-10 * ev.max())
     np.testing.assert_array_equal(part.nmodes.numpy(), full.nmodes.numpy())
+
+
+def _returns_within(fn, seconds=20.0):
+    """fn() run in a daemon thread: (finished, result)."""
+    import threading
+
+    out = []
+    th = threading.Thread(target=lambda: out.append(fn()), daemon=True)
+    th.start()
+    th.join(seconds)
+    return bool(out), (out[0] if out else None)
+
+
+@pytest.mark.parametrize("full", [1, 2, 3, 16, 200])
+def test_quant_frac_reaches_one(full):
+    """A count of 1 (or 0) quantises to 1: the JAX package's loop never ends
+    there, which an m-chunk with one active frequency or one mode a
+    frequency meets (an ns2 window cut to the highest channels did)."""
+    for x in (0, 1):
+        done, q = _returns_within(lambda: resident._quant_frac(x, full))
+        assert done and q == 1
+    assert resident._quant_frac(full, full) == full
+    if full > 2:
+        assert resident._quant_frac(2, full) == 2
+
+
+def test_plan_chunks_one_active_frequency():
+    """A bucketed plan where one channel holds one mode a m: it ends, and
+    compacts to that channel."""
+    F, S, nm = 16, 200, 3
+    counts = np.zeros((nm, F), np.int64)
+    counts[:, 5] = 1
+    done, chunks = _returns_within(
+        lambda: resident.plan_chunks(counts, 270, F, S, 8, lambda n: 8))
+    assert done
+    assert [(c.fq, c.sq, list(c.f_idx)) for c in chunks] == [(1, 1, [5])]
+    assert list(chunks[0].m_values[:nm]) == [270, 271, 272]

@@ -353,6 +353,9 @@ K3K5_WINDOWS = [
     (16, 30, 0, 9, 8, torch.complex64), (16, 30, 5, 23, 3, torch.complex128),
     (16, 30, 29, 40, 8, torch.complex64), (32, 47, 47, 48, 2, torch.complex128),
     (64, 120, 60, 121, 64, torch.complex64), (256, 324, 270, 315, 16, torch.complex64),
+    # ns1b's window (chip_smoke [ns1b window]): lmax 1035 on nside 1024's
+    # rings, 8 units x 4 Stokes a call
+    (1024, 1035, 0, 33, 32, torch.complex64),
 ]
 
 
@@ -1099,3 +1102,43 @@ def test_topband_engine_on_the_card(cuda):
     kept = ce > 0
     assert np.array_equal(ge > 0, kept) and kept.sum() > 10
     np.testing.assert_allclose(ge[kept], ce[kept], rtol=1e-9)
+
+
+def test_oldcylinder_btm_on_the_card(cuda):
+    """The legacy sinc-beam polarised cylinder's BTM on the card (host
+    beams, K2-host Stokes, K3+K5) against the same tables on the CPU."""
+    from driftscan_tpu_torch.parallel import resident
+    from driftscan_tpu_torch.telescope import oldcylinder
+
+    cfg = dict(num_freq=2, freq_start=400.0, freq_end=420.0, num_cylinders=2,
+               cylinder_width=3.0, num_feeds=2, feed_spacing=0.75, single_precision=True,
+               illumination_y=0.8, ortho_pol=False)
+    tels = {d: oldcylinder.PolarisedCylinderTelescope.from_config(cfg, device=d)
+            for d in (cuda, "cpu")}
+    assert not tels["cpu"]._bank_beams_apply()
+    bl, fi = [x.ravel() for x in np.meshgrid(np.arange(tels["cpu"].npairs),
+                                             np.arange(tels["cpu"].nfreq), indexing="ij")]
+    k2 = backend.KERNELS["k2_host_stokes"]
+    before = k2.launches
+    pg, ng = resident.btm_resident(tels[cuda], bl, fi)
+    torch.cuda.synchronize()
+    assert k2.launches > before
+    pc, nc = resident.btm_resident(tels["cpu"], bl, fi)
+    for g, c in ((pg, pc), (ng, nc)):
+        assert float((g.cpu() - c).abs().max()) <= 1e-5 * float(c.abs().max())
+
+
+def test_example_driver_on_the_card(cuda, tmp_path):
+    """The port's copy of examples/disharray's driver on the card against
+    the same driver on the CPU: its full map within 1e-6 of max."""
+    from driftscan_tpu_torch.examples import disharray_driver
+    from driftscan_tpu_torch.util import store
+
+    maps = {}
+    for dev in ("cuda", "cpu"):
+        ts = disharray_driver.main(str(tmp_path / dev), device=None if dev == "cuda" else "cpu")
+        with store.File(f"{ts.output_directory}/map_full.hdf5", "r") as f:
+            maps[dev] = f["map"][:]
+    assert maps["cuda"].shape == maps["cpu"].shape
+    assert np.isfinite(maps["cuda"]).all()
+    assert np.abs(maps["cuda"] - maps["cpu"]).max() <= 1e-6 * np.abs(maps["cpu"]).max()

@@ -33,6 +33,7 @@ from driftscan_tpu.ops import sht as jsht
 from driftscan_tpu.scripts import makeproducts as jmakeproducts
 from driftscan_tpu.scripts import runpipeline as jrunpipeline
 from driftscan_tpu_torch.core import beamtransfer
+from driftscan_tpu_torch.examples import disharray_driver
 from driftscan_tpu_torch.scripts import makeproducts, runpipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -159,3 +160,35 @@ def test_maps_are_finite(example):
             skymap = f["map"][:]
         assert skymap.shape[-1] == 12 * NSIDE**2
         assert np.isfinite(skymap).all() and np.abs(skymap).max() > 0
+
+
+def test_driver_input_map_matches_jax(example):
+    """The port's copy of the example's driver
+    (``driftscan_tpu_torch.examples.disharray_driver``) makes the JAX
+    driver's input map: the same seeded alm, the port's synthesis, within
+    1e-10 of its largest entry."""
+    tel = beamtransfer.BeamTransfer(
+        os.path.join(example["torch"], "products", "bt"), device="cpu"
+    ).telescope
+    got = disharray_driver.input_map(tel, device="cpu")
+    with h5py.File(os.path.join(example["jax"], "simulated_input_map.hdf5"), "r") as f:
+        want = f["map"][:]
+    assert got.shape == want.shape == (tel.nfreq, 1, 12 * NSIDE**2)
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+def test_driver_runs_the_example(example, tmp_path):
+    """The port's driver end to end on the CPU (products, input map,
+    noiseless timestream, m-modes, full map) against the JAX command lines'
+    run of the same example: its full map within 1e-6 of max, as the files
+    above."""
+    with contextlib.chdir(tmp_path):
+        ts = disharray_driver.main(str(tmp_path), device="cpu")
+    path = os.path.join(ts.output_directory, "map_full.hdf5")
+    assert path == str(tmp_path / "timestream" / "map_full.hdf5")
+    with h5py.File(path, "r") as f:
+        got = f["map"][:]
+    with h5py.File(os.path.join(example["jax"], "timestream", "map_full.hdf5"), "r") as f:
+        want = f["map"][:]
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()

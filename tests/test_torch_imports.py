@@ -25,10 +25,13 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.core.cosmology",
     "driftscan_tpu_torch.core.skymodel",
     "driftscan_tpu_torch.core.telescope",
+    "driftscan_tpu_torch.core.visibility",
     "driftscan_tpu_torch.experiments.k14_ablations",
     "driftscan_tpu_torch.experiments.k14_m_ranges",
     "driftscan_tpu_torch.experiments.map_rounding",
+    "driftscan_tpu_torch.experiments.ns1b_window",
     "driftscan_tpu_torch.experiments.ns2_btm_breakdown",
+    "driftscan_tpu_torch.experiments.ns2_retained",
     "driftscan_tpu_torch.experiments.double_grids",
     "driftscan_tpu_torch.experiments.probe_breakdown",
     "driftscan_tpu_torch.experiments.probe_tiles",
@@ -52,7 +55,9 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.telescope.exotic_cylinder",
     "driftscan_tpu_torch.telescope.focalplane",
     "driftscan_tpu_torch.telescope.gmrt",
+    "driftscan_tpu_torch.telescope.oldcylinder",
     "driftscan_tpu_torch.telescope.restrictedcylinder",
+    "driftscan_tpu_torch.util.plotutil",
     "driftscan_tpu_torch.util.util",
     "chip_smoke",
 ]
@@ -67,6 +72,7 @@ FILE_MODULES = [
     "driftscan_tpu_torch.core.manager",
     "driftscan_tpu_torch.core.psestimation",
     "driftscan_tpu_torch.core.psmc",
+    "driftscan_tpu_torch.examples.disharray_driver",
     "driftscan_tpu_torch.ops.bitshuffle",
     "driftscan_tpu_torch.ops.truncate",
     "driftscan_tpu_torch.pipeline",
