@@ -92,6 +92,19 @@ script exits non-zero:
    the exact engine's spectra and Fisher beside it, both engines'
    m-modes/s, K17's launches by distinct (M, n, K, k) and the tile each
    got;
+5f. gram engine, quicklook, whiten -- path 4's tables through the
+   opt-in KL engines: ``kl_product_step(method="gram")`` at the JAX
+   package's gram depths, thermal and foreground-only, over the slice's
+   first 4 m-chunks (:func:`gram_engine_phase`); bench.py's quick-look
+   leg ``product_all_resident(sig_k_cap=128)`` with the fused Fisher
+   (:func:`quicklook_phase`); the slice's product under the whitening
+   levers ``factored``, ``refined`` and ``householder`` against the
+   default whitening over the slice's first 113 m (:func:`whiten_phase`);
+   each against the port's CPU run or the default on the same tables,
+   with its time;
+5g. sht iters -- the forward SHT's Jacobi refinement (K14 and K3+K5 at
+   every step) on band-limited float64 maps at nside 128, lmax 255, real
+   and complex, three steps, against the CPU (:func:`sht_iters_phase`);
 6. products -- the file pipeline behind ``drift-makeproducts``: the bench
    unpolarised cylinder as a config dictionary through
    ``ProductManager.apply_config(...).generate()`` into a fresh temporary
@@ -344,6 +357,21 @@ MP_TIMEOUT_S = 600
 FILE_PATH_KERNELS = ["k1k2_beam_vis", "k3k5_legendre_sht", "k9_signal_gram", "k15a_sandwich",
                      "k15b_fisher_trace"]
 NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
+# [gram engine]: the JAX package's gram depths (fg 8, sig 5, band_rel 1e-1)
+# over the slice's first GRAM_CHUNKS m-chunks of CPU_CHECK_M m (depth cut:
+# 32 of its 226 m), two m held against the CPU
+GRAM_DEPTHS = dict(fg_levels=8, sig_levels=5, band_rel=1e-1)
+GRAM_CHUNKS = 4
+# [quicklook]: bench.py's BENCH_SIG_K_CAP leg
+QUICKLOOK_CAP = 128
+# [whiten]: the lever settings of the A/B, each against [slice]'s default
+WHITEN_LEGS = (("factored", "cholqr_split"), ("refined", "cholqr_split"),
+               ("solve", "householder"))
+WHITEN_M = 113  # depth cut: the slice's first 113 of 226 m a leg
+# [sht iters]: float64 maps, band limited at lmax, refined SHT_ITERS times
+SHT_ITERS_NSIDE = 128
+SHT_ITERS_LMAX = 255
+SHT_ITERS = 3
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet, dense): device
 # memory, float32 outside the tensor cores, float64, tf32 and bfloat16 on
@@ -1343,7 +1371,7 @@ def describe_chunks(chunks):
 
 
 def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks,
-              m_lo=None, checks=None):
+              m_lo=None, checks=None, **step):
     """m-modes of a run again, on the card and on CPU tensors from the same
     tables, through the run's own m-chunks (``chunks``: the same batches,
     whose adaptive sig1 depth is chosen per batch, and the same compacted
@@ -1351,7 +1379,8 @@ def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks,
     within 1e-4 of each m's top eigenvalue (the whole spectrum keeps the
     check meaningful where no mode is retained, as at high m), partial
     Fisher within 3e-2 of its max.  ``checks`` [(name, [m, ...])] defaults
-    to the first and last CPU_CHECK_M m; ``m_lo`` reads window tables."""
+    to the first and last CPU_CHECK_M m; ``m_lo`` reads window tables;
+    ``step`` goes to ``product_m_batch`` (``sig_k_cap``)."""
     import torch
 
     from driftscan_tpu_torch.parallel import mstep, resident
@@ -1369,7 +1398,7 @@ def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks,
         for ch in mine:
             ev, _, f = resident.product_m_batch(
                 tel, p, n, ls_t, lf_t, nw, ch.m_values, band_lt=band_t,
-                ps_threshold=ps_threshold, m_lo=m_lo, chunk=ch,
+                ps_threshold=ps_threshold, m_lo=m_lo, chunk=ch, **step,
             )
             evs.update({int(m): ev[i] for i, m in enumerate(ch.m_values) if m >= 0})
             fish = fish + f
@@ -2096,6 +2125,283 @@ def topband_phase(tel, slice_run, tag="topband"):
         f"{t_tb:.4f}; m-modes/s exact {nm / t_x:.4f}, topband {nm / t_tb:.4f} ({card_line()})")
     path_k17(tag, shapes, np.random.default_rng(SEED + 6))
     return launches
+
+
+
+def gram_engine_phase(tel, slice_run, tag="gram engine"):
+    """The ``gram`` KL engine on ``[slice]``'s tables: the slice's first
+    GRAM_CHUNKS m-chunks of CPU_CHECK_M m through
+    ``mstep.kl_product_step(method="gram")`` at the JAX package's gram
+    depths (GRAM_DEPTHS), thermal and foreground-only, the launch counts
+    zeroed just before and read just after (the engine is library linear
+    algebra: K9 must not launch, the signal factor is never compacted).
+    Gates: finite spectra; the first chunk's first and last m within 1e-4
+    of each m's top of the port's CPU run on the same tables.  Printed: the depth, each
+    form's seconds and m-modes/s, and the thermal form's distance from the
+    exact ``qr`` engine (``[slice]``'s spectra; not gated: the gram
+    engine's error grows with cond(N)).  Returns the launch counts."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    pos, neg = slice_run["tables"]
+    npol, nl = tel.num_pol_sky, tel.lmax + 1
+    cl_s, cl_n, noisew = covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    rdt = pos.real.dtype
+
+    def step(p, n, mv, with_thermal):
+        ls_t, lf_t, _ = mstep.factors_from_numpy(ls, lf, None, p.device, rdt)
+        nw = torch.as_tensor(noisew, dtype=rdt, device=p.device)
+        mvt = torch.as_tensor(mv, device=p.device)
+        beam = resident._build_beam_batch(p, n, mvt, tel.npairs, tel.nfreq, npol, nl)
+        res = mstep.kl_product_step(beam, nw, ls_t, lf_t, mvt, npol=npol, nl=nl,
+                                    method="gram", with_thermal=with_thermal, **GRAM_DEPTHS)
+        return res.evals.cpu().numpy()
+
+    batches = [np.arange(c * CPU_CHECK_M, (c + 1) * CPU_CHECK_M) for c in range(GRAM_CHUNKS)]
+    log(f"[{tag}] depth: {GRAM_CHUNKS} m-chunks of {CPU_CHECK_M} m (m 0..{GRAM_CHUNKS * CPU_CHECK_M - 1}"
+        f" of {tel.mmax + 1}), pencil n {resident.pencil_size(tel)}, {GRAM_DEPTHS}, signal "
+        f"factor width {nl * ls.shape[-1]} (not compacted), foreground {nl * lf.shape[-1]}")
+    backend.reset_launch_counts()
+    out = {}
+    for with_thermal in (True, False):
+        form = "thermal" if with_thermal else "foreground-only"
+        torch.cuda.synchronize()
+        t = time.time()
+        ev = np.concatenate([step(pos, neg, mv, with_thermal) for mv in batches])
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        if not np.isfinite(ev).all():
+            raise AssertionError(f"{tag} {form}: non-finite spectra")
+        out[with_thermal] = ev
+        log(f"[{tag}] {form}: {len(ev)} m in {dt:.4f} s, m-modes/s {len(ev) / dt:.4f}, top ev "
+            f"{float(ev.max()):.6e} ({card_line()})")
+    launches = launch_counts()
+    log(f"[{tag}] launches {launches}")
+    if launches["k9_signal_gram"]:
+        raise AssertionError(f"{tag}: K9 launched; the gram engine takes the wide factor")
+
+    pos_c, neg_c = pos.cpu(), neg.cpu()
+    mine = batches[0][[0, -1]]  # depth cut: the first chunk's first and last m
+    for with_thermal in (True, False):
+        form = "thermal" if with_thermal else "foreground-only"
+        t = time.time()
+        ev_c = step(pos_c, neg_c, mine, with_thermal)
+        ev_g = out[with_thermal][mine]
+        top = np.maximum(ev_c.max(axis=1), 1e-300)
+        err = float((np.abs(ev_g - ev_c).max(axis=1) / top).max())
+        log(f"[{tag}] cpu check {form} m {mine.tolist()} "
+            f"({time.time() - t:.2f} s): max |ev_card - ev_cpu| / each m's top {err:.3e} "
+            f"(tol 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"{tag} {form}: card vs cpu {err:.3e} > 1e-4")
+    ex = slice_run["evals"][: len(out[True])]
+    kept = ex > PS_THRESHOLD
+    dist = float((np.abs(out[True] - ex).max(axis=1) / np.maximum(ex.max(axis=1), 1e-300)).max())
+    rel = float((np.abs(out[True] - ex)[kept] / ex[kept]).max()) if kept.any() else 0.0
+    log(f"[{tag}] thermal form vs the exact qr engine ([slice], not gated): {dist:.3e} of each "
+        f"m's top, retained ({int(kept.sum())} modes > {PS_THRESHOLD:g}) max rel {rel:.3e}")
+    return launches
+
+
+def quicklook_phase(tel, slice_run, tag="quicklook"):
+    """bench.py's ``BENCH_SIG_K_CAP`` leg on ``[slice]``'s tables:
+    ``product_all_resident(sig_k_cap=QUICKLOOK_CAP)`` with the fused
+    Fisher over the slice's m, the launch counts zeroed just before and
+    read just after (K13, K15b and the compact signal's K9 must launch).
+    Gates: finite spectra, a finite Hermitian Fisher; the first and last m
+    against the port's CPU run through the same chunks, 1e-4 of each m's
+    top, the partial Fisher within 3e-2.  Printed: m-modes/s beside
+    ``[slice]``'s, the bias of the retained spectra and of the Fisher
+    against ``[slice]``'s exact run.  Returns the launch counts."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    pos, neg = slice_run["tables"]
+    nm = tel.mmax + 1
+    cl_s, cl_n, noisew = covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    band_lt = mstep.band_factor_table(
+        iter(fisher_bands(tel)), out_dtype=np.float32, rank_rtol=1e-9
+    )
+    backend.reset_launch_counts()
+    chunks = []
+    torch.cuda.synchronize()
+    t = time.time()
+    evals, nmodes, fisher = resident.product_all_resident(
+        tel, pos, neg, ls, lf, noisew, band_lt=band_lt, ps_threshold=PS_THRESHOLD,
+        sig_k_cap=QUICKLOOK_CAP, chunks=chunks,
+    )
+    torch.cuda.synchronize()
+    t_q = time.time() - t
+    launches = launch_counts()
+    required, _, _ = path_kernels(tel, ls.shape[-1])
+    require_launched(tag, launches, [k for k in required if k != map_kernel(tel)
+                                     and k != "k3k5_legendre_sht"])
+    log(f"[{tag}] product_all_resident(sig_k_cap={QUICKLOOK_CAP}) over {nm} m: {t_q:.4f} s, "
+        f"m-modes/s {nm / t_q:.4f} (product step with the fused Fisher; [slice]'s exact "
+        f"{nm / slice_run['t_product']:.4f}); m-chunks: {describe_chunks(chunks)}; "
+        f"launches {launches} ({card_line()})")
+    if not (np.isfinite(evals).all() and np.isfinite(fisher).all()):
+        raise AssertionError(f"{tag}: non-finite spectra or Fisher")
+    fscale = np.abs(fisher).max()
+    if not (fscale > 0 and np.abs(fisher - fisher.conj().T).max() <= 1e-4 * fscale):
+        raise AssertionError(f"{tag}: Fisher zero or not Hermitian")
+    ex, fx = slice_run["evals"], slice_run["fisher"]
+    kept = ex > PS_THRESHOLD
+    bias = (evals[kept] - ex[kept]) / ex[kept]
+    log(f"[{tag}] vs [slice]'s exact engine (not gated): retained {int((evals > PS_THRESHOLD).sum())}"
+        f" vs {int(kept.sum())} modes, rel bias on the exact retained set mean {float(bias.mean()):.3e}"
+        f" max |.| {float(np.abs(bias).max()):.3e}; Fisher |diff| / max|F| "
+        f"{float(np.abs(fisher - fx).max() / np.abs(fx).max()):.3e}")
+    ms = np.concatenate([c.m_values[c.m_values >= 0] for c in chunks])
+    cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, PS_THRESHOLD, chunks,
+              checks=(("two", [int(ms[0]), int(ms[-1])]),), sig_k_cap=QUICKLOOK_CAP)
+    return launches
+
+
+def whiten_phase(tel, slice_run, tag="whiten"):
+    """The whitening levers' A/B on ``[slice]``'s tables: the slice's
+    product with the fused Fisher over its first WHITEN_M m under each
+    (``_WHITEN_IMPL``, ``_QR_IMPL``) of WHITEN_LEGS, the launch counts zeroed
+    just before and read just after each, against the default whitening
+    on the same tables and m.  Gates: finite; retained spectra within 1e-4
+    of each m's top, the Fisher within 3e-2 of max |F|.  Printed: each leg's seconds beside
+    the default's, the whole spectrum's and the Fisher's distance.  Returns
+    the launch counts summed over the legs."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import fpencil
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    pos, neg = slice_run["tables"]
+    nm = tel.mmax + 1
+    cl_s, cl_n, noisew = covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    band_lt = mstep.band_factor_table(
+        iter(fisher_bands(tel)), out_dtype=np.float32, rank_rtol=1e-9
+    )
+    required, _, _ = path_kernels(tel, ls.shape[-1])
+    required = [k for k in required if k != map_kernel(tel) and k != "k3k5_legendre_sht"]
+    kw = dict(band_lt=band_lt, ps_threshold=PS_THRESHOLD, max_m=WHITEN_M)
+    torch.cuda.synchronize()
+    t = time.time()
+    ex, _, fx = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, **kw)
+    torch.cuda.synchronize()
+    t_default = time.time() - t
+    top = np.maximum(ex.max(axis=1, keepdims=True), 1e-300)
+    kept = ex > PS_THRESHOLD
+    total = {}
+    defaults = (fpencil._WHITEN_IMPL, fpencil._QR_IMPL)
+    try:
+        for whiten, qr in WHITEN_LEGS:
+            fpencil._WHITEN_IMPL, fpencil._QR_IMPL = whiten, qr
+            backend.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.time()
+            evals, _, fisher = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, **kw)
+            torch.cuda.synchronize()
+            dt = time.time() - t
+            launches = launch_counts()
+            require_launched(f"{tag} {whiten}/{qr}", launches, required)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            rel = np.abs(evals - ex) / top
+            err_kept = float(rel[kept].max()) if kept.any() else 0.0
+            f_err = float(np.abs(fisher - fx).max() / np.abs(fx).max())
+            log(f"[{tag}] {whiten}/{qr}: {WHITEN_M} m in {dt:.4f} s (default solve/cholqr_split "
+                f"{t_default:.4f} s), m-modes/s {WHITEN_M / dt:.4f}; vs the "
+                f"default: retained {err_kept:.3e} of each m's top (tol 1e-4), whole spectrum "
+                f"{float(rel.max()):.3e}, Fisher {f_err:.3e} (tol 3e-2) ({card_line()})")
+            if not (np.isfinite(evals).all() and np.isfinite(fisher).all()):
+                raise AssertionError(f"{tag} {whiten}/{qr}: non-finite spectra or Fisher")
+            if not err_kept <= 1e-4:
+                raise AssertionError(f"{tag} {whiten}/{qr}: retained {err_kept:.3e} > 1e-4")
+            if not f_err <= 3e-2:
+                raise AssertionError(f"{tag} {whiten}/{qr}: Fisher {f_err:.3e} > 3e-2")
+    finally:
+        fpencil._WHITEN_IMPL, fpencil._QR_IMPL = defaults
+    return total
+
+
+def sht_iters_phase(tag="sht iters", device="cuda"):
+    """The forward SHT's Jacobi refinement on the card: a band-limited
+    float64 map at nside SHT_ITERS_NSIDE (lmax SHT_ITERS_LMAX, made by K14
+    from seeded alm), real through ``sphtrans_sky(iters=SHT_ITERS)`` and
+    complex through ``analysis_maps(neg_m=True, iters=SHT_ITERS)``, the
+    launch counts zeroed just before each and read just after.  Gates:
+    K3+K5 launched SHT_ITERS + 1 times and K14 SHT_ITERS times a form;
+    the map residual falls at every step (iters 0..SHT_ITERS, each its own
+    call); alm within 1e-10 of max of the port's CPU run (the real form
+    after SHT_ITERS steps, the complex form after one: a depth cut).  Returns the
+    launch counts of the two gated calls."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import sht
+
+    nside, lmax, iters = SHT_ITERS_NSIDE, SHT_ITERS_LMAX, SHT_ITERS
+    rng = np.random.default_rng(SEED + 17)
+    shape = (1, lmax + 1, lmax + 1)
+    total = {}
+    for form in ("real", "complex"):
+        amp = 1.0 / (1.0 + np.arange(lmax + 1))[None, :, None]
+        pos = np.tril((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * amp)
+        if form == "real":
+            pos[:, :, 0] = pos[:, :, 0].real
+            maps = sht.synthesis_real(torch.as_tensor(pos, device=device), nside)
+
+            def run(x, k):
+                return sht.sphtrans_sky(x, lmax=lmax, iters=k), None
+        else:
+            negb = np.tril(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            negb = (negb * amp)[:, :, 1:]
+            maps = sht.synthesis_complex(torch.as_tensor(pos, device=device),
+                                         torch.as_tensor(negb, device=device), nside)
+
+            def run(x, k):
+                return sht.analysis_maps(x, lmax, neg_m=True, iters=k)
+
+        def residual(a):
+            back = (sht.synthesis_real(a[0], nside) if a[1] is None
+                    else sht.synthesis_complex(a[0], a[1], nside))
+            return float(torch.linalg.vector_norm(maps - back) / torch.linalg.vector_norm(maps))
+
+        steps = [run(maps, k) for k in range(iters + 1)]
+        resid = [residual(a) for a in steps]
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        got = run(maps, iters)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        launches = launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        # depth cut: the complex form's CPU check after its first step
+        k_cpu = iters if form == "real" else 1
+        t = time.time()
+        want = run(maps.cpu(), k_cpu)
+        t_cpu = time.time() - t
+        held = got if k_cpu == iters else steps[k_cpu]
+        err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                  for g, w in zip(held, want) if w is not None)
+        log(f"[{tag}] {form}: B {maps.shape[0]}, nside {nside}, lmax {lmax}, iters {iters}: "
+            f"{dt:.4f} s (cpu {t_cpu:.2f} s for {k_cpu}); K3+K5 {launches['k3k5_legendre_sht']}, K14 "
+            f"{launches['k14_legendre_synth']} launches; map residual rel by step "
+            f"{[f'{r:.3e}' for r in resid]}; alm card vs cpu {err:.3e} of max (tol 1e-10)")
+        if launches["k3k5_legendre_sht"] != iters + 1 or launches["k14_legendre_synth"] != iters:
+            raise AssertionError(f"{tag} {form}: launches {launches}")
+        if not all(b < a for a, b in zip(resid, resid[1:])):
+            raise AssertionError(f"{tag} {form}: the residual did not fall at every step {resid}")
+        if not err <= 1e-10:
+            raise AssertionError(f"{tag} {form}: card vs cpu {err:.3e} > 1e-10")
+    return total
 
 
 def band_cut(ev, nmin, depth=1e-6):
@@ -3992,7 +4298,17 @@ def main():
             if count:
                 counted[name] = counted.get(name, 0) + count
     mark("slice windows, ns2 window, ns2 retained, topband")
+    for phase, name in ((gram_engine_phase, "gram engine"), (quicklook_phase, "quicklook"),
+                        (whiten_phase, "whiten")):
+        for k, count in phase(tel, slice_run).items():
+            if count:
+                counted[k] = counted.get(k, 0) + count
+        mark(name)
     del slice_run["tables"], ntel
+    for k, count in sht_iters_phase().items():
+        if count:
+            counted[k] = counted.get(k, 0) + count
+    mark("sht iters")
     ns1b_window_phase(run_window=False)
     mark("ns1b window's K3+K5")
     for klass, params in ((restrictedcylinder.RestrictedCylinder, RESTRICTED_PARAMS),

@@ -235,6 +235,14 @@ class ProductManager:
         with open(staged) as f:
             yconf = yaml.safe_load(f)
 
+        # product runs ride the port's recorded engine picks (environment
+        # variables win; no record keeps the defaults)
+        from .. import engine_picks
+
+        adopted = engine_picks.adopt_decision_records(device=m.device)
+        if adopted:
+            logger.info("Adopted recorded engine picks: %s", adopted)
+
         m.apply_config(yconf)
         return m
 

@@ -22,7 +22,13 @@ covariances:
 * the top-band engine (:func:`gram_topband` and the ``*_topband``
   solvers) computes only the eigenpairs above the KL cut, by a
   Chebyshev-filtered subspace iteration whose filter step is the
-  hand-written kernel K17 (ops.cheb), without a full eigendecomposition.
+  hand-written kernel K17 (ops.cheb), without a full eigendecomposition;
+* the opt-in engines of the JAX package: ``kl_solve(method="gram")``, the
+  multi-level Gram deflation of the foreground factor itself
+  (:func:`whiten_apply_idpluslr`, :func:`whiten_apply_floor`); the
+  rank-capped quick-look (``sig_k_cap`` / ``fg_k_cap``,
+  :func:`gram_bands_topk`); and the whitening variants selected by the
+  module levers ``_QR_IMPL`` and ``_WHITEN_IMPL`` (:func:`_make_whitener`).
 
 Every function is batched over leading axes: a Python loop or a batch
 dimension takes the place of the JAX package's ``vmap``/``scan``.
@@ -31,6 +37,7 @@ dimension takes the place of the JAX package's ``vmap``/``scan``.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -328,20 +335,21 @@ def _eigh_scaled(g: torch.Tensor):
     return torch.where(zero[..., None], 0.0, w * scale[..., None]), q
 
 
-def gram_bands(x: torch.Tensor, levels: int = 3, band_rel: float = 3e-2) -> GramBands:
-    """Left singular structure of X over ~levels*|log10(band_rel)| decades.
+def _gram_level_scan(x: torch.Tensor, levels: int, band_rel: float, eig_fn) -> GramBands:
+    """The level loop shared by :func:`gram_bands` and :func:`gram_bands_topk`.
 
-    Each level forms G = X X^H, takes its eigendecomposition, keeps the
-    singular values above ``band_rel * s_max_level``, deflates that
-    subspace out of X twice (CGS2) and repeats on the remainder.
+    ``eig_fn(g) -> (s, q)``: descending non-negative singular values and
+    the matching left-vector columns of the level Gram ``g``.  Each level
+    keeps the values above ``band_rel * s_max_level`` (the last level keeps
+    every column) and deflates that subspace out of X twice (CGS2: one pass
+    leaks ~eps * s_max_level into the remainder, which would floor every
+    later level at that leak).
     """
     qs, ss = [], []
     xc = x
     for level in range(levels):
         g = _herm(xc @ xc.conj().transpose(-1, -2))
-        w, q = _eigh_scaled(g)  # ascending
-        s = torch.sqrt(torch.clamp(w.flip(-1), min=0.0))
-        q = q.flip(-1)
+        s, q = eig_fn(g)
         if level == levels - 1:
             maskf = torch.ones_like(s)
         else:
@@ -356,16 +364,124 @@ def gram_bands(x: torch.Tensor, levels: int = 3, band_rel: float = 3e-2) -> Gram
     return GramBands(torch.stack(qs), torch.stack(ss))
 
 
+def _eig_desc(g: torch.Tensor):
+    """Full eigendecomposition of a level Gram: (s descending, q)."""
+    w, q = _eigh_scaled(g)  # ascending
+    return torch.sqrt(torch.clamp(w.flip(-1), min=0.0)), q.flip(-1)
+
+
+def gram_bands(x: torch.Tensor, levels: int = 3, band_rel: float = 3e-2) -> GramBands:
+    """Left singular structure of X over ~levels*|log10(band_rel)| decades.
+
+    Each level forms G = X X^H, takes its eigendecomposition, keeps the
+    singular values above ``band_rel * s_max_level``, deflates that
+    subspace out of X twice (CGS2) and repeats on the remainder.
+    """
+    return _gram_level_scan(x, levels, band_rel, _eig_desc)
+
+
+def _chol_qr_real(v: torch.Tensor) -> torch.Tensor:
+    """Orthonormalise a real column block (..., m, k) by two rounds of
+    CholeskyQR, each Gram shifted by 1e-5 of its largest diagonal entry
+    plus 1e-30 (subspace iteration drives the Gram numerically singular;
+    the repeat restores orthogonality)."""
+    k = v.shape[-1]
+    eye = torch.eye(k, dtype=v.dtype, device=v.device)
+    for _ in range(2):
+        g = v.transpose(-1, -2) @ v
+        g = 0.5 * (g + g.transpose(-1, -2))
+        shift = 1e-5 * torch.diagonal(g, dim1=-2, dim2=-1).amax(-1) + 1e-30
+        low, _ = torch.linalg.cholesky_ex(g + shift[..., None, None] * eye)
+        v = torch.linalg.solve_triangular(low, v.transpose(-1, -2), upper=False).transpose(-1, -2)
+    return v
+
+
+def _embed_herm(h: torch.Tensor) -> torch.Tensor:
+    """Real symmetric embedding [[A, -B], [B, A]] of a Hermitian H = A + iB."""
+    top = torch.cat([h.real, -h.imag], dim=-1)
+    bot = torch.cat([h.imag, h.real], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _unembed_vecs(v2n: torch.Tensor) -> torch.Tensor:
+    """Complex vectors from the columns of a 2n real embedding's vectors."""
+    n = v2n.shape[-2] // 2
+    return torch.complex(v2n[..., :n, :], v2n[..., n:, :])
+
+
+def _top_band_eigh(g: torch.Tensor, k_c: int, iters: int = 8):
+    """Approximate top-k_c eigenpairs of a Hermitian PSD matrix (..., n, n).
+
+    The JAX package's iterate, on the real symmetric embedding
+    [[A, -B], [B, A]] (a native complex subspace iteration spans another
+    subspace): from the real start block of :func:`_start_block` (2n, 2k),
+    ``iters`` steps of the embedding (normalised by max(|A|, |B|)) each
+    followed by :func:`_chol_qr_real`; one (2k, 2k) Rayleigh-Ritz eigh;
+    the embedding doubles every eigenvalue, so the even-indexed Ritz pairs
+    are kept and the reassembled complex vectors get two Newton steps
+    V <- V (3I - V^H V) / 2 towards orthonormality.
+
+    Past k_c = n the start block is the Q of the (2n, 2 k_c) draw, 2n
+    columns, as in the JAX program, and n pairs are returned: the JAX
+    program gathers the even indices past 2n clamped to the last Ritz
+    pair, repeating the smallest value.  Returns (w (..., min(k_c, n))
+    descending Ritz values, v (..., n, min(k_c, n)) columns).
+    """
+    n = g.shape[-1]
+    e = _embed_herm(g)
+    scale = torch.maximum(g.real.abs().amax(dim=(-2, -1)), g.imag.abs().amax(dim=(-2, -1))) + 1e-30
+    en = e / scale[..., None, None]
+    v = _start_block(2 * n, 2 * k_c, en)
+    k_c = int(min(k_c, n))
+    v = v.expand(en.shape[:-2] + v.shape)
+    for _ in range(iters):
+        v = _chol_qr_real(en @ v)
+    h = v.transpose(-1, -2) @ (en @ v)
+    h = 0.5 * (h + h.transpose(-1, -2))
+    w2, u = _eigh_scaled(h)  # ascending
+    w2 = w2.flip(-1) * scale[..., None]
+    ritz = v @ u.flip(-1)
+    w = w2[..., 0::2]
+    vc = _unembed_vecs(ritz[..., 0::2])
+    eye = torch.eye(k_c, dtype=vc.dtype, device=vc.device)
+    for _ in range(2):
+        vc = vc @ (1.5 * eye - 0.5 * (vc.conj().transpose(-1, -2) @ vc))
+    return w, vc
+
+
+def gram_bands_topk(
+    x: torch.Tensor, levels: int, band_rel: float, k_cap: int, iters: int = 8
+) -> GramBands:
+    """Rank-capped :func:`gram_bands`: each level extracts at most ``k_cap``
+    directions by :func:`_top_band_eigh` instead of a full eigh.
+
+    Directions a level cannot hold stay in the deflated remainder and
+    surface at the next level; the last level is not complete.  The JAX
+    package's quick-look: approximate by design (band-edge Ritz vectors
+    converge slowly on continuous spectra), for spectrum-style passes and
+    the identity-plus-low-rank whitening only.  The bands are (levels,
+    ..., n, min(k_cap, n)).
+    """
+
+    def eig_fn(g):
+        w, q = _top_band_eigh(g, k_cap, iters=iters)  # descending
+        return torch.sqrt(torch.clamp(w, min=0.0)), q
+
+    return _gram_level_scan(x, levels, band_rel, eig_fn)
+
+
 def _select_complete_basis(bands: GramBands):
     """Pick n mutually-orthogonal columns across bands, by singular value.
 
     In-band columns rank by their s; masked-out columns get key -1, so
     the stable top-n selection takes each level's converged columns plus
-    the head of the last level.  Returns (q (..., n, n) columns
-    descending by s, s (..., n)).
+    the head of the last level.  Rank-capped bands (levels * k < n) are
+    completed with zero columns of key -1 (value exactly 0, below anything
+    a caller keeps).  Returns (q (..., n, n) columns descending by s,
+    s (..., n)).
     """
     levels = bands.q.shape[0]
-    n = bands.q.shape[-1]
+    n, k = bands.q.shape[-2], bands.q.shape[-1]
     is_last = torch.zeros(levels, dtype=torch.bool, device=bands.s.device)
     is_last[-1] = True
     is_last = is_last.reshape((levels,) + (1,) * (bands.s.dim() - 1))
@@ -373,10 +489,58 @@ def _select_complete_basis(bands: GramBands):
     # (levels, ..., n, k) -> (..., n, levels*k), level-major columns
     qcat = torch.cat(list(bands.q), dim=-1)
     keys = torch.cat(list(keys), dim=-1)
+    if levels * k < n:
+        pad = n - levels * k
+        qcat = torch.nn.functional.pad(qcat, (0, pad))
+        keys = torch.nn.functional.pad(keys, (0, pad), value=-1.0)
     order = torch.argsort(-keys, dim=-1, stable=True)[..., :n]
     q = torch.take_along_dim(qcat, order[..., None, :], dim=-1)
     s = torch.clamp(torch.take_along_dim(keys, order, dim=-1), min=0.0)
     return q, s
+
+
+# ------------------------------------------------------------------
+# Whitening operators of the gram engine
+# ------------------------------------------------------------------
+
+
+def whiten_apply_idpluslr(bands: GramBands, y: torch.Tensor) -> torch.Tensor:
+    """Apply W = (I + A A^H)^(-1/2) to y (..., n, c), A given by its Gram
+    bands: W = I - sum_i Q_i diag(alpha_i) Q_i^H with alpha = 1 -
+    1/sqrt(1 + s^2).  alpha -> 0 as s -> 0, so unconverged or duplicate
+    tail columns do no harm; the bands are mutually orthogonal."""
+    alpha = 1.0 - 1.0 / torch.sqrt(1.0 + bands.s * bands.s)  # (levels, ..., k)
+    proj = bands.q.conj().transpose(-1, -2) @ y  # (levels, ..., k, c)
+    proj = proj * alpha[..., None].to(proj.dtype)
+    return y - (bands.q @ proj).sum(0)
+
+
+def whiten_apply_floor(bands: GramBands, y: torch.Tensor, floor_rel: float) -> torch.Tensor:
+    """Apply W = (A A^H)^(-1/2) to y with a relative eigenvalue floor: the
+    eigenvalues of A A^H below ``floor_rel * lambda_max`` are clamped (not
+    shifted) before the inversion, i.e. the singular values below
+    f = sqrt(floor_rel) * s_max.  Foreground-only whitening (DoubleKL stage
+    1 of the gram engine).
+
+    W = I / f + sum_i q_i (1 / s_i - 1 / f) q_i^H over the band columns
+    with s_i > f: only the directions above the floor need a vector, and
+    those of the bands are mutually orthogonal.  The JAX package forms
+    Q diag(1 / max(s, f)) Q^H from a complete basis (``_select_complete_basis``)
+    whose zero-value columns come from the last level's null space, an
+    arbitrary basis that holds the earlier levels' directions too where A
+    is rank deficient (a cylinder's foreground factor is: 18 of 56 singular
+    values above 1e-12 of the top); those columns then add 1/f weight to
+    directions already whitened, and the spectrum departs from the dense
+    referee (0.77 of the top at a small cylinder's m = 9, its eigh's jitter
+    picking the basis).  Where that basis is orthonormal both forms are
+    equal.
+    """
+    f = float(np.sqrt(floor_rel)) * bands.s[0].amax(-1) + 1e-30  # (...,)
+    f = f[None, ..., None]
+    beta = torch.where(bands.s > f, 1.0 / torch.clamp(bands.s, min=1e-300) - 1.0 / f, 0.0)
+    proj = bands.q.conj().transpose(-1, -2) @ y  # (levels, ..., k, c)
+    proj = proj * beta[..., None].to(proj.dtype)
+    return y / f[0, ..., None].to(y.dtype) + (bands.q @ proj).sum(0)
 
 
 # ------------------------------------------------------------------
@@ -387,20 +551,57 @@ def _select_complete_basis(bands: GramBands):
 _CHOLQR_SHIFT_EPS_MULT = 3000.0
 
 
+# The module levers of the noise whitening, read once from the JAX
+# package's environment variable names; tests and decision records
+# (engine_picks) set the attributes.
+#
+# _CHOLQR_ROUNDS: the shifted CholeskyQR's round count (None: the
+# conditioning worst case of :func:`_cholqr_rounds`).
+_CHOLQR_ROUNDS = (
+    int(os.environ["DRIFTSCAN_TPU_CHOLQR_ROUNDS"])
+    if os.environ.get("DRIFTSCAN_TPU_CHOLQR_ROUNDS")
+    else None
+)
+
+# _QR_IMPL: the factorisation of the noise rows.  "cholqr_split" and
+# "cholqr" (the JAX package's split-complex and interleaved CholeskyQR,
+# equal in exact arithmetic) both select :func:`chol_qr_r`, the one
+# CholeskyQR of native complex; "householder" a Householder QR
+# (``torch.linalg.qr``) with each row of R scaled to a positive real
+# diagonal, so that R is CholeskyQR's.
+_QR_IMPL = os.environ.get("DRIFTSCAN_TPU_QR_IMPL", "cholqr_split")
+_QR_IMPLS = ("cholqr_split", "cholqr", "householder")
+
+# _WHITEN_IMPL: how R^-H b and R^-1 b are applied.  "solve": triangular
+# solves against the whole R (which carries cond(N)^(1/2) and is never
+# inverted as a whole); "factored": the chain of the per-round inverses
+# R_1^-1 .. R_K^-1, each shift-capped at cond ~ sqrt(1/shift_rel), one
+# (n, n) product a round; "refined": the chain composed into one matrix
+# plus _WHITEN_REFINE_STEPS residual corrections against R.  Under
+# "householder" there are no rounds, and both fall back to "solve".
+_WHITEN_IMPL = os.environ.get("DRIFTSCAN_TPU_WHITEN_IMPL", "solve")
+_WHITEN_IMPLS = ("solve", "factored", "refined")
+_WHITEN_REFINE_STEPS = int(os.environ.get("DRIFTSCAN_TPU_WHITEN_REFINE", "2"))
+
+
 def _cholqr_rounds(dtype) -> int:
     """Shifted-round count covering any representable pencil conditioning
-    (cond(N) ~ 1e18): 8 for float32, 4 for float64."""
+    (cond(N) ~ 1e18): 8 for float32, 4 for float64, unless
+    ``_CHOLQR_ROUNDS`` sets it."""
+    if _CHOLQR_ROUNDS:
+        return _CHOLQR_ROUNDS
     return 8 if torch.finfo(backend.real_dtype(dtype)).eps > 1e-10 else 4
 
 
-def chol_qr_r(rows: torch.Tensor) -> torch.Tensor:
+def chol_qr_r(rows: torch.Tensor, return_inv: bool = False):
     """Upper-triangular R with N = R^H R for the noise rows G (..., R, n).
 
     Shifted CholeskyQR: per round one Gram, one shifted Cholesky, one
     explicit small triangular inverse and one tall update; ``rounds - 2``
     fully shifted rounds (each cuts cond^2 by ~1/shift_rel), one
     small-shift round, then one unshifted polish.  The diagonal is
-    positive.
+    positive.  ``return_inv`` also returns the per-round inverses
+    [R_1^-1 .. R_K^-1] (R = R_K .. R_1), the last one included.
     """
     n = rows.shape[-1]
     eps = float(torch.finfo(backend.real_dtype(rows.dtype)).eps)
@@ -411,6 +612,7 @@ def chol_qr_r(rows: torch.Tensor) -> torch.Tensor:
 
     g = rows
     r_tot = None
+    invs = []
     for k in range(rounds):
         gram = _herm(g.conj().transpose(-1, -2) @ g)
         if k < rounds - 2:
@@ -426,10 +628,92 @@ def chol_qr_r(rows: torch.Tensor) -> torch.Tensor:
         low, _ = torch.linalg.cholesky_ex(gram)
         r_k = low.conj().transpose(-1, -2)
         r_tot = r_k if r_tot is None else r_k @ r_tot
-        if k < rounds - 1:
+        if k < rounds - 1 or return_inv:
             rinv = torch.linalg.solve_triangular(r_k, eye.expand_as(r_k), upper=True)
-            g = g @ rinv
+            invs.append(rinv)
+            if k < rounds - 1:
+                g = g @ rinv
+    if return_inv:
+        return r_tot, invs
     return r_tot
+
+
+def _check_levers():
+    if _QR_IMPL not in _QR_IMPLS:
+        raise ValueError(f"unknown _QR_IMPL {_QR_IMPL!r}: one of {_QR_IMPLS}")
+    if _WHITEN_IMPL not in _WHITEN_IMPLS:
+        raise ValueError(f"unknown _WHITEN_IMPL {_WHITEN_IMPL!r}: one of {_WHITEN_IMPLS}")
+
+
+def _noise_r_factor(noise_rows: torch.Tensor) -> torch.Tensor:
+    """Upper-triangular R with N = R^H R from the noise rows G, by the
+    ``_QR_IMPL`` lever."""
+    if _QR_IMPL != "householder":
+        return chol_qr_r(noise_rows)
+    r = torch.linalg.qr(noise_rows, mode="r")[1]
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    mag = d.abs()
+    # row i times conj(d_i) / |d_i|: a real positive diagonal, R^H R kept
+    phase = torch.where(mag > 0, d.conj() / torch.where(mag > 0, mag, 1.0), 1.0)
+    return r * phase[..., :, None]
+
+
+def _whiten_factored() -> bool:
+    return _WHITEN_IMPL in ("factored", "refined") and _QR_IMPL != "householder"
+
+
+def _whiten_apply_factors(invs, b: torch.Tensor, adjoint: bool) -> torch.Tensor:
+    """R^-H b (adjoint) or R^-1 b through the per-round inverses: R = R_K
+    .. R_1, so R^-1 = R_1^-1 .. R_K^-1 (applied right to left) and R^-H =
+    R_K^-H .. R_1^-H (their adjoints, left to right)."""
+    if adjoint:
+        for inv in invs:
+            b = inv.conj().transpose(-1, -2) @ b
+    else:
+        for inv in reversed(invs):
+            b = inv @ b
+    return b
+
+
+def _compose_factor_inv(invs) -> torch.Tensor:
+    """R^-1 = R_1^-1 .. R_K^-1 composed into one (n, n) matrix."""
+    m = invs[0]
+    for inv in invs[1:]:
+        m = m @ inv
+    return m
+
+
+def _whiten_apply_refined(r: torch.Tensor, m_inv: torch.Tensor, b: torch.Tensor,
+                          adjoint: bool) -> torch.Tensor:
+    """The composed inverse applied to b, then ``_WHITEN_REFINE_STEPS``
+    residual corrections against R itself (R^H y = b, resp. R v = b), so
+    that the result converges to the same solution as the "solve" path."""
+    m = m_inv.conj().transpose(-1, -2) if adjoint else m_inv
+    mat = r.conj().transpose(-1, -2) if adjoint else r
+    y = m @ b
+    for _ in range(_WHITEN_REFINE_STEPS):
+        y = y + m @ (b - mat @ y)
+    return y
+
+
+def _make_whitener(noise_rows: torch.Tensor):
+    """``whiten(b, adjoint)`` computing R^-H b (adjoint) or R^-1 b for the
+    active ``_QR_IMPL`` and ``_WHITEN_IMPL`` levers (see their comments)."""
+    _check_levers()
+    if _whiten_factored():
+        r, invs = chol_qr_r(noise_rows, return_inv=True)
+        if _WHITEN_IMPL == "refined":
+            m_inv = _compose_factor_inv(invs)
+            return lambda b, adj: _whiten_apply_refined(r, m_inv, b, adj)
+        return lambda b, adj: _whiten_apply_factors(invs, b, adj)
+    r = _noise_r_factor(noise_rows)
+
+    def whiten(b, adj):
+        if adj:
+            return torch.linalg.solve_triangular(r.conj().transpose(-1, -2), b, upper=False)
+        return torch.linalg.solve_triangular(r, b, upper=True)
+
+    return whiten
 
 
 # ------------------------------------------------------------------
@@ -447,18 +731,27 @@ def pencil_solve_qr(
     noise_rows: torch.Tensor,
     sig_levels: int = 2,
     band_rel: float = 3e-2,
+    sig_k_cap: int = 0,
 ) -> KLResult:
     """Solve S v = w N v with S = A_s A_s^H and N = G^H G given by rows G.
 
     The eigenvalues are the squared singular values of y = R^-H A_s,
-    resolved by ``sig_levels`` Gram deflation levels; the eigenvectors
-    are R^-1 U.  Returns evals ascending and N-orthonormal columns.
+    resolved by ``sig_levels`` Gram deflation levels (rank-capped at
+    ``sig_k_cap`` directions a level when set: :func:`gram_bands_topk`,
+    whose unresolved tail reports eigenvalue 0 with zero vectors); the
+    eigenvectors are R^-1 U.  The whitening follows the module levers
+    (:func:`_make_whitener`).  Returns evals ascending and N-orthonormal
+    columns.
     """
-    r = chol_qr_r(noise_rows)
-    y = torch.linalg.solve_triangular(r.conj().transpose(-1, -2), a_signal, upper=False)
-    u, sy = _select_complete_basis(gram_bands(y, levels=sig_levels, band_rel=band_rel))
+    whiten = _make_whitener(noise_rows)
+    y = whiten(a_signal, True)  # R^-H A_s
+    if sig_k_cap:
+        bands = gram_bands_topk(y, levels=sig_levels, band_rel=band_rel, k_cap=sig_k_cap)
+    else:
+        bands = gram_bands(y, levels=sig_levels, band_rel=band_rel)
+    u, sy = _select_complete_basis(bands)
     evals = sy * sy  # descending
-    v = torch.linalg.solve_triangular(r, u, upper=True)
+    v = whiten(u, False)  # R^-1 U
     return KLResult(evals.flip(-1), v.flip(-1))
 
 
@@ -516,14 +809,16 @@ def kl_solve_qr(
     with_thermal: bool = True,
     fg_floor: float = 1e-6,
     fg_reg_rel: float = 0.0,
+    sig_k_cap: int = 0,
 ) -> KLResult:
     """Solve S v = w (nc I + F) v by factor-side QR whitening.
 
     With thermal noise nc = 1 (the beams are noise-prewhitened); without
     (DoubleKL stage 1), nc = ``fg_floor`` * lambda_max(F).  ``fg_reg_rel``
     adds driftscan's foreground regulariser, fg_reg_rel * max|F_ij|, an
-    identity shift that folds into the noise scale.  The defaults give the
-    plain thermal pencil S v = w (I + F) v.
+    identity shift that folds into the noise scale.  ``sig_k_cap`` as in
+    :func:`pencil_solve_qr`.  The defaults give the plain thermal pencil
+    S v = w (I + F) v.
     """
     if with_thermal:
         nc = 1.0
@@ -533,7 +828,7 @@ def kl_solve_qr(
         nc = nc + fg_reg_rel * _max_row_norm_sq(a_fg)
     return pencil_solve_qr(
         a_signal, _thermal_noise_rows(a_fg, nc), sig_levels=sig_levels,
-        band_rel=band_rel,
+        band_rel=band_rel, sig_k_cap=sig_k_cap,
     )
 
 
@@ -546,25 +841,92 @@ def kl_solve(
     with_thermal: bool = True,
     fg_floor: float = 1e-6,
     fg_reg_rel: float = 0.0,
+    fg_levels: int = 8,
+    solve_dtype=None,
+    fg_k_cap: int = 0,
+    sig_k_cap: int = 0,
 ) -> KLResult:
-    """Solve S v = w ([I +] A_f A_f^H) v; the ``qr`` engine only.
+    """Solve S v = w N v with S = A_s A_s^H and N = [I +] A_f A_f^H.
 
-    Defaults follow the JAX package: 2 signal levels at band_rel 3e-2,
-    thermal noise on, no regulariser.
+    ``method="qr"`` (the default) whitens by factor-side QR
+    (:func:`kl_solve_qr`).  ``method="gram"`` is the JAX package's
+    multi-level Gram-deflation engine, kept for A/B and for covariances
+    too wide even for QR: ``fg_levels`` levels of the foreground factor's
+    Gram (rank-capped at ``fg_k_cap`` directions a level when set),
+    whitening by (I + F)^-1/2 (:func:`whiten_apply_idpluslr`) or, without
+    thermal noise, by F^-1/2 with F's eigenvalues clamped at ``fg_floor``
+    of its largest (:func:`whiten_apply_floor`), then ``sig_levels`` levels
+    of the whitened signal.  Its foreground whitening error grows with
+    cond(N).  ``fg_reg_rel`` is driftscan's foreground regulariser
+    fg_reg_rel * max|F_ij| on the noise diagonal (for ``gram`` by scaling
+    both factors by (1 + r)^-1/2, the same eigenvalues).
+
+    The depth defaults depend on the method, as in the JAX package: 2
+    signal levels at band_rel 3e-2 for ``qr``, 5 at 1e-1 for ``gram``.
+    ``solve_dtype`` (a real torch dtype) runs the solve in that precision
+    (``qr`` returns in it, ``gram`` in the inputs' precision).  Returns evals ascending and
+    evecs as columns.
     """
-    if method != "qr":
-        raise NotImplementedError(
-            f"kl_solve method {method!r} is not ported: ROADMAP.md, modules "
-            "to port, item 10 (opt-in engines)"
+    if sig_levels is None:
+        sig_levels = 2 if method == "qr" else 5
+    if band_rel is None:
+        band_rel = 3e-2 if method == "qr" else 1e-1
+
+    if method == "qr":
+        if fg_k_cap:
+            raise ValueError(
+                "fg_k_cap is a gram-engine knob (method='gram'): QR whitening has no "
+                "foreground Gram to rank-cap"
+            )
+        if solve_dtype is not None:
+            cdt = backend.complex_dtype(solve_dtype)
+            a_signal, a_fg = a_signal.to(cdt), a_fg.to(cdt)
+        return kl_solve_qr(
+            a_signal, a_fg, sig_levels=sig_levels, band_rel=band_rel,
+            with_thermal=with_thermal, fg_floor=fg_floor, fg_reg_rel=fg_reg_rel,
+            sig_k_cap=sig_k_cap,
         )
-    return kl_solve_qr(
-        a_signal,
-        a_fg,
-        sig_levels=2 if sig_levels is None else sig_levels,
-        band_rel=3e-2 if band_rel is None else band_rel,
-        with_thermal=with_thermal,
-        fg_floor=fg_floor,
-        fg_reg_rel=fg_reg_rel,
+    if method != "gram":
+        raise ValueError(f"Unknown kl_solve method {method!r}")
+
+    if fg_reg_rel:
+        # N = (1 + r) I + F = (1 + r) (I + F / (1 + r))
+        r = fg_reg_rel * _max_row_norm_sq(a_fg)
+        sc = (1.0 / torch.sqrt(1.0 + r))[..., None, None].to(a_signal.dtype)
+        a_signal, a_fg = a_signal * sc, a_fg * sc
+
+    in_dtype = a_signal.dtype
+    if solve_dtype is not None:
+        cdt = backend.complex_dtype(solve_dtype)
+        a_signal, a_fg = a_signal.to(cdt), a_fg.to(cdt)
+
+    # the identity-plus-low-rank whitening tolerates missing tail
+    # directions (alpha -> 0); the floor whitening needs a complete basis
+    if fg_k_cap and not with_thermal:
+        raise ValueError(
+            "fg_k_cap requires with_thermal=True: foreground-floor whitening needs a "
+            "complete basis"
+        )
+    if fg_k_cap:
+        fg = gram_bands_topk(a_fg, levels=fg_levels, band_rel=band_rel, k_cap=fg_k_cap)
+    else:
+        fg = gram_bands(a_fg, levels=fg_levels, band_rel=band_rel)
+
+    def whiten(b):
+        if with_thermal:
+            return whiten_apply_idpluslr(fg, b)
+        return whiten_apply_floor(fg, b, floor_rel=fg_floor)
+
+    y = whiten(a_signal)
+    if sig_k_cap:
+        yb = gram_bands_topk(y, levels=sig_levels, band_rel=band_rel, k_cap=sig_k_cap)
+    else:
+        yb = gram_bands(y, levels=sig_levels, band_rel=band_rel)
+    u, sy = _select_complete_basis(yb)
+    evals = sy * sy  # descending
+    v = whiten(u)
+    return KLResult(
+        evals.flip(-1).to(backend.real_dtype(in_dtype)), v.flip(-1).to(in_dtype)
     )
 
 
@@ -838,20 +1200,20 @@ def pencil_solve_qr_topband(
     levels: int = 5,
 ):
     """The retained band of S v = w N v: :func:`pencil_solve_qr`'s noise
-    whitening, with the whitened Gram's eigendecomposition replaced by
+    whitening (the module levers, :func:`_make_whitener`), with the whitened Gram's eigendecomposition replaced by
     :func:`gram_topband`.  Eigenvalues below ``cut`` are exact zeros with
     zero eigenvector columns.  Returns (KLResult (evals (..., n)
     ascending, evecs (..., n, n)), ok (...,))."""
     n = a_signal.shape[-2]
     w = min(levels * k, n)
-    r = chol_qr_r(noise_rows)
-    y = torch.linalg.solve_triangular(r.conj().transpose(-1, -2), a_signal, upper=False)
+    whiten = _make_whitener(noise_rows)
+    y = whiten(a_signal, True)  # R^-H A_s
     theta, u, ok = gram_topband(y, k=k, cut=cut, levels=levels)
     # top w by value (the masked zeros make value order the keep set)
     order = torch.argsort(-theta, dim=-1, stable=True)[..., :w]
     theta = torch.take_along_dim(theta, order, dim=-1)
     u = torch.take_along_dim(u, order[..., None, :], dim=-1)
-    v = torch.linalg.solve_triangular(r, u, upper=True)
+    v = whiten(u, False)  # R^-1 U
     lead = a_signal.shape[:-2]
     pad = n - w
     evals = torch.cat([theta.new_zeros(lead + (pad,)), theta.flip(-1)], dim=-1)

@@ -466,6 +466,7 @@ def kl_factored_batched(
     fg_reg_rel: float = 0.0,
     device=None,
     compact: bool = True,
+    fg_levels: int = 8,
 ):
     """m-batched KL pencil solve on *factored* covariances.
 
@@ -478,14 +479,17 @@ def kl_factored_batched(
     (identity) projected instrumental noise.  Where the signal factor is
     wider than twice the pencil (``mstep.uses_compact_signal``) and
     ``compact`` is set, the signal side is re-factored to width n through
-    the K9 Gram (the same S).  Returns (evals (M, n) ascending, evecs
-    (M, n, n) complex columns) on the beams' device.
+    the K9 Gram (the same S); the ``gram`` engine (``method``, with
+    ``fg_levels`` foreground levels) takes the wide factor.  Returns
+    (evals (M, n) ascending, evecs (M, n, n) complex columns) on the beams'
+    device.
     """
     bsvd5 = as_tensor(bsvd5, device)
-    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact)
+    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact and method == "qr")
     kl = fpencil.kl_solve(
         a_s, a_f, sig_levels=sig_levels, band_rel=band_rel, method=method,
         with_thermal=with_thermal, fg_floor=fg_floor, fg_reg_rel=fg_reg_rel,
+        fg_levels=fg_levels,
     )
     return kl.evals, kl.evecs
 

@@ -32,7 +32,10 @@ and the inverse transform (synthesis):
   keeps the real part.
 
 Compact RING maps enter and leave through :func:`pad_map` and
-:func:`unpad_map`.  Conventions: Condon-Shortley phase, orthonormal
+:func:`unpad_map`; :func:`analysis_maps` is the JAX package's ``analysis``
+on them, with its Jacobi refinement (each step one synthesis, K14 and the
+inverse phase stage, and one analysis of the residual, the phase stage and
+K3+K5).  Conventions: Condon-Shortley phase, orthonormal
 harmonics, so ``Y_{l,-m} = (-1)^m conj(Y_lm)``.  Quadrature is equal-area
 pixel weighting.
 """
@@ -61,11 +64,6 @@ K14 = backend.register(
     "k14_legendre_synth",
     "driftscan_tpu_torch/csrc/legendre_synth.cu",
     "driftscan_tpu/ops/sht.py:474 + driftscan_tpu/ops/sht.py:535 (+ :80)",
-)
-
-_ITERS_NOT_PORTED = (
-    "Jacobi refinement of the forward SHT (iters > 0) is not ported yet: "
-    "ROADMAP.md, modules to port, item 8.1"
 )
 
 # Rescaling bounds of the Legendre recurrence (the JAX package's constants).
@@ -411,25 +409,98 @@ def _nside_of(npix: int) -> int:
     return nside
 
 
+def analysis_maps(maps, lmax: int, mmax: Optional[int] = None, nside: Optional[int] = None,
+                  neg_m: bool = False, iters: int = 0):
+    """Forward SHT of compact RING maps (..., npix), real or complex: the
+    JAX package's ``analysis(maps, lmax, mmax, nside, neg_m, iters)``.
+
+    Real maps are taken as complex (float64 gives complex128).  Returns
+    (pos (..., lmax+1, mmax+1), neg (..., lmax+1, mmax) with column j
+    holding m = -(j+1), or None without ``neg_m``).  ``iters`` Jacobi
+    refinement steps (healpy's ``iter``) each add the analysis of the
+    residual of the current coefficients' synthesis, sharpening the
+    equal-area quadrature towards the least-squares coefficients; a real
+    field is resynthesised from its m >= 0 block, a complex one needs
+    ``neg_m``.
+    """
+    mmax = lmax if mmax is None else mmax
+    npix = maps.shape[-1]
+    if nside is None:
+        nside = _nside_of(npix)
+    elif 12 * nside * nside != npix:
+        raise ValueError(
+            f"npix {npix} is not a compact RING map of nside {nside} (ring-padded maps "
+            "take analysis(); they cannot be refined)"
+        )
+    real_field = not maps.is_complex()
+    if iters and not real_field and not neg_m:
+        raise ValueError("refinement of a complex field requires neg_m=True")
+    lead = maps.shape[:-1]
+    flat = maps.reshape(-1, npix)
+    cflat = flat if not real_field else flat.to(backend.complex_dtype(flat.dtype))
+
+    def fwd(x):
+        pos, neg = analysis(pad_map(x, nside), lmax, nside, m_window=(0, mmax + 1))
+        return pos, neg[..., 1:]
+
+    pos, neg = fwd(cflat)
+    for _ in range(iters):
+        if real_field:
+            resid = flat - synthesis_real(pos, nside).to(flat.dtype)
+            pos = pos + fwd(resid.to(cflat.dtype))[0]
+        else:
+            resid = flat - synthesis_complex(pos, neg, nside)
+            dpos, dneg = fwd(resid)
+            pos, neg = pos + dpos, neg + dneg
+    pos = pos.reshape(lead + (lmax + 1, mmax + 1))
+    if not neg_m:
+        return pos, None
+    return pos, neg.reshape(lead + (lmax + 1, mmax))
+
+
 def sphtrans_sky(skymap, lmax: Optional[int] = None, iters: int = 0, device=None):
     """Forward SHT of real RING sky maps [..., pix] -> alm [..., l, m >= 0].
 
-    The JAX package's ``analysis(maps, lmax)`` on real maps (``neg_m=False``,
-    mmax = lmax, default lmax 3 nside - 1): the map is padded, made complex
-    (float64 maps give complex128) and taken through the phase stage and
-    K3+K5, whose negative-m block is computed and dropped.  ``skymap`` is a
-    tensor, or an array that goes to ``device`` (the card when None).
+    The JAX package's ``analysis(maps, lmax, iters=iters)`` on real maps
+    (``neg_m=False``, mmax = lmax, default lmax 3 nside - 1): the map is
+    padded, made complex (float64 maps give complex128) and taken through
+    the phase stage and K3+K5, whose negative-m block is computed and
+    dropped; ``iters`` Jacobi refinement steps as in
+    :func:`analysis_maps`.  ``skymap`` is a tensor, or an array that goes
+    to ``device`` (the card when None).
     """
-    if iters:
-        raise NotImplementedError(_ITERS_NOT_PORTED)
     maps = as_tensor(skymap, device)
     if maps.is_complex():
         raise TypeError("sphtrans_sky takes real maps")
     nside = _nside_of(maps.shape[-1])
     lmax = 3 * nside - 1 if lmax is None else lmax
-    padded = pad_map(maps, nside).to(backend.complex_dtype(maps.dtype))
-    pos, _ = analysis(padded, lmax, nside)
-    return pos
+    return analysis_maps(maps, lmax, nside=nside, iters=iters)[0]
+
+
+def sphtrans_complex(hpmap, lmax: Optional[int] = None, lside: Optional[int] = None,
+                     centered: bool = False, device=None) -> np.ndarray:
+    """Forward SHT of complex RING maps [..., pix], both m signs, packed in
+    driftscan's FFT-like layout (:func:`pack_fftlike`, (lside+1,
+    2 lside+1), complex128 numpy): the JAX package's ``sphtrans_complex``
+    (default lmax 3 nside - 1, lside lmax; only ``centered=False``).
+    ``hpmap`` is a tensor, or an array that goes to ``device`` (the card
+    when None)."""
+    if centered:
+        raise NotImplementedError("centered alm layout not supported")
+    maps = as_tensor(hpmap, device)
+    if not maps.is_complex():
+        maps = maps.to(backend.complex_dtype(maps.dtype))
+    nside = _nside_of(maps.shape[-1])
+    lmax = 3 * nside - 1 if lmax is None else lmax
+    lside = lmax if lside is None else lside
+    pos, neg = analysis_maps(maps, lmax, nside=nside, neg_m=True)
+    return pack_fftlike(pos.cpu().numpy(), neg.cpu().numpy(), lside)
+
+
+def sphtrans_complex_pol(hpmaps, lmax: Optional[int] = None, lside: Optional[int] = None,
+                         centered: bool = False, device=None) -> np.ndarray:
+    """Per-Stokes :func:`sphtrans_complex` of a stack of complex maps."""
+    return sphtrans_complex(hpmaps, lmax=lmax, lside=lside, centered=centered, device=device)
 
 
 # ------------------------------------------------------------------

@@ -120,7 +120,8 @@ class Compressed(NamedTuple):
 
 
 def compress_step(beam, noisew, ls, lf, m_values, npol: int, nl: int,
-                  polsvcut: float = 1e-4, svcut: float = 1e-6, s_cap: int = 0) -> Compressed:
+                  polsvcut: float = 1e-4, svcut: float = 1e-6, s_cap: int = 0,
+                  method: str = "qr", compact_signal: bool | None = None) -> Compressed:
     """The SVD stage of :func:`kl_product_step` and its pencil's factors;
     arguments as there.  A caller that solves one pencil more than once
     (a deeper exact solve, a top-band redispatch) computes this once and
@@ -134,7 +135,12 @@ def compress_step(beam, noisew, ls, lf, m_values, npol: int, nl: int,
     s_kl = s_cap if 0 < s_cap < S else S
 
     b5 = bsvd[:, :, :s_kl].reshape(M, F, s_kl, npol, nl)
-    if uses_compact_signal(F * s_kl, nl * ls.shape[-1]):
+    compact = compact_signal
+    if compact is None:
+        # the gram engine deflates the signal factor as it is (K9 does not
+        # run there), as in the JAX package
+        compact = method == "qr" and uses_compact_signal(F * s_kl, nl * ls.shape[-1])
+    if compact:
         # re-factor the signal side to width n (K9 + shifted Cholesky)
         a_s = fpencil.beam_factor_compact(b5.to(beam.dtype), ls)
     else:
@@ -150,6 +156,11 @@ def kl_solve_step(
     kl_cut: float = 0.0,
     kl_top_k: int = 0,
     kl_levels: int = 5,
+    with_thermal: bool = True,
+    fg_levels: int = 8,
+    fg_k_cap: int = 0,
+    sig_k_cap: int = 0,
+    method: str = "qr",
 ) -> ProductStepResult:
     """The KL stage of :func:`kl_product_step` on a :func:`compress_step`
     result; arguments as there."""
@@ -157,11 +168,17 @@ def kl_solve_step(
     rdt = backend.real_dtype(cdt)
     keep_m = comp.m_values >= 0
     if kl_top_k:
+        if method != "qr" or not with_thermal:
+            raise ValueError("kl_top_k requires method='qr' with_thermal=True")
         kl, ok = fpencil.kl_solve_qr_topband(comp.a_s, comp.a_f, cut=kl_cut, k=kl_top_k,
                                              levels=kl_levels)
         ok = ok | ~keep_m  # padding m never block a dispatch
     else:
-        kl = fpencil.kl_solve(comp.a_s, comp.a_f, sig_levels=sig_levels, band_rel=band_rel)
+        kl = fpencil.kl_solve(
+            comp.a_s, comp.a_f, with_thermal=with_thermal, fg_levels=fg_levels,
+            sig_levels=sig_levels, band_rel=band_rel, fg_k_cap=fg_k_cap,
+            sig_k_cap=sig_k_cap, method=method,
+        )
         ok = torch.ones_like(keep_m)
     evecs = kl.evecs.conj().transpose(-1, -2)  # rows are KL modes
 
@@ -187,9 +204,15 @@ def kl_product_step(
     nl: int,
     polsvcut: float = 1e-4,
     svcut: float = 1e-6,
+    with_thermal: bool = True,
+    fg_levels: int = 8,
     sig_levels: int = 2,
     band_rel: float = 3e-2,
+    fg_k_cap: int = 0,
+    sig_k_cap: int = 0,
+    method: str = "qr",
     s_cap: int = 0,
+    compact_signal: bool | None = None,
     kl_cut: float = 0.0,
     kl_top_k: int = 0,
     kl_levels: int = 5,
@@ -205,15 +228,28 @@ def kl_product_step(
     largest polarised singular value.  ``s_cap`` > 0 keeps the top
     ``s_cap`` SVD modes of each frequency in the KL pencil (its dimension
     is then F * s_cap; the caller keeps every retained mode inside the
-    cap): the m-bucketing's compacted mode axis.  ``kl_top_k`` > 0 solves
-    the pencil with the top-band engine (:func:`fpencil.kl_solve_qr_topband`):
-    only the eigenvalues >= ``kl_cut`` are computed, in ``kl_levels``
-    deflation levels of a ``kl_top_k``-column filtered basis, the rest are
-    exact zeros, and ``ok`` carries each m's certificate.
+    cap): the m-bucketing's compacted mode axis.
+
+    The KL engine's arguments are the JAX package's, with its defaults for
+    this entry point (fg_levels 8, sig_levels 2, band_rel 3e-2, passed to
+    :func:`fpencil.kl_solve` as they are): ``method`` ("qr" or "gram"),
+    ``with_thermal`` (False: the foreground-only pencil), ``fg_levels``,
+    ``fg_k_cap`` and ``sig_k_cap`` (the rank-capped quick-look levels).
+    ``compact_signal`` forces the signal factor's re-factorisation to
+    width n on or off (None: for ``qr`` when its width exceeds 2n, never
+    for ``gram``).  ``kl_top_k`` > 0 solves the pencil with the top-band
+    engine (:func:`fpencil.kl_solve_qr_topband`; ``qr`` with thermal noise
+    only): only the eigenvalues >= ``kl_cut`` are computed, in
+    ``kl_levels`` deflation levels of a ``kl_top_k``-column filtered
+    basis, the rest are exact zeros, and ``ok`` carries each m's
+    certificate.
     """
-    comp = compress_step(beam, noisew, ls, lf, m_values, npol, nl, polsvcut, svcut, s_cap)
+    comp = compress_step(beam, noisew, ls, lf, m_values, npol, nl, polsvcut, svcut, s_cap,
+                         method=method, compact_signal=compact_signal)
     return kl_solve_step(comp, sig_levels=sig_levels, band_rel=band_rel, kl_cut=kl_cut,
-                         kl_top_k=kl_top_k, kl_levels=kl_levels)
+                         kl_top_k=kl_top_k, kl_levels=kl_levels, with_thermal=with_thermal,
+                         fg_levels=fg_levels, fg_k_cap=fg_k_cap, sig_k_cap=sig_k_cap,
+                         method=method)
 
 
 def band_factor_table(clbands, out_dtype=np.float32, l_chunk=64, rank_rtol=1e-15):

@@ -318,7 +318,7 @@ def plan_chunks(counts, m_lo, F, S, mbatch, mb_for):
 def product_all_resident(
     tel, pos, neg, ls, lf, noisew, mbatch=None, max_m=None, mesh=None,
     sig_levels=None, bucket=None, m_range=None, topband=False,
-    band_lt=None, ps_threshold=0.1, chunks=None, kl_cut=0.1,
+    band_lt=None, ps_threshold=0.1, chunks=None, kl_cut=0.1, sig_k_cap=0,
 ):
     """Run the SVD+KL product step (and the fused Fisher) over every m.
 
@@ -352,6 +352,12 @@ def product_all_resident(
     exact zeros; a chunk with a failed certificate is redispatched with a
     doubled basis and one more level, and past a basis of half the pencil
     it takes the exact engine.
+
+    ``sig_k_cap`` > 0 rank-caps the signal-side Gram levels at that many
+    directions (:func:`fpencil.gram_bands_topk`): the JAX bench's
+    quick-look, approximate by design (its unresolved tail reports
+    eigenvalue 0).  It applies wherever the exact engine runs (the
+    adaptive depth, a top-band chunk's fallback).
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -416,6 +422,7 @@ def product_all_resident(
             tel, pos, neg, ls, lf, noisew, ch.m_values, band_lt=band_dev,
             ps_threshold=ps_threshold, sig_levels=sig_levels,
             m_lo=m_tab, chunk=ch, kl_cut=kl_cut if topband else None,
+            sig_k_cap=sig_k_cap,
         )
         if fisher:
             fish_total += fm
@@ -469,7 +476,7 @@ def _run_topband(run, n_chunk, kl_cut, exact_levels):
 
 def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
                     ps_threshold=0.1, sig_levels=None, m_lo=None, chunk=None,
-                    kl_cut=None):
+                    kl_cut=None, sig_k_cap=0):
     """One m-batch of :func:`product_all_resident`, any m's.
 
     The batch's beams are gathered from the resident tables and go
@@ -486,7 +493,8 @@ def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
     band_lt), with the chunk's fq and sq for F and S.  ``kl_cut`` set
     solves the pencil with the top-band engine (:func:`_run_topband`; a
     chunk that falls back to the exact engine takes the default depth
-    where ``sig_levels`` is None, as in the JAX package).
+    where ``sig_levels`` is None, as in the JAX package).  ``sig_k_cap``
+    as in :func:`product_all_resident`.
     """
     if band_lt is not None and float(ps_threshold) <= 0:
         raise ValueError("ps_threshold must be > 0 for the Fisher pass")
@@ -508,7 +516,7 @@ def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
     comp = mstep.compress_step(beam, noisew, ls, lf, mvt, npol=npol, nl=nl, s_cap=s_cap or 0)
 
     def run(levels, **kw):
-        return mstep.kl_solve_step(comp, sig_levels=levels, **kw)
+        return mstep.kl_solve_step(comp, sig_levels=levels, sig_k_cap=sig_k_cap, **kw)
 
     if kl_cut is not None:
         n_chunk = pencil_size(tel) if chunk is None else chunk.fq * chunk.sq

@@ -2,6 +2,8 @@
 """drift-makeproducts of the port: generate analysis products from a config.
 
     python -m driftscan_tpu_torch.scripts.makeproducts run cfg.yaml [--device cpu]
+    python -m driftscan_tpu_torch.scripts.makeproducts interactive cfg.yaml [--device cpu]
+    python -m driftscan_tpu_torch.scripts.makeproducts queue cfg.yaml [--nosubmit]
     python -m driftscan_tpu_torch.scripts.makeproducts convert DIR
 
 The ``run`` command is a thin ``click`` wrapper over :func:`run_config`,
@@ -16,17 +18,143 @@ device trace (``torch.profiler``), one file per process; ``--stats`` a
 JSON file per process of its device, stage timings and kernel launches.
 ``convert`` rewrites the ``.npy`` directory stores of a finished product
 directory (what a host without h5py writes) as HDF5 files
-(``util.store.convert``; needs h5py).  The ``interactive`` and ``queue``
-commands of driftscan are registered but not ported yet (ROADMAP.md,
-modules to port, item 7.4).
+(``util.store.convert``; needs h5py).  ``interactive`` loads the
+products without generating them into the global ``products`` (run it
+under ``python -i``).  ``queue`` writes ``<output_directory>/<queue_sys>/``
+``config.yaml`` and ``jobscript.sh`` from the config's ``queue_sys``
+(``pbs`` or ``slurm``) or its own ``script_template``, and submits it
+(``qsub``, ``sbatch`` or ``submit_command``) unless ``--nosubmit``: the
+job runs this CLI, one process per card, each given ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK`` (by ``torchrun`` under PBS, from
+Slurm's variables under Slurm).
 """
 
 import logging
+import os
 
-_NOT_PORTED = (
-    "the {} command of drift-makeproducts is not ported yet: ROADMAP.md, "
-    "modules to port, item 7.4"
-)
+products = None
+
+# Job scripts of ``queue``: driftscan's PBS and Slurm headers; the job
+# starts ``pernode`` processes a node (one a card).  The processes join
+# their group from the environment (parallel.comm.init): under PBS one
+# torchrun a node (pbsdsh -u) meets at the first node; under Slurm each
+# task exports its rank from Slurm's variables.
+pbs_script = """#!/bin/bash
+#PBS -l nodes=%(nodes)i:ppn=%(ppn)i
+#PBS -q %(queue)s
+#PBS -r n
+#PBS -m abe
+#PBS -V
+#PBS -l walltime=%(time)s
+#PBS -N %(name)s
+source %(venv)s
+cd %(workdir)s
+export OMP_NUM_THREADS=%(ompnum)i
+export MASTER_ADDR=$(head -n 1 $PBS_NODEFILE)
+pbsdsh -u bash -c "cd %(workdir)s && source %(venv)s && OMP_NUM_THREADS=%(ompnum)i \\
+  torchrun --nnodes %(nodes)i --nproc-per-node %(pernode)i --rdzv-backend c10d \\
+  --rdzv-endpoint $MASTER_ADDR:%(port)i --rdzv-id $PBS_JOBID \\
+  -m driftscan_tpu_torch.scripts.makeproducts run %(configpath)s" &> %(logpath)s
+"""
+
+slurm_script = """#!/bin/bash
+#SBATCH --account=%(account)s
+#SBATCH --nodes=%(nodes)i
+#SBATCH --ntasks-per-node=%(pernode)i
+#SBATCH --cpus-per-task=%(ompnum)i
+#SBATCH --mem=%(mem)s
+#SBATCH --time=%(time)s
+#SBATCH --job-name=%(name)s
+
+source %(venv)s
+cd %(workdir)s
+
+export OMP_NUM_THREADS=$SLURM_CPUS_PER_TASK
+export MASTER_ADDR=$(scontrol show hostnames "$SLURM_JOB_NODELIST" | head -n 1)
+export MASTER_PORT=%(port)i
+
+srun bash -c 'RANK=$SLURM_PROCID WORLD_SIZE=$SLURM_NTASKS LOCAL_RANK=$SLURM_LOCALID \\
+  exec python -m driftscan_tpu_torch.scripts.makeproducts run %(configpath)s' &> %(logpath)s
+"""
+
+script_templates = {"pbs": pbs_script, "slurm": slurm_script}
+submit_commands = {"pbs": "qsub", "slurm": "sbatch"}
+
+
+def queue_job(configfile, submit=True):
+    """Write (and with ``submit`` submit) a batch job running ``configfile``.
+
+    The config's ``config`` section names the scheduler (``queue_sys``:
+    ``pbs`` or ``slurm``, or any name with its own ``script_template``, a
+    %-format string over the keys below) and the job's resources
+    (``nodes``, ``time``, ``ppn``, ``mem``, ``account``, ``ompnum``,
+    ``queue``, ``pernode``, ``name``, ``venv``, ``port``, the defaults of
+    driftscan's ``queue``).  The config is copied to
+    ``<directory>/<queue_sys>/config.yaml`` beside ``jobscript.sh``, where
+    ``directory`` is ``output_directory`` (else ``timestream_directory``),
+    an absolute path.  The job runs this CLI's ``run`` on the copy.
+    Returns the script's path."""
+    import shutil
+    import subprocess
+
+    import yaml
+
+    with open(configfile) as f:
+        yconf = yaml.safe_load(f)
+    if not isinstance(yconf, dict) or "config" not in yconf:
+        raise ValueError("Configuration file must have an 'config' section.")
+    conf = yconf["config"]
+    outdir = conf.get("output_directory", conf.get("timestream_directory"))
+    if outdir is None:
+        raise ValueError("the config section needs 'output_directory'")
+    outdir = os.path.normpath(os.path.expandvars(os.path.expanduser(outdir)))
+    if not os.path.isabs(outdir):
+        raise ValueError("Output directory path must be absolute.")
+
+    queue_sys = conf.get("queue_sys")
+    if queue_sys in (None, "tpu"):
+        raise ValueError(
+            f"queue_sys {queue_sys!r} has no counterpart on a GPU host: set queue_sys to "
+            "'pbs' or 'slurm', or give a script_template (with a queue_sys name of its own)"
+        )
+    if queue_sys not in script_templates and "script_template" not in conf:
+        raise ValueError(
+            f"unknown queue_sys {queue_sys!r}: use 'pbs' or 'slurm', or give a script_template"
+        )
+
+    submitdir = os.path.join(outdir, queue_sys)
+    os.makedirs(submitdir, exist_ok=True)
+    dfile = os.path.join(submitdir, "config.yaml")
+    if os.path.realpath(configfile) != os.path.realpath(dfile):
+        shutil.copy(configfile, dfile)
+
+    cluster = {
+        "queue_sys": queue_sys,
+        "nodes": conf.get("nodes", 1),
+        "time": conf.get("time", "1:00:00"),
+        "ppn": conf.get("ppn", 8),
+        "mem": conf.get("mem", "0"),
+        "account": conf.get("account", ""),
+        "ompnum": conf.get("ompnum", 8),
+        "queue": conf.get("queue", "batch"),
+        "pernode": conf.get("pernode", 1),
+        "name": conf.get("name", "job"),
+        "workdir": outdir,
+        "logpath": os.path.join(submitdir, "jobout.log"),
+        "configpath": dfile,
+        "venv": conf.get("venv", "/dev/null"),
+        "port": conf.get("port", 29500),
+    }
+    cluster["mpiproc"] = cluster["nodes"] * cluster["pernode"]
+    script = conf.get("script_template", script_templates.get(queue_sys)) % cluster
+
+    scriptname = os.path.join(submitdir, "jobscript.sh")
+    with open(scriptname, "w") as f:
+        f.write(script)
+    if submit:
+        cmd = conf.get("submit_command", submit_commands.get(queue_sys, "bash"))
+        subprocess.run(f"{cmd} jobscript.sh", shell=True, cwd=submitdir, check=True)
+    return scriptname
 
 
 def run_config(configfile, device=None, profile=False, profiler="cProfile"):
@@ -174,15 +302,30 @@ def _cli():
 
     @cli.command()
     @click.argument("configfile", type=config)
-    def interactive(configfile):
-        """Load the config without generating (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED.format("interactive"))
+    @click.option("--device", default=None,
+                  help="Device to load on (default: the CUDA card; 'cpu' for the host).")
+    def interactive(configfile, device):
+        """Load the config but do not generate; exposes `products` globally.
+
+        Use: python -i -m driftscan_tpu_torch.scripts.makeproducts interactive config.yaml
+        """
+        from ..core import manager
+
+        global products
+        products = manager.ProductManager.from_config(configfile, device=device)
+        click.echo("*** Access analysis products through the global variable `products` ***")
 
     @cli.command()
     @click.argument("configfile", type=config)
-    def queue(configfile):
-        """Write and submit a batch job script (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED.format("queue"))
+    @click.option("--submit/--nosubmit", default=True,
+                  help="Submit the job to the queue (or not)")
+    def queue(configfile, submit):
+        """Write (and optionally submit) a batch job running CONFIGFILE."""
+        try:
+            path = queue_job(configfile, submit=submit)
+        except ValueError as exc:
+            raise click.ClickException(str(exc))
+        click.echo(f"wrote {path}")
 
     return cli
 

@@ -12,14 +12,18 @@ named.  Under torchrun it runs as one process of a group, as
 
     torchrun --standalone --nproc-per-node N -m driftscan_tpu_torch.scripts.runpipeline run-config cfg.yaml
 
-The ``interactive-config`` and ``queue-config`` commands of
-driftscan are not ported yet (ROADMAP.md, modules to port, item 8.2).
+``interactive-config`` loads the pipeline without running it into the
+global ``manager`` (run it under ``python -i``).  ``queue-config`` writes
+``<timestream_directory>/queue/config.yaml`` and a ``jobscript.sh`` that
+runs ``run-config`` on it (one process), and runs the script with
+``bash`` unless ``--nosubmit``, as driftscan does.
 """
 
-_NOT_PORTED = (
-    "the {} command of drift-runpipeline is not ported yet: ROADMAP.md, "
-    "modules to port, item 8.2"
-)
+import os
+
+manager = None
+
+_SCRIPT = "#!/bin/bash\ncd %s\npython -m driftscan_tpu_torch.scripts.runpipeline run-config %s &> %s\n"
 
 
 def run_config(configfile, device=None):
@@ -38,6 +42,32 @@ def run_config(configfile, device=None):
     pm.simulate()
     pm.generate()
     return pm
+
+
+def queue_config(configfile, submit=True):
+    """Write (and with ``submit`` run) a job running ``configfile``'s
+    pipeline; returns the script's path (see the module docstring)."""
+    import shutil
+    import subprocess
+
+    import yaml
+
+    with open(configfile) as f:
+        conf = yaml.safe_load(f)["config"]
+    outdir = os.path.normpath(os.path.expandvars(os.path.expanduser(conf["timestream_directory"])))
+    if not os.path.isabs(outdir):
+        raise ValueError("Output directory path must be absolute.")
+    submitdir = os.path.join(outdir, "queue")
+    os.makedirs(submitdir, exist_ok=True)
+    dfile = os.path.join(submitdir, "config.yaml")
+    if os.path.realpath(configfile) != os.path.realpath(dfile):
+        shutil.copy(configfile, dfile)
+    scriptname = os.path.join(submitdir, "jobscript.sh")
+    with open(scriptname, "w") as f:
+        f.write(_SCRIPT % (outdir, dfile, os.path.join(submitdir, "jobout.log")))
+    if submit:
+        subprocess.run("bash jobscript.sh", shell=True, cwd=submitdir, check=True)
+    return scriptname
 
 
 def _cli():
@@ -70,15 +100,26 @@ def _cli():
 
     @cli.command("interactive-config")
     @click.argument("configfile", type=path)
-    def interactive(configfile):
-        """Load the pipeline config without running it (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED.format("interactive-config"))
+    @click.option("--device", default=None,
+                  help="Device to load on (default: the CUDA card; 'cpu' for the host).")
+    def interactive(configfile, device):
+        """Load the pipeline config without running it (exposes `manager`)."""
+        from ..pipeline import pipeline
+
+        global manager
+        manager = pipeline.PipelineManager.from_configfile(configfile, device=device)
+        click.echo("*** Access the pipeline through the global variable `manager` ***")
 
     @cli.command("queue-config")
     @click.argument("configfile", type=path)
-    def queue(configfile):
-        """Queue a pipeline run as a batch job (not ported yet)."""
-        raise NotImplementedError(_NOT_PORTED.format("queue-config"))
+    @click.option("--submit/--nosubmit", default=True)
+    def queue(configfile, submit):
+        """Queue a pipeline run as a batch job."""
+        try:
+            scriptname = queue_config(configfile, submit=submit)
+        except ValueError as exc:
+            raise click.ClickException(str(exc))
+        click.echo(f"wrote {scriptname}")
 
     return cli
 

@@ -1142,3 +1142,63 @@ def test_example_driver_on_the_card(cuda, tmp_path):
     assert maps["cuda"].shape == maps["cpu"].shape
     assert np.isfinite(maps["cuda"]).all()
     assert np.abs(maps["cuda"] - maps["cpu"]).max() <= 1e-6 * np.abs(maps["cpu"]).max()
+
+
+def _pencil_pair(seed, n, device):
+    """(a_s, a_f) complex128 on ``device``: a five-decade foreground and a
+    three-decade signal."""
+    rng = np.random.default_rng(seed)
+
+    def u(p, q):
+        return np.linalg.qr(rng.standard_normal((p, q)) + 1j * rng.standard_normal((p, q)))[0]
+
+    a_f = (u(n, n) * 3e3 * np.logspace(0, -5, n)) @ u(2 * n, n).conj().T
+    a_s = (u(n, n) * 3.0 * np.logspace(0, -3, n)) @ u(2 * n, n).conj().T
+    return (torch.as_tensor(np.stack([a_s, 0.5 * a_s]), device=device),
+            torch.as_tensor(np.stack([a_f, 2.0 * a_f]), device=device))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="gram"), dict(method="gram", with_thermal=False),
+    dict(method="gram", fg_k_cap=16, sig_k_cap=8), dict(method="qr", sig_k_cap=8),
+])
+def test_opt_in_engines_on_the_card(cuda, kw):
+    """The gram engine and the quick-look caps (library linear algebra
+    only) on the card against the same solve on the host, 1e-8 of each
+    m's top."""
+    a_s, a_f = _pencil_pair(3, 64, cuda)
+    got = fpencil.kl_solve(a_s, a_f, **kw).evals.cpu()
+    want = fpencil.kl_solve(a_s.cpu(), a_f.cpu(), **kw).evals
+    assert torch.isfinite(got).all()
+    assert float(((got - want).abs().amax(-1) / want.amax(-1)).max()) < 1e-8
+
+
+@pytest.mark.parametrize("qr_impl,whiten", [("cholqr_split", "factored"),
+                                            ("cholqr_split", "refined"),
+                                            ("householder", "solve")])
+def test_whitening_levers_on_the_card(cuda, monkeypatch, qr_impl, whiten):
+    a_s, a_f = _pencil_pair(4, 64, cuda)
+    want = fpencil.kl_solve(a_s.cpu(), a_f.cpu()).evals
+    monkeypatch.setattr(fpencil, "_QR_IMPL", qr_impl)
+    monkeypatch.setattr(fpencil, "_WHITEN_IMPL", whiten)
+    got = fpencil.kl_solve(a_s, a_f).evals.cpu()
+    assert float(((got - want).abs().amax(-1) / want.amax(-1)).max()) < 1e-8
+
+
+@pytest.mark.parametrize("neg_m", [False, True], ids=["real", "complex"])
+def test_sht_refinement_on_the_card(cuda, neg_m):
+    """Two refinement steps: K14 and K3+K5 launch at each, and the alm sit
+    within 1e-10 of max of the host's."""
+    nside, lmax = 32, 63
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 12 * nside**2))
+    if neg_m:
+        x = x + 1j * rng.standard_normal(x.shape)
+    before = (sht.K3K5.launches, sht.K14.launches)
+    got = sht.analysis_maps(torch.as_tensor(x, device=cuda), lmax, neg_m=neg_m, iters=2)
+    torch.cuda.synchronize()
+    assert sht.K3K5.launches == before[0] + 3 and sht.K14.launches == before[1] + 2
+    want = sht.analysis_maps(torch.as_tensor(x), lmax, neg_m=neg_m, iters=2)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert float((g.cpu() - w).abs().max()) <= 1e-10 * float(w.abs().max())

@@ -116,9 +116,20 @@ def test_triple_svd_masks_and_pads():
 
 
 def test_kl_solve_rejects_unported_engines():
+    """Both engines of the JAX package run (the ``gram`` engine's parity is
+    in tests/test_torch_gram_engine.py); any other name raises ValueError,
+    as in the JAX package."""
+    rng = np.random.default_rng(12)
+    a_s, a_f = _crandn(rng, (10, 14)) * 0.5, _crandn(rng, (10, 20)) * 3.0
+    for method in ("qr", "gram"):
+        kl = fpencil.kl_solve(torch.as_tensor(a_s), torch.as_tensor(a_f), method=method)
+        want = jfp.kl_solve(za.Z(a_s.real, a_s.imag), za.Z(a_f.real, a_f.imag), method=method)
+        np.testing.assert_allclose(kl.evals.numpy(), np.asarray(want.evals), rtol=0,
+                                   atol=1e-10 * float(np.max(want.evals)))
     a = torch.zeros((4, 4), dtype=torch.complex128)
-    with pytest.raises(NotImplementedError):
-        fpencil.kl_solve(a, a, method="gram")
+    for kl_solve in (fpencil.kl_solve, jfp.kl_solve):
+        with pytest.raises(ValueError, match="Unknown kl_solve method"):
+            kl_solve(a, a, method="lanczos")
 
 
 def test_gram_bands_take_the_svd_where_eigh_fails(monkeypatch):

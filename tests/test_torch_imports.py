@@ -26,6 +26,7 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.core.skymodel",
     "driftscan_tpu_torch.core.telescope",
     "driftscan_tpu_torch.core.visibility",
+    "driftscan_tpu_torch.engine_picks",
     "driftscan_tpu_torch.experiments.k14_ablations",
     "driftscan_tpu_torch.experiments.k14_m_ranges",
     "driftscan_tpu_torch.experiments.map_rounding",

@@ -581,9 +581,15 @@ def test_svd_variants_generate_their_files(tmp_path, variant):
 
 
 def test_unported_calls_name_their_roadmap_line(tmp_path):
-    # projecting a sky map works now; the forward SHT's refinement is not ported
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 8\.1"):
-        sht.sphtrans_sky(np.zeros((2, 1, 12 * 4**2)), iters=1, device="cpu")
+    """The forward SHT's refinement (ROADMAP item 8.1) is ported: one step
+    on a projected-sky-sized stack against the JAX package's, 1e-10 of
+    max (the full parity is in tests/test_torch_sht_iters.py)."""
+    from driftscan_tpu.ops import sht as jsht
+
+    x = np.random.default_rng(8).standard_normal((2, 1, 12 * 4**2))
+    got = sht.sphtrans_sky(x, iters=1, device="cpu").numpy()
+    want = np.asarray(jsht.analysis(x, 11, iters=1)[0])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
 
 
 def test_default_device_is_the_card():

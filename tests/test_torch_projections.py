@@ -368,7 +368,8 @@ def test_doublekl_factored_batched(nc1):
 def test_topband_dispatchers_name_their_roadmap_line():
     """The top-band dispatchers are ported: each returns its per-m
     certificate (their parity is in tests/test_torch_topband*.py); a device
-    mesh and the ``gram`` engine still name their ROADMAP lines."""
+    mesh still names its ROADMAP line.  The ``gram`` engine runs through
+    ``kl_factored_batched`` as in the JAX package."""
     bsvd, ls, lf = _factor_inputs(24)
     lf = lf * 1e-3
     for fn, kw in ((TP.kl_factored_batched_topband, {}),
@@ -379,8 +380,9 @@ def test_topband_dispatchers_name_their_roadmap_line():
         assert out[0].shape == (bsvd.shape[0], bsvd.shape[1] * bsvd.shape[2])
         with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
             fn(bsvd, ls, lf, cut=1e-3, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fpencil.kl_solve(None, None, method="gram")
+    ev, _ = TP.kl_factored_batched(bsvd, ls, lf, method="gram", device="cpu")
+    jev, _ = JP.kl_factored_batched(bsvd, ls, lf, method="gram")
+    _close(ev, np.asarray(jev), 1e-10)
 
 
 def test_triple_svd_file_cuts_keep_faint_modes():

@@ -10,7 +10,8 @@ directory store is left, and the JAX package's ``ProductManager`` (BTM,
 SVD, KL) and ``PSExact.fisher_bias()`` read the converted directory and
 agree with the port's reading of it.  The converter refuses a tree that
 is still being written, and says that it needs h5py.  The ``interactive``
-and ``queue`` commands are registered and raise, citing ROADMAP item 7.4.
+and ``queue`` commands run (their parity is in
+tests/test_torch_cli_queue.py).
 """
 
 import os
@@ -175,9 +176,24 @@ def test_convert_needs_h5py(dirs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("command", ["interactive", "queue"])
-def test_unported_commands_cite_their_roadmap_item(tmp_path, command):
-    cfg = tmp_path / "c.yaml"
-    cfg.write_text("config: {}\n")
-    res = CliRunner().invoke(makeproducts._cli(), [command, str(cfg)])
-    assert isinstance(res.exception, NotImplementedError)
-    assert "item 7.4" in str(res.exception)
+def test_unported_commands_cite_their_roadmap_item(dirs, tmp_path, command):
+    """ROADMAP item 7.4 is ported: ``interactive`` loads the converted
+    directory's products on the CPU into ``products``; ``queue --nosubmit``
+    writes the Slurm job that runs this CLI on its config."""
+    _, h5 = dirs
+    conf = _config(h5)
+    if command == "interactive":
+        cfg = h5 / "config.yaml"
+        res = CliRunner().invoke(makeproducts._cli(), [command, str(cfg), "--device", "cpu"])
+        assert res.exit_code == 0, res.output
+        assert makeproducts.products.beamtransfer.telescope.nfreq == 2
+        assert "products" in res.output
+        return
+    conf["config"].update(queue_sys="slurm", output_directory=str(tmp_path))
+    cfg = tmp_path / "q.yaml"
+    cfg.write_text(yaml.safe_dump(conf))
+    res = CliRunner().invoke(makeproducts._cli(), [command, str(cfg), "--nosubmit"])
+    assert res.exit_code == 0, res.output
+    script = (tmp_path / "slurm" / "jobscript.sh").read_text()
+    assert "-m driftscan_tpu_torch.scripts.makeproducts run " in script
+    assert yaml.safe_load((tmp_path / "slurm" / "config.yaml").read_text()) == conf

@@ -88,8 +88,10 @@ def test_sphtrans_sky(lmax, dt):
 
 
 def test_sphtrans_sky_refinement_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sht.sphtrans_sky(torch.zeros(12 * NSIDE**2, dtype=torch.float64), iters=2)
+    """The refinement is ported: two steps against the JAX package's."""
+    skymap = np.random.default_rng(2).standard_normal((2, 12 * NSIDE**2))
+    got = sht.sphtrans_sky(torch.as_tensor(skymap), lmax=LMAX[0], iters=2)
+    _close(got, jsht.analysis(skymap, LMAX[0], iters=2)[0], 1e-10)
 
 
 @pytest.mark.parametrize("lmax", LMAX)

@@ -295,11 +295,23 @@ def test_timestream_pickle(runs):
     assert ts.ntime == 2 * ts.telescope.mmax + 1
 
 
-def test_cli_commands_not_ported(runs):
-    for command in ("interactive-config", "queue-config"):
-        res = CliRunner().invoke(runpipeline._cli(), [command, runs["torch"][1]])
-        assert isinstance(res.exception, NotImplementedError), command
-        assert "ROADMAP.md" in str(res.exception)
+def test_cli_commands_not_ported(runs, tmp_path):
+    """ROADMAP item 8.2 is ported: ``interactive-config`` loads the
+    pipeline on the CPU into ``manager``; ``queue-config --nosubmit`` writes
+    driftscan's job script, running this CLI's ``run-config``."""
+    res = CliRunner().invoke(runpipeline._cli(),
+                             ["interactive-config", runs["torch"][1], "--device", "cpu"])
+    assert res.exit_code == 0, res.output
+    assert runpipeline.manager is not None and runpipeline.manager.device == "cpu"
+    with open(runs["torch"][1]) as f:
+        conf = yaml.safe_load(f)
+    conf["config"]["timestream_directory"] = str(tmp_path)
+    cfg = tmp_path / "pipe.yaml"
+    cfg.write_text(yaml.safe_dump(conf))
+    res = CliRunner().invoke(runpipeline._cli(), ["queue-config", str(cfg), "--nosubmit"])
+    assert res.exit_code == 0, res.output
+    script = (tmp_path / "queue" / "jobscript.sh").read_text()
+    assert f"-m driftscan_tpu_torch.scripts.runpipeline run-config {tmp_path}/queue/config.yaml" in script
 
 
 def test_runs_on_the_card_by_default(runs):
