@@ -63,13 +63,14 @@ script exits non-zero:
 5b. slice windows, ns2 window -- m-windows and m-bucketing: the bench
    telescope in two m-windows against path 4 (:func:`slice_windows_phase`),
    and the JAX package's north-star telescope ``ns2`` at full width in its
-   run's last m-window, bucketed (:func:`ns2_window_phase`), then
-   ``[topband ns2]``: four of its m at full size (n 3200) by the exact
+   run's last m-window, bucketed, the product on the window's first 8 m
+   (:func:`ns2_window_phase`), then
+   ``[topband ns2]``: two of its m at full size (n 3200) by the exact
    and the top-band engine (:func:`topband_ns2_phase`), with K17's
    launches by distinct (M, n, K, k) and the tile each got; then
    ``[ns2 retained]``: ns2 in its run's second m-window [45, 90), where
-   modes pass 0.1, cut to its first 8 m (one m-chunk), by the exact and
-   the top-band engine on the same tables, m 45 and 52 against the CPU,
+   modes pass 0.1, cut to its first 2 m (one m-chunk), by the exact and
+   the top-band engine on the same tables, m 45 against the CPU,
    K13 and K15b timed at the shapes it launched them with, and those m
    held against the JAX run's record (:func:`ns2_retained_phase`,
    :func:`record_compare`; ``experiments/ns2_retained.py`` runs the whole
@@ -99,12 +100,22 @@ script exits non-zero:
    leg ``product_all_resident(sig_k_cap=128)`` with the fused Fisher
    (:func:`quicklook_phase`); the slice's product under the whitening
    levers ``factored``, ``refined`` and ``householder`` against the
-   default whitening over the slice's first 113 m (:func:`whiten_phase`);
+   default whitening over the slice's first 56 m (:func:`whiten_phase`);
    each against the port's CPU run or the default on the same tables,
    with its time;
-5g. sht iters -- the forward SHT's Jacobi refinement (K14 and K3+K5 at
+5g. mesh -- device meshes in one process (``parallel/mesh.py``) on path
+   4's tables, all 226 m with the fused Fisher (:func:`mesh_phase`): a
+   mesh of two entries of the card against ``mesh=None`` at a pinned depth
+   with each shard the batch of one unsharded dispatch (spectra and counts
+   bit for bit, Fisher 1e-12, K9 / K13 / K15b launches equal), at the
+   adaptive depth against path 4 (retained spectra 1e-4 of each m's top),
+   the default mesh against ``mesh=None`` (bit for bit), and the batched
+   KL, DoubleKL and triple-SVD solves sharded against unsharded (1e-10);
+   seconds and m-modes/s of each run;
+5h. sht iters -- the forward SHT's Jacobi refinement (K14 and K3+K5 at
    every step) on band-limited float64 maps at nside 128, lmax 255, real
-   and complex, three steps, against the CPU (:func:`sht_iters_phase`);
+   and complex, three steps, the real form's first against the CPU
+   (:func:`sht_iters_phase`);
 6. products -- the file pipeline behind ``drift-makeproducts``: the bench
    unpolarised cylinder as a config dictionary through
    ``ProductManager.apply_config(...).generate()`` into a fresh temporary
@@ -125,10 +136,10 @@ script exits non-zero:
    ``synthesis_real`` (K14) at the nside of the BTM, then
    ``runpipeline.run_config``: two timestreams (noiseless; the telescope's
    noise from a seed) -> m-modes -> SVD and KL modes -> power spectra and
-   cross power -> full, SVD and ``klinv`` maps; its checks (every file
-   opens, m-modes against the direct projection, maps against the CPU
-   synthesis of their alm, SVD/KL modes and power spectra against the CPU,
-   a second run that rewrites only the full and SVD maps); then
+   cross power -> full, SVD and ``klinv`` maps at half that nside; its
+   checks (every file opens, m-modes against the direct projection, maps
+   against the CPU synthesis of their alm, SVD/KL modes and power spectra
+   against the CPU); then
    ``[topband products]``: the KL and DoubleKL filters again with
    ``engine: topband`` added to that directory's config and generated
    (:func:`topband_products_phase`; eigenvalues rel 1e-6 and
@@ -154,16 +165,17 @@ script exits non-zero:
    channels, whose tables are over the resident host budget, through the
    chunked route in 2 chunks (the BTM of 226 m; units against the plain CPU
    versions; its peak host RSS; :func:`chunked_128_phase`), then its product
-   chain (SVD, KL, PSExact) cut to its first 8 m, two m against the CPU
+   chain (SVD, KL, PSExact) cut to 4 m, two m against the CPU
    (:func:`chunked_128_products`); MonteCarlo,
    MonteCarloAlt and Cross on ``[products]``' KL filter against its
-   ``Full`` Fisher and the CPU (:func:`psmc_phase`); between ``[chunked]``
-   and ``[chunked 128]``, ``[mp products]``: ``[chunked]``'s config with a
-   seeded MonteCarlo through ``drift-makeproducts-torch run`` under
-   torchrun with two ranks on the card, then ``run-config`` with
-   ``[timestream]``'s noiseless ts1 under two ranks; each rank's kernels,
-   the files against ``[chunked]``'s and the maps against
-   ``[timestream]``'s (:func:`mp_products_phase`);
+   ``Full`` Fisher and the CPU (:func:`psmc_phase`); then ``[mp
+   products]``: ``[chunked]``'s config with a seeded MonteCarlo through
+   ``drift-makeproducts-torch run`` under torchrun with two ranks on the
+   card (started after 5d, beside the phases from 5b on), then
+   ``run-config`` with ``[timestream]``'s noiseless ts1 under two ranks
+   (started after ``[chunked]``, beside ``[chunked 128]`` and ``[psmc]``);
+   each rank's kernels, the files against ``[chunked]``'s and the maps
+   against ``[timestream]``'s (:func:`mp_products_phase`);
 9. probe -- the ports of the two Pallas probes of
    ``scratch/pallas_probe.py`` against their plain versions: o = 2 x at
    the probe's 1024^2 and at 8192^2 (512 MiB moved, past the L2), the
@@ -184,7 +196,7 @@ agree.
 Each path (4-9) runs with every launch count set to 0 just before it and
 read just after, and fails unless every kernel of that path launched; in
 8 that window holds ``run_config`` alone, not the making of its input.
-Paths 4 and 5 then re-run their first and last 8 m on CPU tensors from
+Paths 4 and 5 then re-run their first 8 m on CPU tensors from
 the same BTM tables (the plain paths) and compare with the card, and time
 K13 again at the k the path launched it with (``[slice kernels]``,
 ``[pol kernels]``: the largest and the median over the m-batches of the
@@ -275,8 +287,9 @@ NS2_PARAMS = dict(
     single_precision=True,
 )
 NS2_WINDOW = (270, 315)
-NS2_CPU_M = (270, 313)
-NS2_FULL_M = 4  # m of the one bucket=False batch held against the bucketed run
+NS2_PRODUCT_M = 8  # depth cut: the window's first 8 m through the product (its BTM whole)
+NS2_CPU_M = (270,)
+NS2_FULL_M = 2  # m of the one bucket=False batch held against the bucketed run
 NS2_BAND_EDGES = np.linspace(0.0, 0.4, 11)
 NS2_RECORD = "ckpt/ns2_windows/w06_270_315_exact_highest_solve_bcast_f1.npz"
 # [ns2 retained]: the same telescope in the JAX run's second m-window, where
@@ -284,8 +297,8 @@ NS2_RECORD = "ckpt/ns2_windows/w06_270_315_exact_highest_solve_bcast_f1.npz"
 # max 0.453), cut in depth to its first NS2_RETAINED_M m; m
 # NS2_RETAINED_CPU_M against the CPU
 NS2_RETAINED_WINDOW = (45, 90)
-NS2_RETAINED_M = 8  # the window's m that chip_smoke.py runs (one m-chunk)
-NS2_RETAINED_CPU_M = (45, 52)
+NS2_RETAINED_M = 2  # the window's m that chip_smoke.py runs (one m-chunk)
+NS2_RETAINED_CPU_M = (45,)
 NS2_RETAINED_RECORD = "ckpt/ns2_windows/w01_45_90_exact_highest_solve_bcast_f1.npz"
 # [ns1b window]: the JAX package's scale-axis telescope "ns1b"
 # (scratch/northstar2.py's preset: a PolarisedCylinder, 2 x 4 feeds 31 m
@@ -329,9 +342,9 @@ REC_FISHER_RTOL = 1e-1
 # layout and 4 channels
 OLDCYL_PARAMS = POL_PARAMS
 # [chunked 128] past the BTM: the product chain on a subset of its 228 m,
-# the first four (pencils up to 128 x 44 = 5,632) and four high m (the
+# the first two (pencils up to 128 x 44 = 5,632) and two high m (the
 # l >= m rows thin out: up to 128 x 18)
-CHUNKED_128_M = (0, 1, 2, 3, 214, 217, 220, 223)
+CHUNKED_128_M = (0, 1, 220, 223)
 # [slice windows]: the bench cylinder's 226 m in two m-windows
 SLICE_WINDOWS = ((0, 113), (113, 226))
 PROBE_N = 1024  # scratch/pallas_probe.py's shapes
@@ -354,6 +367,8 @@ MP_NPROC = 2
 MP_CHUNKS = 2
 MP_MC_SAMPLES = 500
 MP_TIMEOUT_S = 600
+# [timestream]'s output maps at the input sky's nside over this
+TS_MAP_NSIDE_DIV = 2
 FILE_PATH_KERNELS = ["k1k2_beam_vis", "k3k5_legendre_sht", "k9_signal_gram", "k15a_sandwich",
                      "k15b_fisher_trace"]
 NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
@@ -367,7 +382,11 @@ QUICKLOOK_CAP = 128
 # [whiten]: the lever settings of the A/B, each against [slice]'s default
 WHITEN_LEGS = (("factored", "cholqr_split"), ("refined", "cholqr_split"),
                ("solve", "householder"))
-WHITEN_M = 113  # depth cut: the slice's first 113 of 226 m a leg
+WHITEN_M = 56  # depth cut: the slice's first 56 of 226 m a leg (7 m-chunks)
+MESH_B = 6  # [mesh] gate (a)'s unsharded batch: 226 m in 38 dispatches, an even count
+MESH_PIN = 1  # gate (a)'s pinned sig_levels
+MESH_DEFAULT_M = 16  # gate (c)'s m
+MESH_SOLVE_M = 8  # gate (d)'s m (the slice's batch)
 # [sht iters]: float64 maps, band limited at lmax, refined SHT_ITERS times
 SHT_ITERS_NSIDE = 128
 SHT_ITERS_LMAX = 255
@@ -1379,7 +1398,8 @@ def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks,
     within 1e-4 of each m's top eigenvalue (the whole spectrum keeps the
     check meaningful where no mode is retained, as at high m), partial
     Fisher within 3e-2 of its max.  ``checks`` [(name, [m, ...])] defaults
-    to the first and last CPU_CHECK_M m; ``m_lo`` reads window tables;
+    to the first CPU_CHECK_M m (one m-chunk; a depth cut); ``m_lo`` reads
+    window tables;
     ``step`` goes to ``product_m_batch`` (``sig_k_cap``)."""
     import torch
 
@@ -1388,7 +1408,7 @@ def cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, ps_threshold, chunks,
     if checks is None:
         ms = np.concatenate([c.m_values[c.m_values >= 0] for c in chunks])
         k = min(CPU_CHECK_M, len(ms))
-        checks = (("first", ms[:k]), ("last", ms[-k:]))
+        checks = (("first", ms[:k]),)
 
     def run(p, n, mine):
         rdt = p.real.dtype
@@ -1515,7 +1535,8 @@ def ns2_window_phase(ntel, tag="ns2 window"):
     """The north-star telescope ``ns2`` at full width in the m-window
     ``NS2_WINDOW`` through ``btm_resident(m_range=)`` and
     ``product_all_resident(bucket=True, m_range=, band_lt=, ps_threshold=0.1)``
-    (the JAX run's last window).  Gates: at least one compacted chunk;
+    (the JAX run's last window; the product cut to its first
+    ``NS2_PRODUCT_M`` m).  Gates: at least one compacted chunk;
     spectra and Fisher finite, the Fisher Hermitian; m ``NS2_CPU_M`` again
     alone in their chunks' compacted shapes on the card and on the CPU
     (:func:`cpu_check`, 1e-4 of each m's top); the first ``NS2_FULL_M``
@@ -1530,7 +1551,7 @@ def ns2_window_phase(ntel, tag="ns2 window"):
     from driftscan_tpu_torch.parallel import mstep, resident
 
     m0, m1 = NS2_WINDOW
-    nreal = min(m1, ntel.mmax + 1) - m0
+    nreal = min(m1, ntel.mmax + 1, m0 + NS2_PRODUCT_M) - m0
     blg, fig = units(ntel)
     t = time.time()
     cl_s, cl_n, noisew = covariances(ntel)
@@ -1540,7 +1561,7 @@ def ns2_window_phase(ntel, tag="ns2 window"):
     )
     log(f"[{tag}] lmax {ntel.lmax} mmax {ntel.mmax} npairs {ntel.npairs} nfreq {ntel.nfreq} "
         f"npol {ntel.num_pol_sky} units {len(blg)} pencil n {resident.pencil_size(ntel)} "
-        f"window m {m0}..{m1 - 1} ({nreal} real) ls {ls.shape} lf {lf.shape} band_lt "
+        f"window m {m0}..{m1 - 1} (the product's first {nreal}) ls {ls.shape} lf {lf.shape} band_lt "
         f"{band_lt.shape}; covariances and tables {time.time() - t:.2f} s; bucket auto "
         f"{'bucketed' if resident.auto_bucket(ntel, m1 - m0, m0) else 'full size'}")
     kw = dict(band_lt=band_lt, ps_threshold=PS_THRESHOLD)
@@ -1555,7 +1576,8 @@ def ns2_window_phase(ntel, tag="ns2 window"):
     torch.cuda.synchronize()
     t1 = time.time()
     evals, nmodes, fisher = resident.product_all_resident(
-        ntel, pos, neg, ls, lf, noisew, bucket=True, m_range=(m0, m1), chunks=chunks, **kw
+        ntel, pos, neg, ls, lf, noisew, bucket=True, m_range=(m0, m1), max_m=nreal,
+        chunks=chunks, **kw
     )
     torch.cuda.synchronize()
     t2 = time.time()
@@ -1973,7 +1995,7 @@ def oldcylinder_phase(tag="oldcylinder"):
 
 TB_CHECK_RTOL = 1e-6  # card vs the port's CPU engine, retained eigenvalues
 TB_AB_TIER = 1e-4  # the JAX package's TPU A/B tier, topband vs exact
-NS2_TB_M = 4  # m of [topband ns2]
+NS2_TB_M = 2  # m of [topband ns2]
 NS2_TB_BAND = 100  # modes a m that [topband ns2]'s band cut keeps at least
 
 
@@ -2028,8 +2050,8 @@ def topband_phase(tel, slice_run, tag="topband"):
     Gates: K17 launched (and the Fisher's kernels), finite spectra and
     Fisher, every chunk whose certificate failed solved again (solves minus
     failures = chunks minus exact fallbacks), and the card against the
-    port's CPU engine on ``cpu_check``'s m (first and last CPU_CHECK_M,
-    through the same chunks): retained eigenvalues within rel 1e-6.
+    port's CPU engine on ``cpu_check``'s m (the first CPU_CHECK_M, through
+    the same chunks): retained eigenvalues within rel 1e-6.
     Printed: against the exact engine on the same tables (``[slice]``'s
     run), beside the TPU A/B's 1e-4 tier, and both engines' m-modes/s of
     the product step (``[slice]``'s exact run and the gated run), then K17 against its plain version at the shape the run launched
@@ -2097,7 +2119,7 @@ def topband_phase(tel, slice_run, tag="topband"):
                 row[int(m)] = (i, j)
     ms = sorted(row)
     k_chk = min(CPU_CHECK_M, len(ms))
-    for name, want in (("first", ms[:k_chk]), ("last", ms[-k_chk:])):
+    for name, want in (("first", ms[:k_chk]),):
         t = time.time()
         got = {}
         for i in sorted({row[m][0] for m in want}):
@@ -2211,8 +2233,8 @@ def quicklook_phase(tel, slice_run, tag="quicklook"):
     ``product_all_resident(sig_k_cap=QUICKLOOK_CAP)`` with the fused
     Fisher over the slice's m, the launch counts zeroed just before and
     read just after (K13, K15b and the compact signal's K9 must launch).
-    Gates: finite spectra, a finite Hermitian Fisher; the first and last m
-    against the port's CPU run through the same chunks, 1e-4 of each m's
+    Gates: finite spectra, a finite Hermitian Fisher; the first m (a
+    depth cut) against the port's CPU run through its chunk, 1e-4 of each m's
     top, the partial Fisher within 3e-2.  Printed: m-modes/s beside
     ``[slice]``'s, the bias of the retained spectra and of the Fisher
     against ``[slice]``'s exact run.  Returns the launch counts."""
@@ -2260,7 +2282,7 @@ def quicklook_phase(tel, slice_run, tag="quicklook"):
         f"{float(np.abs(fisher - fx).max() / np.abs(fx).max()):.3e}")
     ms = np.concatenate([c.m_values[c.m_values >= 0] for c in chunks])
     cpu_check(tag, tel, pos, neg, ls, lf, noisew, band_lt, PS_THRESHOLD, chunks,
-              checks=(("two", [int(ms[0]), int(ms[-1])]),), sig_k_cap=QUICKLOOK_CAP)
+              checks=(("first", [int(ms[0])]),), sig_k_cap=QUICKLOOK_CAP)
     return launches
 
 
@@ -2329,6 +2351,168 @@ def whiten_phase(tel, slice_run, tag="whiten"):
     return total
 
 
+def mesh_phase(tel, slice_run, tag="mesh"):
+    """Device meshes in one process (``parallel/mesh.py``) on ``[slice]``'s
+    tables: all 226 m with the fused Fisher through
+    ``product_all_resident(mesh=)``, each run with the launch counts zeroed
+    just before and read just after.  Gates:
+
+    (a) a mesh of two entries of the card at ``mbatch`` 2 x MESH_B and
+        ``sig_levels`` MESH_PIN against ``mesh=None`` at MESH_B with the
+        same pin, both ``bucket=False``: each shard runs exactly the batch
+        of one unsharded dispatch, so spectra and SVD mode counts bit for
+        bit, the Fisher within 1e-12 of max|F| (the order of summation),
+        equal K9, K13 and K15b launch counts;
+    (b) the two-entry mesh at the default adaptive depth (decided over
+        each whole dispatch) against ``[slice]``'s run: retained spectra
+        within 1e-4 of each m's top (``[slice]``'s CPU tolerance);
+    (c) the default mesh, ``make_mesh()`` (one entry a card), against
+        ``mesh=None`` on MESH_DEFAULT_M m: bit for bit;
+    (d) ``kl_factored_batched``, ``doublekl_factored_batched`` and
+        ``triple_svd`` on the two-entry mesh at the slice's shape (its
+        first MESH_SOLVE_M m) against their unsharded calls, within 1e-10
+        of each m's top (each unit's for the SVD; counts equal).
+
+    With more than one card the mesh of all cards runs (b) as well.
+    Printed: seconds and m-modes/s of each run.  Returns the launch counts
+    of the mesh runs of (a) and (b), summed."""
+    import torch
+
+    from driftscan_tpu_torch import backend
+    from driftscan_tpu_torch.ops import projections
+    from driftscan_tpu_torch.parallel import mesh as meshmod
+    from driftscan_tpu_torch.parallel import mstep, resident
+
+    pos, neg = slice_run["tables"]
+    nm = tel.mmax + 1
+    ps = slice_run["ps_threshold"]
+    cl_s, cl_n, noisew = covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    band_lt = mstep.band_factor_table(
+        iter(fisher_bands(tel)), out_dtype=np.float32, rank_rtol=1e-9
+    )
+    dev = pos.device
+    two = meshmod.make_mesh([dev, dev])
+    names = ["k9_signal_gram", "k13_fisher_cov", "k15b_fisher_trace"]
+    t0 = time.time()
+
+    def run(what, **kw):
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        out = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, band_lt=band_lt,
+                                            ps_threshold=ps, **kw)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        launches = launch_counts()
+        m = kw.get("max_m") or nm
+        log(f"[{tag}] {what}: {dt:.4f} s, m-modes/s {m / dt:.4f} (product step with the fused "
+            f"Fisher), launches {dict((k, launches[k]) for k in names)}")
+        if not (np.isfinite(out[0]).all() and np.isfinite(out[2]).all()):
+            raise AssertionError(f"{tag} {what}: non-finite spectra or Fisher")
+        return out, launches, dt
+
+    # (a)
+    pin = dict(sig_levels=MESH_PIN, bucket=False)
+    (ev2, nmo2, f2), l2, t2 = run(f"2 entries of {dev}, mbatch {2 * MESH_B}, sig_levels "
+                                  f"{MESH_PIN}", mesh=two, mbatch=2 * MESH_B, **pin)
+    (ev1, nmo1, f1), l1, t1 = run(f"mesh=None, mbatch {MESH_B}, sig_levels {MESH_PIN}",
+                                  mbatch=MESH_B, **pin)
+    require_launched(tag, l2, names)
+    f_err = float(np.abs(f2 - f1).max() / np.abs(f1).max())
+    same = np.array_equal(ev2, ev1) and np.array_equal(nmo2, nmo1)
+    log(f"[{tag}] (a) spectra and svd modes {'bitwise equal' if same else 'DIFFER'} (max "
+        f"{float(np.abs(ev2 - ev1).max()):.3e}); Fisher {f_err:.3e} of max|F| "
+        f"{float(np.abs(f1).max()):.6e} (tol 1e-12); K9/K13/K15b launches "
+        f"{[l2[k] for k in names]} vs {[l1[k] for k in names]}; two entries "
+        f"{nm / t2:.4f} m-modes/s against one's {nm / t1:.4f} ({t2 / t1:.3f}x the time)")
+    if not same:
+        raise AssertionError(f"{tag} (a): sharded spectra differ from the unsharded batches'")
+    if not f_err <= 1e-12:
+        raise AssertionError(f"{tag} (a): Fisher {f_err:.3e} of max from the unsharded one")
+    if [l2[k] for k in names] != [l1[k] for k in names]:
+        raise AssertionError(f"{tag} (a): launch counts differ")
+
+    # (b)
+    def adaptive(what, mesh):
+        (ev, nmo, f), launches, dt = run(what, mesh=mesh)
+        ref = slice_run["evals"]
+        kept = (ev > ps) | (ref > ps)
+        rel = np.abs(ev - ref) / np.maximum(ref.max(axis=1, keepdims=True), 1e-30)
+        err = float(rel[kept].max())
+        fx = slice_run["fisher"]
+        log(f"[{tag}] (b) {what} vs [slice]: retained {int((ev > ps).sum())} vs "
+            f"{int((ref > ps).sum())} modes, max |ev - ev_slice| / ev_top {err:.3e} (tol 1e-4); "
+            f"svd modes {int(nmo.sum())} vs {int(slice_run['nmodes'].sum())}; Fisher "
+            f"{float(np.abs(f - fx).max() / np.abs(fx).max()):.3e} of max (not gated); "
+            f"{nm / dt:.4f} m-modes/s against [slice]'s {nm / slice_run['t_product']:.4f}")
+        if not err <= 1e-4:
+            raise AssertionError(f"{tag} (b) {what}: retained spectra {err:.3e} > 1e-4")
+        return launches
+
+    lb = adaptive(f"2 entries of {dev}, adaptive depth", two)
+    require_launched(tag, lb, names)
+    if torch.cuda.device_count() > 1:
+        adaptive(f"all {torch.cuda.device_count()} cards", meshmod.make_mesh())
+
+    # (c)
+    default = meshmod.make_mesh()
+    (evd, nmod, fd), _, _ = run(f"make_mesh() {default}", mesh=default,
+                                max_m=MESH_DEFAULT_M)
+    (evn, nmon, fn), _, _ = run("mesh=None", max_m=MESH_DEFAULT_M)
+    same = (np.array_equal(evd, evn) and np.array_equal(nmod, nmon)
+            and np.array_equal(fd, fn)) if default.size == 1 else None
+    log(f"[{tag}] (c) default mesh {default} vs mesh=None over {MESH_DEFAULT_M} m: "
+        f"{'bitwise equal' if same else same}")
+    if default.size == 1 and not same:
+        raise AssertionError(f"{tag} (c): the one-entry default mesh is not the unsharded path")
+
+    # (d)
+    M = MESH_SOLVE_M
+    npol, nl = tel.num_pol_sky, tel.lmax + 1
+    mv = torch.arange(M, device=dev)
+    beam = resident._build_beam_batch(pos, neg, mv, tel.npairs, tel.nfreq, npol, nl)
+    nw = torch.as_tensor(noisew, dtype=torch.float64, device=dev)
+    bsvd = mstep.svd_compress(beam, nw, mv, npol, nl)[1]
+    F, S = bsvd.shape[1], bsvd.shape[2]
+    bsvd5 = bsvd.reshape(M, F, S, npol, nl)
+    bfm = (beam.to(torch.complex128) * nw[None, :, :, None]).reshape(M * F, beam.shape[2], -1)
+    nc1 = (1e-3 / tel.tsys_flat) ** 2
+
+    def top_rel(a, b):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        top = np.maximum(np.abs(b).max(axis=1, keepdims=True), 1e-300)
+        return float((np.abs(a - b) / top).max())
+
+    solves = (
+        ("kl_factored_batched", lambda mesh: projections.kl_factored_batched(
+            bsvd5, ls, lf, mesh=mesh), (0,)),
+        ("doublekl_factored_batched", lambda mesh: projections.doublekl_factored_batched(
+            bsvd5, ls, lf, nc1=nc1, mesh=mesh), (0, 1)),
+        ("triple_svd", lambda mesh: projections.triple_svd(
+            bfm, npol=npol, nl=nl, polsvcut=1e-4, mesh=mesh), (2,)),
+    )
+    for name, fn, cols in solves:
+        t = time.time()
+        got = fn(two)
+        torch.cuda.synchronize()
+        t_two = time.time() - t
+        t = time.time()
+        want = fn(None)
+        torch.cuda.synchronize()
+        t_one = time.time() - t
+        errs = [top_rel(got[c], want[c]) for c in cols]
+        counts = torch.equal(got[-1], want[-1]) if name != "kl_factored_batched" else True
+        log(f"[{tag}] (d) {name} at batch {tuple(got[0].shape)}: two entries {t_two:.4f} s, "
+            f"mesh=None {t_one:.4f} s; max |sharded - unsharded| / each m's top {errs} "
+            f"(tol 1e-10){'' if name == 'kl_factored_batched' else f'; counts equal {counts}'}")
+        if not (max(errs) <= 1e-10 and counts):
+            raise AssertionError(f"{tag} (d) {name}: sharded {errs} > 1e-10 or counts differ")
+    log(f"[{tag}] phase {time.time() - t0:.1f} s ({card_line()})")
+    return {k: l2[k] + lb[k] for k in l2}
+
+
 def sht_iters_phase(tag="sht iters", device="cuda"):
     """The forward SHT's Jacobi refinement on the card: a band-limited
     float64 map at nside SHT_ITERS_NSIDE (lmax SHT_ITERS_LMAX, made by K14
@@ -2337,9 +2521,8 @@ def sht_iters_phase(tag="sht iters", device="cuda"):
     launch counts zeroed just before each and read just after.  Gates:
     K3+K5 launched SHT_ITERS + 1 times and K14 SHT_ITERS times a form;
     the map residual falls at every step (iters 0..SHT_ITERS, each its own
-    call); alm within 1e-10 of max of the port's CPU run (the real form
-    after SHT_ITERS steps, the complex form after one: a depth cut).  Returns the
-    launch counts of the two gated calls."""
+    call); the real form's alm within 1e-10 of max of the port's CPU run
+    after the first step (a depth cut).  Returns the launch counts of the two gated calls."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -2377,24 +2560,27 @@ def sht_iters_phase(tag="sht iters", device="cuda"):
         backend.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.time()
-        got = run(maps, iters)
+        run(maps, iters)
         torch.cuda.synchronize()
         dt = time.time() - t
         launches = launch_counts()
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        # depth cut: the complex form's CPU check after its first step
-        k_cpu = iters if form == "real" else 1
+        # depth cut: the real form alone against the CPU, after the first step
+        k_cpu = 1
         t = time.time()
-        want = run(maps.cpu(), k_cpu)
+        err = 0.0
+        if form == "real":
+            want = run(maps.cpu(), k_cpu)
+            err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                      for g, w in zip(steps[k_cpu], want) if w is not None)
         t_cpu = time.time() - t
-        held = got if k_cpu == iters else steps[k_cpu]
-        err = max(float((g.cpu() - w).abs().max() / w.abs().max())
-                  for g, w in zip(held, want) if w is not None)
         log(f"[{tag}] {form}: B {maps.shape[0]}, nside {nside}, lmax {lmax}, iters {iters}: "
-            f"{dt:.4f} s (cpu {t_cpu:.2f} s for {k_cpu}); K3+K5 {launches['k3k5_legendre_sht']}, K14 "
+            f"{dt:.4f} s; K3+K5 {launches['k3k5_legendre_sht']}, K14 "
             f"{launches['k14_legendre_synth']} launches; map residual rel by step "
-            f"{[f'{r:.3e}' for r in resid]}; alm card vs cpu {err:.3e} of max (tol 1e-10)")
+            f"{[f'{r:.3e}' for r in resid]}"
+            + (f"; alm card vs cpu after {k_cpu} step {err:.3e} of max (tol 1e-10; cpu "
+               f"{t_cpu:.2f} s)" if form == "real" else ""))
         if launches["k3k5_legendre_sht"] != iters + 1 or launches["k14_legendre_synth"] != iters:
             raise AssertionError(f"{tag} {form}: launches {launches}")
         if not all(b < a for a, b in zip(resid, resid[1:])):
@@ -2960,8 +3146,9 @@ def timestream_phase(outdir, m):
 
     The input sky is made on the card by ``synthesis_real`` (K14) from
     seeded band-limited alm at the nside of the telescope's BTM; the launch
-    counts are set to 0 after that, just before ``run_config``.  Returns
-    (launches, mapfile, nside)."""
+    counts are set to 0 after that, just before ``run_config``; the output
+    maps are at half that nside.  Returns (launches, mapfile, the maps'
+    nside)."""
     import torch
 
     from driftscan_tpu_torch import backend
@@ -2985,7 +3172,9 @@ def timestream_phase(outdir, m):
         f.create_dataset("map", data=skymap)
 
     tsdir = os.path.join(outdir, "timestreams")
-    cfg = write_yaml(timestream_config(outdir, tsdir, mapfile, nside),
+    # depth cut: the output maps at half the input sky's nside (3 nside - 1 still > lmax)
+    map_nside = nside // TS_MAP_NSIDE_DIV
+    cfg = write_yaml(timestream_config(outdir, tsdir, mapfile, map_nside),
                      os.path.join(outdir, "timestream.yaml"))
     backend.reset_launch_counts()
     t = time.time()
@@ -2996,11 +3185,13 @@ def timestream_phase(outdir, m):
     ts1, ts2 = pm.timestreams["ts1"], pm.timestreams["ts2"]
     stages = "  ".join(f"t_{k} {v:.4f} s" for k, v in pm.timings.items())
     log(
-        f"[{tag}] store {store.BACKEND}  nside {nside}  map {skymap.shape}  ntime {ts1.ntime}  "
+        f"[{tag}] store {store.BACKEND}  nside {nside} (maps {map_nside})  map {skymap.shape}  "
+        f"ntime {ts1.ntime}  "
         f"pipeline wall {wall:.4f} s  {stages}"
     )
     log(f"[{tag}] launches {launches}")
     require_launched(tag, launches, ["k14_legendre_synth", "k3k5_legendre_sht"])
+    t_checks = time.time()
 
     # every file exists and opens
     files = timestream_files(pm, tsdir)
@@ -3025,13 +3216,13 @@ def timestream_phase(outdir, m):
         for name in alm_of:
             with store.File(os.path.join(ts.output_directory, f"map_{name}.hdf5"), "r") as f:
                 skm = f["map"][:]
-            if skm.shape != (tel.nfreq, tel.num_pol_sky, 12 * nside**2):
+            if skm.shape != (tel.nfreq, tel.num_pol_sky, 12 * map_nside**2):
                 raise AssertionError(f"{tag}: map_{name} shape {skm.shape}")
             if not (np.isfinite(skm).all() and np.abs(skm).max() > 0):
                 raise AssertionError(f"{tag}: map_{name} of {ts.directory} not finite and non-zero")
             if ts is ts1:
                 a = ts1.collect_alm(alm_of[name], ts1._mlist() if name == "klinv" else None)
-                cpu = sht.sphtrans_inv_sky(a, nside, device="cpu").numpy()
+                cpu = sht.sphtrans_inv_sky(a, map_nside, device="cpu").numpy()
                 _gate(tag, f"ts1 map_{name} vs the CPU synthesis of its alm, of max "
                       f"(max|map| {np.abs(cpu).max():.6e})", _rel(skm, cpu), 1e-10)
 
@@ -3054,12 +3245,13 @@ def timestream_phase(outdir, m):
     psc.genbands()
     fisher, bias = psc.fisher_bias()
     finv = np.linalg.inv(fisher)
-    qs = []
     for ts in (ts1, ts2):
         ts.set_kltransform("kl")
         ts.set_psestimator("ps")
-        q = sum(psc.q_estimator(mi, ts.mmode_kl(mi)) for mi in ts._mlist())
-        qs.append(q)
+    # both timestreams' q in one CPU call a m, one column each
+    q12 = sum(psc.q_estimator(mi, np.stack([ts1.mmode_kl(mi), ts2.mmode_kl(mi)], axis=-1))
+              for mi in ts1._mlist())
+    for ts, q in zip((ts1, ts2), (q12[:, 0], q12[:, 1])):
         with store.File(ts._psfile, "r") as f:
             ps = f["powerspectrum"][:]
         if not np.isfinite(ps).all():
@@ -3077,28 +3269,8 @@ def timestream_phase(outdir, m):
     _gate(tag, "cross power spectrum vs the CPU q estimator", _rel(xps, want), 1e-8)
     psc.delbands()
 
-    # a second run rewrites only the full and SVD maps (as the JAX package)
-    def snapshot():
-        return {os.path.join(d, f): os.path.getmtime(os.path.join(d, f))
-                for d, _, fs in os.walk(tsdir) for f in fs}
-
-    def product(path):
-        parts = os.path.relpath(path, tsdir).split(os.sep)
-        return os.sep.join(parts[: next(i for i, p in enumerate(parts) if p.endswith(
-            (".hdf5", ".pickle", "COMPLETED_M"))) + 1])
-
-    stamp = snapshot()
-    t = time.time()
-    pm2 = runpipeline.run_config(cfg)
-    torch.cuda.synchronize()
-    t_again = time.time() - t
-    touched = {product(p) for p, at in snapshot().items() if stamp.get(p) != at}
-    want = {os.path.join(ts, f"map_{k}.hdf5") for ts in ("ts1", "ts2") for k in ("full", "svd")}
-    log(f"[{tag}] second run_config(): {t_again:.2f} s "
-        f"({'  '.join(f't_{k} {v:.3f}' for k, v in pm2.timings.items())}), rewrote {sorted(touched)}")
-    if touched != want:
-        raise AssertionError(f"{tag}: the second run rewrote {sorted(touched)}, expected {sorted(want)}")
-    return launches, mapfile, nside
+    log(f"[{tag}] checks {time.time() - t_checks:.2f} s")
+    return launches, mapfile, map_nside
 
 
 class PeakRSS:
@@ -3258,29 +3430,154 @@ def file_path_rate(nm, tm):
     return nm / (tm["beams"] + tm["kl.kl"] + tm["ps.ps"])
 
 
-def torchrun(module, *args, timeout=MP_TIMEOUT_S):
-    """``python -m torch.distributed.run --standalone`` with ``MP_NPROC``
-    processes of ``module`` (a script of the port) from this checkout;
-    returns (wall seconds, its output).  A failed rendezvous, a rank's
-    exception or the time limit fails the phase."""
+PR_SET_PDEATHSIG = 1
+PR_SET_CHILD_SUBREAPER = 36
+TEMP_DIRS = []  # removed when the script ends, after its processes
+# run by the launcher's first process: SIGTERM to it when this script dies
+# (however it dies), then the launcher itself in its place
+EXEC_UNDER_PARENT = (
+    "import ctypes, os, signal, sys; "
+    f"ctypes.CDLL(None).prctl({PR_SET_PDEATHSIG}, int(signal.SIGTERM), 0, 0, 0); "
+    "os.getppid() == int(sys.argv[1]) or os._exit(1); "
+    "os.execv(sys.executable, [sys.executable] + sys.argv[2:])"
+)
+
+
+def prctl(option, value):
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(option, value, 0, 0, 0) != 0:
+        err = ctypes.get_errno()
+        raise OSError(err, f"prctl({option}, {value}): {os.strerror(err)}")
+
+
+def descendants():
+    """{pid: command line} of every process below this one (zombies
+    included), from ``/proc/<pid>/stat``'s parent links."""
+    parent, comm = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        rest = stat[stat.rindex(")") + 2:].split()
+        parent[int(d)] = int(rest[1])
+        comm[int(d)] = cmd or stat[stat.index("(") + 1:stat.rindex(")")]
+    below, frontier = {}, {os.getpid()}
+    while frontier:
+        frontier = {p for p, pp in parent.items() if pp in frontier and p not in below}
+        below.update((p, comm[p]) for p in frontier)
+    return below
+
+
+def reap():
+    """Collect the exit status of every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(grace=30.0):
+    """SIGTERM to every process below this one, SIGKILL to any still there
+    ``grace`` seconds later, each reaped (this script adopts its children's
+    orphans, see :func:`main`).  Returns {pid: command line} of what was
+    found running."""
+    found = {}
+    for sig, wait_s in ((signal.SIGTERM, grace), (signal.SIGKILL, 10.0)):
+        reap()
+        live = descendants()
+        found.update(live)
+        for pid in live:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        end = time.time() + wait_s
+        while live and time.time() < end:
+            time.sleep(0.1)
+            reap()
+            live = descendants()
+        if not live:
+            break
+    reap()
+    return found
+
+
+def exit_on_signal(signum, frame):
+    """SIGTERM or SIGHUP unwinds the script as an exception would, so that
+    every ``finally`` runs and every process it started is stopped."""
+    raise SystemExit(128 + signum)
+
+
+def torchrun_start(module, *args):
+    """Start ``python -m torch.distributed.run --standalone`` with
+    ``MP_NPROC`` processes of ``module`` (a script of the port) from this
+    checkout, its output to a temporary file; returns the handle that
+    :func:`torchrun_finish` takes.  The launcher gets SIGTERM if this
+    script dies, and stops its workers on it."""
+    import threading
+
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (HERE, env.get("PYTHONPATH")) if p)
     env.setdefault("OMP_NUM_THREADS", "4")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+    cmd = [sys.executable, "-c", EXEC_UNDER_PARENT, str(os.getpid()),
+           "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(MP_NPROC), "-m", module, *args]
-    t = time.time()
-    # its own session, so that the launcher's workers go with it on a timeout
-    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    out = tempfile.TemporaryFile("w+")
+    run = dict(module=module, args=args, out=out, t=time.time(), end=None)
+    run["proc"] = proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out,
+                                          stderr=subprocess.STDOUT, text=True,
+                                          start_new_session=True)
+
+    def ended():
+        proc.wait()
+        run["end"] = time.time()
+
+    threading.Thread(target=ended, daemon=True).start()
+    return run
+
+
+def torchrun_finish(run, timeout=MP_TIMEOUT_S):
+    """Wait for a :func:`torchrun_start` run; returns (its wall seconds,
+    its output).  A failed rendezvous, a rank's exception or ``timeout``
+    seconds from its start fail the phase; on a time-out or an exception
+    here the launcher, its workers and anything they left are stopped
+    first."""
+    proc, module = run["proc"], run["module"]
+
+    def output():
+        run["out"].seek(0)
+        return run["out"].read()
+
     try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        raise AssertionError(f"torchrun {module}: over {timeout} s:\n" + out[-6000:])
-    wall = time.time() - t
+        proc.wait(timeout=max(run["t"] + timeout - time.time(), 1.0))
+    except BaseException as e:
+        # SIGTERM first: the launcher passes it to its workers and waits
+        # for them; the sweep then takes whatever is left
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pass
+        stop_descendants()
+        if isinstance(e, subprocess.TimeoutExpired):
+            raise AssertionError(f"torchrun {module}: over {timeout} s:\n" + output()[-6000:]) from e
+        raise
+    out = output()
+    run["out"].close()
+    wall = (run["end"] or time.time()) - run["t"]
     if proc.returncode != 0:
-        raise AssertionError(f"torchrun {module} {' '.join(args)}: exit {proc.returncode}:\n"
+        raise AssertionError(f"torchrun {module} {' '.join(run['args'])}: exit {proc.returncode}:\n"
                              + out[-6000:])
     return wall, out
 
@@ -3303,21 +3600,69 @@ def rank_stats(tag, path, out):
     return ranks
 
 
-def mp_products_phase(workdir, chunked, nside, mapfile, ts_ref):
-    """``drift-makeproducts-torch run`` and ``drift-runpipeline-torch
-    run-config`` under torchrun, two ranks sharing the one card, on
-    ``[chunked]``'s config (``resident: never``, ``mem_chunk``
-    ``CHUNKED_MEM_GB`` a rank: 2 chunks) with a seeded MonteCarlo beside
-    its Full estimator.  Gates: both processes exit 0 and log their card;
-    every kernel of the file path launched in each rank; the files against
-    ``[chunked]``'s one-process run (manager ``chunked``): beam files bit
-    for bit (else within 1e-12 of max), singular values and KL spectra
-    within 1e-10 of each row's top, Full Fisher and bias within 1e-10 of
-    max, the MonteCarlo's against one process's over the same KL modes
-    within 1e-10; then the noiseless ts1 of ``[timestream]`` from
-    ``mapfile`` under two ranks, its maps against ``[timestream]``'s ts1
-    (directory ``ts_ref``) within 1e-10 (its power spectrum printed).  Prints
-    the two-rank walls and m-modes/s beside ``[chunked]``'s.  Returns each
+def mp_config(workdir):
+    """``[mp products]``' config: ``[chunked]``'s (``resident: never``,
+    ``mem_chunk`` ``CHUNKED_MEM_GB`` a rank: 2 chunks) in ``workdir/mp``
+    with a seeded MonteCarlo beside its Full estimator."""
+    conf = products_config(os.path.join(workdir, "mp"))
+    conf["config"].update(resident="never", mem_chunk=CHUNKED_MEM_GB)
+    conf["psfisher"].append(dict(conf["psfisher"][0], type="MonteCarlo", name="mc",
+                                 nsamples=MP_MC_SAMPLES, seed=SEED))
+    return conf
+
+
+def mp_products_start(workdir):
+    """Start ``[mp products]``' ``drift-makeproducts-torch run`` under
+    torchrun (two ranks sharing the one card) in the background: it needs
+    nothing of the other phases, and runs beside them (their timings then
+    share the card and the host with it).  Returns its handle."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    log(f"[mp products] {card_line()} | {MP_NPROC} ranks on {torch.cuda.device_count()} "
+        f"card(s), started beside the next phases; this process holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    return torchrun_start("driftscan_tpu_torch.scripts.makeproducts", "run",
+                          write_yaml(mp_config(workdir), os.path.join(workdir, "mp.yaml")),
+                          "--stats", os.path.join(workdir, "mp_stats_{rank}.json"))
+
+
+def mp_timestream_start(workdir, products_run, nside, mapfile):
+    """Wait for :func:`mp_products_start`'s run, then start the noiseless
+    ts1 of ``[timestream]`` from ``mapfile`` (maps at ``nside``) on its
+    products under torchrun, two ranks, in the background.  Returns (the
+    products run's (wall, output), the timestream run's handle)."""
+    done = torchrun_finish(products_run)
+    mpdir = os.path.join(workdir, "mp")
+    tsdir = os.path.join(workdir, "mp_ts")
+    pconf = {
+        "config": {"product_directory": mpdir, "klmodes": ["kl"], "nside": nside,
+                   "powerspectra": [{"psname": "ps", "klname": "kl"}]},
+        "timestreams": [{"name": "ts1", "directory": f"{tsdir}/ts1",
+                         "simulate": {"product_directory": mpdir, "maps": [mapfile],
+                                      "ndays": 0}}],
+    }
+    return done, torchrun_start("driftscan_tpu_torch.scripts.runpipeline", "run-config",
+                                write_yaml(pconf, os.path.join(workdir, "mp_ts.yaml")),
+                                "--stats", os.path.join(workdir, "mp_ts_stats_{rank}.json"))
+
+
+def mp_products_phase(workdir, chunked, products, ts_run, ts_ref):
+    """The checks of ``drift-makeproducts-torch run`` and
+    ``drift-runpipeline-torch run-config`` under torchrun, two ranks
+    sharing the one card (:func:`mp_products_start`,
+    :func:`mp_timestream_start`; ``products`` the first run's (wall,
+    output), ``ts_run`` the second's handle).  Gates: both processes exit
+    0 and log their card; every kernel of the file path launched in each
+    rank; the files against ``[chunked]``'s one-process run (manager
+    ``chunked``): beam files bit for bit (else within 1e-12 of max),
+    singular values and KL spectra within 1e-10 of each row's top, Full
+    Fisher and bias within 1e-10 of max, the MonteCarlo's against one
+    process's over the same KL modes within 1e-10; then the noiseless ts1
+    of ``[timestream]`` under two ranks, its maps against
+    ``[timestream]``'s ts1 (directory ``ts_ref``) within 1e-10 (its power
+    spectrum printed).  Prints the two-rank walls and m-modes/s beside
+    ``[chunked]``'s (the ranks ran beside other phases).  Returns each
     rank's launches of both runs."""
     import torch
 
@@ -3325,18 +3670,10 @@ def mp_products_phase(workdir, chunked, nside, mapfile, ts_ref):
     from driftscan_tpu_torch.util import store
 
     tag = "mp products"
-    torch.cuda.empty_cache()  # the ranks share the card with this process
-    log(f"[{tag}] {card_line()} | {MP_NPROC} ranks on {torch.cuda.device_count()} card(s); "
-        f"this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
-    mpdir = os.path.join(workdir, "mp")
-    conf = products_config(mpdir)
-    conf["config"].update(resident="never", mem_chunk=CHUNKED_MEM_GB)
-    mc = dict(conf["psfisher"][0], type="MonteCarlo", name="mc", nsamples=MP_MC_SAMPLES,
-              seed=SEED)
-    conf["psfisher"].append(mc)
+    conf = mp_config(workdir)
+    mc = conf["psfisher"][-1]
     stats = os.path.join(workdir, "mp_stats_{rank}.json")
-    wall, out = torchrun("driftscan_tpu_torch.scripts.makeproducts", "run",
-                         write_yaml(conf, os.path.join(workdir, "mp.yaml")), "--stats", stats)
+    wall, out = products
     ranks = rank_stats(tag, stats, out)
     if f"Splitting into {MP_CHUNKS} chunks" not in out:
         raise AssertionError(f"{tag}: the BTM did not take the chunked route in {MP_CHUNKS} chunks")
@@ -3402,17 +3739,8 @@ def mp_products_phase(workdir, chunked, nside, mapfile, ts_ref):
 
     # the noiseless timestream of [timestream] on these products, 2 ranks
     tsdir = os.path.join(workdir, "mp_ts")
-    pconf = {
-        "config": {"product_directory": mpdir, "klmodes": ["kl"], "nside": nside,
-                   "powerspectra": [{"psname": "ps", "klname": "kl"}]},
-        "timestreams": [{"name": "ts1", "directory": f"{tsdir}/ts1",
-                         "simulate": {"product_directory": mpdir, "maps": [mapfile],
-                                      "ndays": 0}}],
-    }
     pstats = os.path.join(workdir, "mp_ts_stats_{rank}.json")
-    wall_ts, out = torchrun("driftscan_tpu_torch.scripts.runpipeline", "run-config",
-                            write_yaml(pconf, os.path.join(workdir, "mp_ts.yaml")),
-                            "--stats", pstats)
+    wall_ts, out = torchrun_finish(ts_run)
     ts_ranks = rank_stats(tag, pstats, out)
     for r, st in enumerate(ts_ranks):
         stages = "  ".join(f"t_{k} {v:.4f} s" for k, v in st["timings"].items())
@@ -3515,8 +3843,8 @@ def chunked_128_phase(workdir):
 def chunked_128_products(out, params, tag="chunked 128"):
     """The product chain of the 128-channel design past the BTM, on the
     beam files of :func:`chunked_128_phase` in ``out``, cut in depth to the
-    m of CHUNKED_128_M (the first four, pencil n up to 128 x 44 = 5,632, and
-    four high m): the file path's own SVD stage, KL filter (threshold 0.1)
+    m of CHUNKED_128_M (the first two, pencil n up to 128 x 44 = 5,632, and
+    two high m): the file path's own SVD stage, KL filter (threshold 0.1)
     and PSExact with the four polar bands, called m-chunk by m-chunk on that
     subset of the files, the counts zeroed just before and read just after.
     Gates: the files of the subset open; the KL spectra of two m (the
@@ -3538,7 +3866,8 @@ def chunked_128_products(out, params, tag="chunked 128"):
     conf["kltransform"] = conf["kltransform"][:1]
     m = manager.ProductManager().apply_config(conf)
     tel, bt, kl, ps = m.telescope, m.beamtransfer, m.kltransforms["kl"], m.psestimators["ps"]
-    chunks = [list(CHUNKED_128_M[:4]), list(CHUNKED_128_M[4:])]
+    half = len(CHUNKED_128_M) // 2
+    chunks = [list(CHUNKED_128_M[:half]), list(CHUNKED_128_M[half:])]
     os.makedirs(kl.evdir, exist_ok=True)
     backend.reset_launch_counts()
     t0 = time.time()
@@ -4292,6 +4621,10 @@ def main():
     for name in required:
         counted[name] = counted.get(name, 0) + launches[name]
     mark("oldcylinder")
+    # [mp products]' makeproducts ranks run beside the phases from here on
+    mpdir = tempfile.mkdtemp(prefix="driftscan_mp_")
+    TEMP_DIRS.append(mpdir)
+    mp_run = mp_products_start(mpdir)
     for launches in (slice_windows_phase(tel, slice_run), *ns2_window_phase(ntel),
                      *ns2_retained_phase(ntel), topband_phase(tel, slice_run)):
         for name, count in launches.items():
@@ -4299,7 +4632,7 @@ def main():
                 counted[name] = counted.get(name, 0) + count
     mark("slice windows, ns2 window, ns2 retained, topband")
     for phase, name in ((gram_engine_phase, "gram engine"), (quicklook_phase, "quicklook"),
-                        (whiten_phase, "whiten")):
+                        (whiten_phase, "whiten"), (mesh_phase, "mesh")):
         for k, count in phase(tel, slice_run).items():
             if count:
                 counted[k] = counted.get(k, 0) + count
@@ -4348,14 +4681,17 @@ def main():
             mark("topband products")
             launches, chunked = chunked_phase(outdir, chunkdir)
             mark("chunked")
-            launches += tuple(mp_products_phase(chunkdir, chunked, nside, mapfile,
-                                                os.path.join(outdir, "timestreams", "ts1")))
-            del chunked
-            mark("mp products")
+            # [mp products]' timestream ranks run beside [chunked 128] and [psmc]
+            mp_products, mp_ts_run = mp_timestream_start(mpdir, mp_run, nside, mapfile)
             launches += (chunked_128_phase(chunkdir),)
             mark("chunked 128")
             launches += (psmc_phase(outdir),)
             mark("psmc")
+            launches += tuple(mp_products_phase(mpdir, chunked, mp_products, mp_ts_run,
+                                                os.path.join(outdir, "timestreams", "ts1")))
+            del chunked
+            shutil.rmtree(mpdir, ignore_errors=True)
+            mark("mp products")
         finally:
             shutil.rmtree(chunkdir, ignore_errors=True)
         for run in launches:
@@ -4385,6 +4721,9 @@ def main():
         profile_paths((("slice", tel, PS_THRESHOLD), ("pol", ptel, POL_PS_THRESHOLD)))
         profile_products()
 
+    left = stop_descendants()
+    log(f"[procs] processes left running by the phases (stopped now): "
+        f"{left if left else 'none'}")
     missing = [k.name for k in backend.KERNELS.values() if k.name not in counted]
     if missing:
         raise AssertionError(f"kernels on no path of this run: {missing}")
@@ -4419,4 +4758,14 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    # orphans of this script's children (the launcher's workers) become its
+    # own children, so that the sweep below finds and reaps them
+    prctl(PR_SET_CHILD_SUBREAPER, 1)
+    signal.signal(signal.SIGTERM, exit_on_signal)
+    signal.signal(signal.SIGHUP, exit_on_signal)
+    try:
+        main()
+    finally:
+        stop_descendants()
+        for d in TEMP_DIRS:
+            shutil.rmtree(d, ignore_errors=True)

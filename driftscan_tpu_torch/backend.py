@@ -13,6 +13,11 @@ shared headers and the compiler flags, then loaded with :mod:`ctypes`.
 
 Every wrapper takes the kernel's plain PyTorch version only for tensors
 that lie on the CPU; for a CUDA tensor it launches the kernel or raises.
+Every launch goes through :func:`launch`, which makes the tensors' card
+the current device around the C call (the entry points size their
+shared memory on ``cudaGetDevice``'s card and launch there) and counts
+the launch under a lock, so that worker threads of a device mesh
+(``parallel/mesh.py``) launch on their own cards and are all counted.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import ClassVar
@@ -94,6 +100,10 @@ def stream_ptr(device: torch.device) -> int:
     )
 
 
+# guards the launch counts, which worker threads of a mesh raise together
+COUNT_LOCK = threading.Lock()
+
+
 @dataclass
 class Kernel:
     """One hand-written kernel: identity, provenance and launch count."""
@@ -134,8 +144,21 @@ def register(name, source, replaces) -> Kernel:
 
 
 def reset_launch_counts():
-    for k in KERNELS.values():
-        k.launches = 0
+    with COUNT_LOCK:
+        for k in KERNELS.values():
+            k.launches = 0
+
+
+def launch(kernel: Kernel, fn, device, *args):
+    """Call the C entry point ``fn(*args, stream)`` with ``device`` (the
+    tensors' card) current, on that card's current stream; raise on its
+    error code; count one launch of ``kernel``."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        status = fn(*args, stream_ptr(device))
+    check(status, kernel.name)
+    with COUNT_LOCK:
+        kernel.launches += 1
 
 
 # The complex64 Gram engine of csrc/gram_tile.cuh (K9, K13): its output

@@ -47,6 +47,7 @@ import torch
 from .. import config
 from ..ops import projections, truncate
 from ..parallel import comm
+from ..parallel import mesh as meshmod
 from ..util import store, util
 
 logger = logging.getLogger(__name__)
@@ -694,7 +695,8 @@ class BeamTransfer(config.Reader):
         npol*nl): the triple SVD with its polarisation filter."""
         tel = self.telescope
         ut, beam, sig, _ = projections.triple_svd(
-            bfm_w, npol=tel.num_pol_sky, nl=tel.lmax + 1, polsvcut=self.polsvcut
+            bfm_w, npol=tel.num_pol_sky, nl=tel.lmax + 1, polsvcut=self.polsvcut,
+            mesh=meshmod.get_mesh(self.device),
         )
         return ut, beam, sig
 

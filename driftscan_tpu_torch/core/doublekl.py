@@ -22,6 +22,7 @@ import numpy as np
 from .. import config
 from ..ops import linalg, projections
 from ..parallel import comm
+from ..parallel import mesh as meshmod
 from ..util import store
 from . import kltransform
 
@@ -109,7 +110,8 @@ class DoubleKL(kltransform.KLTransform):
 
         nc1 = (1e-3 / tel.tsys_flat) ** 2  # suppressed-thermal floor
         kw = dict(nc=1.0, nc1=nc1, fg_threshold=self.foreground_threshold,
-                  fg_reg_rel=self._foreground_regulariser)
+                  fg_reg_rel=self._foreground_regulariser,
+                  mesh=meshmod.get_mesh(bsvd.device))
 
         # the top-band engine: both stages compute only the modes they
         # keep, and the sub-threshold tails of `evals_full` / `f_evals` are

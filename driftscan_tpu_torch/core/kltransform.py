@@ -32,6 +32,7 @@ import torch
 from .. import config
 from ..ops import fpencil, linalg, projections, sht
 from ..parallel import comm
+from ..parallel import mesh as meshmod
 from ..util import store, util
 from . import skymodel
 
@@ -447,18 +448,19 @@ class KLTransform(config.Reader):
         bsvd, idx_list = self._load_bsvd_batch(m_chunk)
         ls, lf = self._cl_factors()
         nc = 1.0 if self.use_thermal else (1e-3 / self.telescope.tsys_flat) ** 2
+        mesh = meshmod.get_mesh(bsvd.device)
 
         def exact():
             return projections.kl_factored_batched(
                 bsvd, ls, lf, nc=nc, with_thermal=True,
-                fg_reg_rel=self._foreground_regulariser,
+                fg_reg_rel=self._foreground_regulariser, mesh=mesh,
             )
 
         ok = None
         if self._use_topband:
             evals_t, evecs_t, ok = projections.kl_factored_batched_topband(
                 bsvd, ls, lf, cut=self.threshold, nc=nc,
-                fg_reg_rel=self._foreground_regulariser,
+                fg_reg_rel=self._foreground_regulariser, mesh=mesh,
             )
         else:
             evals_t, evecs_t = exact()

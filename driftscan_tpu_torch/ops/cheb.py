@@ -193,15 +193,13 @@ def cheb_step_launch(y, w, vk, vp, alpha, beta: float, gamma: float, p: ChebPlan
     out = torch.empty(lead + (n, k), dtype=y.dtype, device=y.device)
     # zeroed by the entry point, on the stream, before the launch
     amax = torch.empty(lead, dtype=torch.float64, device=y.device)
-    backend.check(
-        K17.entry("cheb_step_c128", _ARGTYPES)(
-            y.data_ptr(), w.data_ptr(), vk.data_ptr(),
-            None if vp is None else vp.data_ptr(), alpha.data_ptr(),
-            beta, gamma, out.data_ptr(), amax.data_ptr(),
-            M, n, K, k, *p[:5], backend.stream_ptr(y.device),
-        ),
-        K17.name,
+    backend.launch(
+        K17, K17.entry("cheb_step_c128", _ARGTYPES), y.device,
+        y.data_ptr(), w.data_ptr(), vk.data_ptr(),
+        None if vp is None else vp.data_ptr(), alpha.data_ptr(),
+        beta, gamma, out.data_ptr(), amax.data_ptr(),
+        M, n, K, k, *p[:5],
     )
-    K17.launches += 1
-    SHAPES[(M, n, K, k)] += 1
+    with backend.COUNT_LOCK:
+        SHAPES[(M, n, K, k)] += 1
     return out, amax

@@ -237,14 +237,11 @@ def signal_gram(bsvd: torch.Tensor, L) -> torch.Tensor:
         "signal_gram_c64" if bsvd.dtype == torch.complex64 else "signal_gram_c128",
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     )
-    backend.check(
-        fn(
-            bsvd.data_ptr(), L.data_ptr(), out.data_ptr(), part_ptr, part_bytes,
-            M, F, S, npol, nl, K, nsplit, cps, backend.stream_ptr(bsvd.device),
-        ),
-        K9.name,
+    backend.launch(
+        K9, fn, bsvd.device,
+        bsvd.data_ptr(), L.data_ptr(), out.data_ptr(), part_ptr, part_bytes,
+        M, F, S, npol, nl, K, nsplit, cps,
     )
-    K9.launches += 1
     return out
 
 

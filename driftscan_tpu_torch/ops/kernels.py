@@ -469,16 +469,13 @@ def _map_launch(kernel, symbol, beam_ptrs, flag, nb, ncomp, elem, npol, idx_i, i
         + (ctypes.c_longlong, ctypes.c_double, ctypes.c_longlong)
         + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
     )
-    backend.check(
-        fn(
-            cart.data_ptr(), horizon.data_ptr(), *beam_ptrs, idx_i.data_ptr(),
-            idx_j.data_ptr(), uv3.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), float(pxarea), npix, nu, nb, ncomp, flag, npol,
-            host_vis_stage(nb, ncomp, elem), backend.stream_ptr(cart.device),
-        ),
-        kernel.name,
+    backend.launch(
+        kernel, fn, cart.device,
+        cart.data_ptr(), horizon.data_ptr(), *beam_ptrs, idx_i.data_ptr(),
+        idx_j.data_ptr(), uv3.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), float(pxarea), npix, nu, nb, ncomp, flag, npol,
+        host_vis_stage(nb, ncomp, elem),
     )
-    kernel.launches += 1
 
 
 def _require_host_args(beams, ndim, idx_i, idx_j, uv3, cart, horizon):

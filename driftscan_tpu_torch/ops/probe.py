@@ -126,11 +126,7 @@ def double_launch(x: torch.Tensor, max_blocks: int = 0) -> torch.Tensor:
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_void_p],
     )
-    backend.check(
-        fn(x.data_ptr(), out.data_ptr(), n, max_blocks, backend.stream_ptr(x.device)),
-        PROBE_DOUBLE.name,
-    )
-    PROBE_DOUBLE.launches += 1
+    backend.launch(PROBE_DOUBLE, fn, x.device, x.data_ptr(), out.data_ptr(), n, max_blocks)
     return out
 
 
@@ -169,10 +165,8 @@ def mm_launch(a: torch.Tensor, b: torch.Tensor, plan: MMPlan) -> torch.Tensor:
         "probe_mm_f32" if a.dtype == torch.float32 else "probe_mm_bf16",
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
-    backend.check(
-        fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(plan.route == "tma"),
-           plan.nw, backend.stream_ptr(a.device)),
-        PROBE_MM.name,
+    backend.launch(
+        PROBE_MM, fn, a.device,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(plan.route == "tma"), plan.nw,
     )
-    PROBE_MM.launches += 1
     return out

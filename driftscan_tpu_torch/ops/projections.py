@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import backend
+from ..parallel import mesh as meshmod
 from . import fpencil, linalg
 
 K15A = backend.register(
@@ -205,16 +206,12 @@ def sandwich(x, y, c, ix=None, iy=None, ic=None):
     fn = K15A.entry(
         "sandwich_c64" if x.dtype == torch.complex64 else "sandwich_c128", _SANDWICH_ARGS
     )
-    backend.check(
-        fn(
-            x.data_ptr(), y.data_ptr(), c.data_ptr(), out.data_ptr(),
-            ix.data_ptr(), iy.data_ptr(), ic.data_ptr(),
-            nb, n, m, cc, cd, nl, plan.tile, plan.dc, plan.nsplit, plan.cps,
-            backend.stream_ptr(x.device),
-        ),
-        K15A.name,
+    backend.launch(
+        K15A, fn, x.device,
+        x.data_ptr(), y.data_ptr(), c.data_ptr(), out.data_ptr(),
+        ix.data_ptr(), iy.data_ptr(), ic.data_ptr(),
+        nb, n, m, cc, cd, nl, plan.tile, plan.dc, plan.nsplit, plan.cps,
     )
-    K15A.launches += 1
     return out
 
 
@@ -357,14 +354,11 @@ def fisher_trace(ca, cb, w):
     out = torch.empty((nm, na, nb), dtype=torch.complex128, device=ca.device)
     plan = fisher_trace_plan(nm, na, nb, k, sym, backend.sm_count(ca.device))
     fn = K15B.entry(_TRACE_FNS[ca.dtype, w.dtype], _TRACE_ARGS)
-    backend.check(
-        fn(
-            ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(), nm, na, nb, k,
-            int(sym), plan.split, backend.stream_ptr(ca.device),
-        ),
-        K15B.name,
+    backend.launch(
+        K15B, fn, ca.device,
+        ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(), nm, na, nb, k,
+        int(sym), plan.split,
     )
-    K15B.launches += 1
     return out if batched else out[0]
 
 
@@ -410,14 +404,19 @@ def block_pinv(mats, rcond: float = 1e-6, device=None):
     return torch.linalg.pinv(as_tensor(mats, device), rtol=rcond)
 
 
-def triple_svd(bfm_w, npol: int, nl: int, polsvcut: float, device=None):
+def triple_svd(bfm_w, npol: int, nl: int, polsvcut: float, device=None, mesh=None):
     """Triple-SVD compression of a batch of noise-weighted beams (batch,
     ntel, npol*nl) with the file pipeline's image cuts: (ut, beam, sig,
-    nmodes), see :func:`linalg.triple_svd_batched`."""
-    return linalg.triple_svd_batched(
-        as_tensor(bfm_w, device), npol=npol, nl=nl, polsvcut=polsvcut,
-        floor1=linalg.FILE_SVD1_FLOOR, floor3=linalg.FILE_SVD3_FLOOR,
-    )
+    nmodes), see :func:`linalg.triple_svd_batched`.  With a ``mesh`` of
+    more than one entry the batch axis is split over its entries, each
+    SVDing its own slice (:func:`_on_mesh`)."""
+    def svd(b):
+        return linalg.triple_svd_batched(
+            b, npol=npol, nl=nl, polsvcut=polsvcut,
+            floor1=linalg.FILE_SVD1_FLOOR, floor3=linalg.FILE_SVD3_FLOOR,
+        )
+
+    return _on_mesh(svd, as_tensor(bfm_w, device), mesh)
 
 
 def simple_svd(bfm_w, device=None):
@@ -434,6 +433,19 @@ def simple_svd(bfm_w, device=None):
         as_tensor(bfm_w, device, torch.complex128), full_matrices=False
     )
     return u.mH.contiguous().resolve_conj(), sig
+
+
+def _on_mesh(fn, batch, mesh, *replicated):
+    """``fn(batch, *replicated)``; with a ``mesh`` of more than one entry,
+    on each entry's slice of the batch axis, padded to a multiple of the
+    mesh size by repeating its last row (the JAX package's
+    ``_kl_pencil_shard``), the results gathered on ``batch``'s device and
+    trimmed (:func:`parallel.mesh.shard_map`)."""
+    mesh = meshmod.multi(mesh)
+    if mesh is None:
+        return fn(batch, *replicated)
+    return meshmod.shard_map(fn, mesh, sharded=(batch,), replicated=replicated, pad=True,
+                             gather_to=batch.device)
 
 
 def _projected_factors(bsvd5, ls, lf, nc, compact):
@@ -467,6 +479,7 @@ def kl_factored_batched(
     device=None,
     compact: bool = True,
     fg_levels: int = 8,
+    mesh=None,
 ):
     """m-batched KL pencil solve on *factored* covariances.
 
@@ -482,16 +495,19 @@ def kl_factored_batched(
     the K9 Gram (the same S); the ``gram`` engine (``method``, with
     ``fg_levels`` foreground levels) takes the wide factor.  Returns
     (evals (M, n) ascending, evecs (M, n, n) complex columns) on the beams'
-    device.
+    device.  A ``mesh`` of more than one entry splits the m axis over its
+    entries (:func:`_on_mesh`; ls, lf replicated).
     """
-    bsvd5 = as_tensor(bsvd5, device)
-    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact and method == "qr")
-    kl = fpencil.kl_solve(
-        a_s, a_f, sig_levels=sig_levels, band_rel=band_rel, method=method,
-        with_thermal=with_thermal, fg_floor=fg_floor, fg_reg_rel=fg_reg_rel,
-        fg_levels=fg_levels,
-    )
-    return kl.evals, kl.evecs
+    def solve(b, ls, lf):
+        a_s, a_f = _projected_factors(b, ls, lf, nc, compact and method == "qr")
+        kl = fpencil.kl_solve(
+            a_s, a_f, sig_levels=sig_levels, band_rel=band_rel, method=method,
+            with_thermal=with_thermal, fg_floor=fg_floor, fg_reg_rel=fg_reg_rel,
+            fg_levels=fg_levels,
+        )
+        return kl.evals, kl.evecs
+
+    return _on_mesh(solve, as_tensor(bsvd5, device), mesh, ls, lf)
 
 
 def kl_support_stats(evecs, row_mask):
@@ -514,6 +530,7 @@ def doublekl_factored_batched(
     sig_levels: int = 2,
     band_rel: float = 3e-2,
     device=None,
+    mesh=None,
 ):
     """m-batched two-stage (DoubleKL) factored pencil.
 
@@ -522,26 +539,22 @@ def doublekl_factored_batched(
     with eigenvalue 0 and zero columns; the caller compacts with
     ``nkept``), see :func:`fpencil.doublekl_solve_qr`.  Returns (f_evals
     (M, n) ascending, evals (M, n) ascending, evecs (M, n, n) complex
-    columns, nkept (M,) int).
+    columns, nkept (M,) int).  A ``mesh`` of more than one entry splits the
+    m axis over its entries (:func:`_on_mesh`).
     """
-    bsvd5 = as_tensor(bsvd5, device)
-    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact=False)
-    return fpencil.doublekl_solve_qr(
-        a_s, a_f,
-        fg_threshold=fg_threshold,
-        fg_floor=fg_floor,
-        nc1=None if nc1 is None else float(nc1 / nc),
-        fg_reg_rel=fg_reg_rel,
-        sig_levels=sig_levels,
-        band_rel=band_rel,
-    )
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported yet: ROADMAP.md, modules to port, item 11"
+    def solve(b, ls, lf):
+        a_s, a_f = _projected_factors(b, ls, lf, nc, compact=False)
+        return fpencil.doublekl_solve_qr(
+            a_s, a_f,
+            fg_threshold=fg_threshold,
+            fg_floor=fg_floor,
+            nc1=None if nc1 is None else float(nc1 / nc),
+            fg_reg_rel=fg_reg_rel,
+            sig_levels=sig_levels,
+            band_rel=band_rel,
         )
+
+    return _on_mesh(solve, as_tensor(bsvd5, device), mesh, ls, lf)
 
 
 def _topband_k(k: int, n: int) -> int:
@@ -570,15 +583,18 @@ def kl_factored_batched_topband(
     filter basis at max(n // 8, 8) columns.  Returns (evals (M, n), evecs
     (M, n, n), ok (M,) bool): a False certificate means that m's band
     overflowed the basis or the levels; re-solve it with the exact engine.
+    A ``mesh`` of more than one entry splits the m axis over its entries
+    (:func:`_on_mesh`), the certificates gathered per m.
     """
-    _no_mesh(mesh)
-    bsvd5 = as_tensor(bsvd5, device)
-    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact=False)
-    kl, ok = fpencil.kl_solve_qr_topband(
-        a_s, a_f, cut=cut, k=_topband_k(k, a_s.shape[-2]), levels=int(levels),
-        fg_reg_rel=fg_reg_rel,
-    )
-    return kl.evals, kl.evecs, ok
+    def solve(b, ls, lf):
+        a_s, a_f = _projected_factors(b, ls, lf, nc, compact=False)
+        kl, ok = fpencil.kl_solve_qr_topband(
+            a_s, a_f, cut=cut, k=_topband_k(k, a_s.shape[-2]), levels=int(levels),
+            fg_reg_rel=fg_reg_rel,
+        )
+        return kl.evals, kl.evecs, ok
+
+    return _on_mesh(solve, as_tensor(bsvd5, device), mesh, ls, lf)
 
 
 def doublekl_factored_batched_topband(
@@ -601,20 +617,22 @@ def doublekl_factored_batched_topband(
     :func:`doublekl_factored_batched` and a trailing per-m ``ok`` (both
     stages' certificates).  Stage 1 computes only the modes it keeps (S/F
     above ``fg_threshold``), stage 2 those above ``cut``; everything below
-    either cut is exact zeros."""
-    _no_mesh(mesh)
-    bsvd5 = as_tensor(bsvd5, device)
-    a_s, a_f = _projected_factors(bsvd5, ls, lf, nc, compact=False)
-    return fpencil.doublekl_solve_qr_topband(
-        a_s, a_f,
-        cut=cut,
-        k=_topband_k(k, a_s.shape[-2]),
-        levels=int(levels),
-        fg_threshold=fg_threshold,
-        fg_floor=fg_floor,
-        nc1=None if nc1 is None else float(nc1 / nc),
-        fg_reg_rel=fg_reg_rel,
-    )
+    either cut is exact zeros.  A ``mesh`` of more than one entry splits
+    the m axis over its entries (:func:`_on_mesh`)."""
+    def solve(b, ls, lf):
+        a_s, a_f = _projected_factors(b, ls, lf, nc, compact=False)
+        return fpencil.doublekl_solve_qr_topband(
+            a_s, a_f,
+            cut=cut,
+            k=_topband_k(k, a_s.shape[-2]),
+            levels=int(levels),
+            fg_threshold=fg_threshold,
+            fg_floor=fg_floor,
+            nc1=None if nc1 is None else float(nc1 / nc),
+            fg_reg_rel=fg_reg_rel,
+        )
+
+    return _on_mesh(solve, as_tensor(bsvd5, device), mesh, ls, lf)
 
 
 def generalised_eigh_batched(A, B, device=None):

@@ -248,15 +248,12 @@ def legendre_contract(F, G, cos_t, sin_t, lmax: int, pixarea: float, m_lo: int =
         [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
         + [ctypes.c_double, ctypes.c_void_p],
     )
-    backend.check(
-        fn(
-            F.data_ptr(), G.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-            logpref.data_ptr(), sched.data_ptr(), sched.shape[0], pos.data_ptr(),
-            neg.data_ptr(), B, nm, m_lo, nring, lmax, float(pixarea), backend.stream_ptr(dev),
-        ),
-        K3K5.name,
+    backend.launch(
+        K3K5, fn, dev,
+        F.data_ptr(), G.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
+        logpref.data_ptr(), sched.data_ptr(), sched.shape[0], pos.data_ptr(),
+        neg.data_ptr(), B, nm, m_lo, nring, lmax, float(pixarea),
     )
-    K3K5.launches += 1
     return pos.transpose(1, 2), neg.transpose(1, 2)
 
 
@@ -592,17 +589,13 @@ def legendre_synth(pos, neg, cos_t, sin_t):
         [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
         + [ctypes.c_void_p],
     )
-    backend.check(
-        fn(
-            pos.data_ptr(), None if neg is None else neg.data_ptr(),
-            cos_t.data_ptr(), sin_t.data_ptr(), logpref.data_ptr(), coef.data_ptr(),
-            sched.data_ptr(), sched.shape[0], tpos.data_ptr(),
-            None if tneg is None else tneg.data_ptr(), B, nm, nring, nl - 1,
-            backend.stream_ptr(dev),
-        ),
-        K14.name,
+    backend.launch(
+        K14, fn, dev,
+        pos.data_ptr(), None if neg is None else neg.data_ptr(),
+        cos_t.data_ptr(), sin_t.data_ptr(), logpref.data_ptr(), coef.data_ptr(),
+        sched.data_ptr(), sched.shape[0], tpos.data_ptr(),
+        None if tneg is None else tneg.data_ptr(), B, nm, nring, nl - 1,
     )
-    K14.launches += 1
     return tpos, tneg
 
 

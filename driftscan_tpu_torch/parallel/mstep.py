@@ -21,6 +21,7 @@ import torch
 
 from .. import backend
 from ..ops import fpencil, linalg, projections
+from . import mesh as meshmod
 
 K13 = backend.register(
     "k13_fisher_cov",
@@ -216,6 +217,7 @@ def kl_product_step(
     kl_cut: float = 0.0,
     kl_top_k: int = 0,
     kl_levels: int = 5,
+    mesh=None,
 ) -> ProductStepResult:
     """SVD-compress and KL-filter a batch of m-modes: :func:`compress_step`
     then :func:`kl_solve_step`.
@@ -243,7 +245,26 @@ def kl_product_step(
     ``kl_levels`` deflation levels of a ``kl_top_k``-column filtered
     basis, the rest are exact zeros, and ``ok`` carries each m's
     certificate.
+
+    With a ``mesh`` of more than one entry (``parallel/mesh.py``) the step
+    is sharded along m, the counterpart of the JAX package's
+    ``jit_product_step(mesh=)``: the beam batch and the m values are split
+    over the entries (M must divide the mesh size), noisew, ls and lf are
+    replicated, each entry runs the step on its part in its own worker
+    thread, and every output is gathered along m on the beams' device.
     """
+    mesh = meshmod.multi(mesh)
+    if mesh is not None:
+        kw = dict(polsvcut=polsvcut, svcut=svcut, with_thermal=with_thermal,
+                  fg_levels=fg_levels, sig_levels=sig_levels, band_rel=band_rel,
+                  fg_k_cap=fg_k_cap, sig_k_cap=sig_k_cap, method=method, s_cap=s_cap,
+                  compact_signal=compact_signal, kl_cut=kl_cut, kl_top_k=kl_top_k,
+                  kl_levels=kl_levels)
+        return meshmod.shard_map(
+            lambda b, mv, nw, s, f: kl_product_step(b, nw, s, f, mv, npol, nl, **kw),
+            mesh, sharded=(beam, m_values), replicated=(noisew, ls, lf),
+            gather_to=beam.device,
+        )
     comp = compress_step(beam, noisew, ls, lf, m_values, npol, nl, polsvcut, svcut, s_cap,
                          method=method, compact_signal=compact_signal)
     return kl_solve_step(comp, sig_levels=sig_levels, band_rel=band_rel, kl_cut=kl_cut,
@@ -327,21 +348,17 @@ def fisher_cov(v: torch.Tensor, bt: torch.Tensor, band_lt: torch.Tensor):
         "fisher_cov_c64" if v.dtype == torch.complex64 else "fisher_cov_c128",
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     )
-    backend.check(
-        fn(
-            v.data_ptr(), bt.data_ptr(), band_lt.data_ptr(), g.data_ptr(), y.data_ptr(),
-            out.data_ptr(), part_ptr, part_bytes,
-            M, k, F, S, nl, nlp, nb, Kb, nsplit, cps,
-            backend.stream_ptr(v.device),
-        ),
-        K13.name,
+    backend.launch(
+        K13, fn, v.device,
+        v.data_ptr(), bt.data_ptr(), band_lt.data_ptr(), g.data_ptr(), y.data_ptr(),
+        out.data_ptr(), part_ptr, part_bytes,
+        M, k, F, S, nl, nlp, nb, Kb, nsplit, cps,
     )
-    K13.launches += 1
     return out
 
 
 def fisher_step(evals, evecs, beam_svd, band_lt, ps_threshold: float, npol: int,
-                nl: int, kf: int, s_cap: int = 0, f_idx=None):
+                nl: int, kf: int, s_cap: int = 0, f_idx=None, mesh=None):
     """Per-m quadratic-estimator Fisher matrices from the KL products.
 
     F_ab[m] = sum_ij w_i w_j C_a[i, j] C_b[j, i] with w = 1/(1 + lambda)
@@ -355,10 +372,21 @@ def fisher_step(evals, evecs, beam_svd, band_lt, ps_threshold: float, npol: int,
     and ``f_idx`` (the band table's frequencies of the chunk's frequency
     slots; padding slots need no mask: their beams are zero).  Returns
     (M, nb, nb) complex128 (:func:`projections.fisher_trace`, accumulated
-    in float64).
+    in float64).  A ``mesh`` of more than one entry splits evals, evecs and
+    beam_svd along m over its entries and replicates band_lt, as
+    :func:`kl_product_step` does; the per-m matrices are gathered on the
+    spectra's device.
     """
     if ps_threshold <= 0:
         raise ValueError("ps_threshold must be > 0 (padding-slot contract)")
+    mesh = meshmod.multi(mesh)
+    if mesh is not None:
+        return meshmod.shard_map(
+            lambda e, v, b, bl: fisher_step(e, v, b, bl, ps_threshold, npol, nl, kf,
+                                            s_cap, f_idx),
+            mesh, sharded=(evals, evecs, beam_svd), replicated=(band_lt,),
+            gather_to=evals.device,
+        )
     M, F, S = beam_svd.shape[0], beam_svd.shape[1], beam_svd.shape[2]
     s_kl = s_cap if 0 < s_cap < S else S
     if f_idx is not None:

@@ -19,7 +19,8 @@ and each m-chunk runs with its frequency axis compacted to the active
 frequencies and its mode axis capped at the chunk's largest count.  With
 ``topband`` the KL stage takes the top-band engine (only the eigenpairs
 above the retention cut, with an escalation on a failed certificate).
-Device meshes are not ported yet; asking for one raises.
+With a device ``mesh`` (``parallel/mesh.py``) each dispatch's m-batch is
+split over the mesh's entries, each solving its own m on its own card.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import telescope as teles
+from . import mesh as meshmod
 from . import mstep
 
 
@@ -358,11 +360,19 @@ def product_all_resident(
     quick-look, approximate by design (its unresolved tail reports
     eigenvalue 0).  It applies wherever the exact engine runs (the
     adaptive depth, a top-band chunk's fallback).
+
+    With a ``mesh`` of more than one entry (the JAX package's rule) each
+    dispatch's m-batch is split over the entries, each solving its part
+    in its own worker thread on its own device (:func:`product_m_batch`):
+    ``mbatch`` is rounded up to a multiple of the mesh size, the tables,
+    factors and band table are replicated once a distinct device (pass
+    tables from an unsharded :func:`btm_resident`), the adaptive depth and
+    a top-band redispatch are decided over the whole dispatch, and the
+    Fisher is summed over the parts.  Auto ``bucket`` is then off, and
+    ``bucket=True`` raises ValueError (compacted batch sizes need not
+    divide the mesh).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported yet: ROADMAP.md, modules to port, item 11"
-        )
+    mesh = meshmod.multi(mesh)
     if m_range is not None:
         m_lo, m_hi = int(m_range[0]), int(m_range[1])
         if pos.shape[-1] != m_hi - m_lo or neg.shape[-1] != m_hi - m_lo:
@@ -380,7 +390,13 @@ def product_all_resident(
     F = tel.nfreq
     S = pencil_size(tel) // F
     if bucket is None:
-        bucket = auto_bucket(tel, nm, m_lo)
+        bucket = mesh is None and auto_bucket(tel, nm, m_lo)
+    elif bucket and mesh is not None:
+        raise ValueError(
+            "bucket=True is unsupported on a multi-device mesh: compacted "
+            "chunk batch sizes are not device-divisible; use bucket=False "
+            "(the auto default for meshes)"
+        )
 
     dev = pos.device
     rdt = pos.real.dtype
@@ -389,6 +405,10 @@ def product_all_resident(
 
     if mbatch is None:
         mbatch = auto_mbatch(tel, ls.shape[-1], lf.shape[-1], dev)
+    tabs = (pos, neg, ls, lf, noisew, band_dev)
+    if mesh is not None:
+        mbatch = meshmod.pad_batch(mbatch, mesh)
+        tabs = tuple(None if t is None else meshmod.replicate(t, mesh) for t in tabs)
 
     if bucket:
         nl = tel.lmax + 1
@@ -419,10 +439,10 @@ def product_all_resident(
             chunks.append(ch)
         take = int((ch.m_values >= 0).sum())
         ev, nmo, fm = product_m_batch(
-            tel, pos, neg, ls, lf, noisew, ch.m_values, band_lt=band_dev,
+            tel, *tabs[:5], ch.m_values, band_lt=tabs[5],
             ps_threshold=ps_threshold, sig_levels=sig_levels,
             m_lo=m_tab, chunk=ch, kl_cut=kl_cut if topband else None,
-            sig_k_cap=sig_k_cap,
+            sig_k_cap=sig_k_cap, mesh=mesh,
         )
         if fisher:
             fish_total += fm
@@ -453,30 +473,42 @@ def _run_topband(run, n_chunk, kl_cut, exact_levels):
     """One chunk through the top-band engine, with the escalation.
 
     ``run(levels, **kw)`` runs the product step's KL stage on the chunk's
-    SVD stage, computed once (:func:`mstep.kl_solve_step`).  Starts from the (k,
-    levels) remembered for this pencil dimension (n / _TB_START_FRAC
-    columns, quantised, at least 8; 5 levels); while some m fails its
-    certificate the chunk is redispatched at (2k, levels + 1); past k =
+    SVD stage, computed once (:func:`mstep.kl_solve_step`), and returns
+    the per-part results of the dispatch.  Starts from the (k, levels)
+    remembered for this pencil dimension (n / _TB_START_FRAC columns,
+    quantised, at least 8; 5 levels); while some m of the dispatch fails
+    its certificate the chunk is redispatched at (2k, levels + 1); past k =
     n/2 the filtered engine no longer pays and the chunk takes the exact
-    engine at ``exact_levels``.  Returns the product step's result."""
+    engine at ``exact_levels``.  Returns ``run``'s result."""
     k, lv = _TB_STATE.get(
         n_chunk, (_quant_frac(max(n_chunk // _TB_START_FRAC, 8), n_chunk), 5)
     )
     while k <= n_chunk // 2:
         TB_COUNTS["solves"] += 1
-        res = run(2, kl_cut=float(kl_cut), kl_top_k=int(min(k, n_chunk)), kl_levels=int(lv))
-        if bool(res.ok.all()):
+        parts = run(2, kl_cut=float(kl_cut), kl_top_k=int(min(k, n_chunk)), kl_levels=int(lv))
+        if all(bool(res.ok.all()) for res, _ in parts):
             _TB_STATE[n_chunk] = (k, lv)
-            return res
+            return parts
         TB_COUNTS["failed"] += 1
         k, lv = 2 * k, lv + 1
     TB_COUNTS["exact"] += 1
     return run(exact_levels)
 
 
+def _each(fn, mesh, *per_part):
+    """``fn`` over the parts of a dispatch, each argument a sequence with
+    one value a part: inline for the one part of an unsharded dispatch,
+    else one worker thread a mesh entry (:func:`parallel.mesh.shard_map`).
+    Returns the results, a list with one a part."""
+    if mesh is None:
+        return [fn(*(a[0] for a in per_part))]
+    return list(meshmod.shard_map(fn, mesh, [meshmod.Shards(a) for a in per_part],
+                                  stack=False))
+
+
 def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
                     ps_threshold=0.1, sig_levels=None, m_lo=None, chunk=None,
-                    kl_cut=None, sig_k_cap=0):
+                    kl_cut=None, sig_k_cap=0, mesh=None):
     """One m-batch of :func:`product_all_resident`, any m's.
 
     The batch's beams are gathered from the resident tables and go
@@ -495,48 +527,78 @@ def product_m_batch(tel, pos, neg, ls, lf, noisew, m_values, band_lt=None,
     chunk that falls back to the exact engine takes the default depth
     where ``sig_levels`` is None, as in the JAX package).  ``sig_k_cap``
     as in :func:`product_all_resident`.
+
+    A ``mesh`` of more than one entry splits m_values over its entries (M
+    must divide its size) and runs each part's SVD stage, KL solve and
+    Fisher in the entry's worker thread, on the entry's copy of the tables
+    and factors (:class:`parallel.mesh.Shards` from
+    :func:`parallel.mesh.replicate`, or tensors, replicated here).  Each
+    part computes exactly what an unsharded dispatch of its m computes,
+    its Fisher at its own retained count; the adaptive depth and a failed
+    certificate are decided over the whole batch.
     """
     if band_lt is not None and float(ps_threshold) <= 0:
         raise ValueError("ps_threshold must be > 0 for the Fisher pass")
+    mesh = meshmod.multi(mesh)
     npol = tel.num_pol_sky
     nl = tel.lmax + 1
-    mvt = torch.as_tensor(np.asarray(m_values, dtype=np.int64), device=pos.device)
     f_idx = s_cap = None
     if chunk is not None and chunk.compacted:
         f_idx, s_cap = chunk.f_idx, chunk.sq
-        fi = torch.as_tensor(f_idx, device=pos.device)
-        noisew, ls, lf = noisew[fi], ls[:, :, fi], lf[:, :, fi]
-    beam = _build_beam_batch(
-        pos, neg, mvt, tel.npairs, tel.nfreq, npol, nl, m_lo=m_lo, f_idx=f_idx,
-        fmask=None if chunk is None else chunk.fmask,
-    )
+    mv = np.asarray(m_values, dtype=np.int64)
+    tabs = (pos, neg, ls, lf, noisew, band_lt)
+    if mesh is None:
+        parts = [[mv]] + [[t] for t in tabs]
+    else:
+        parts = [meshmod.shard_batch(mv, mesh)] + [meshmod.replicate(t, mesh) for t in tabs]
+
+    def compress(mv, pos, neg, ls, lf, noisew):
+        mvt = torch.as_tensor(mv, device=pos.device)
+        if f_idx is not None:
+            fi = torch.as_tensor(f_idx, device=pos.device)
+            noisew, ls, lf = noisew[fi], ls[:, :, fi], lf[:, :, fi]
+        beam = _build_beam_batch(
+            pos, neg, mvt, tel.npairs, tel.nfreq, npol, nl, m_lo=m_lo, f_idx=f_idx,
+            fmask=None if chunk is None else chunk.fmask,
+        )
+        return mstep.compress_step(beam, noisew, ls, lf, mvt, npol=npol, nl=nl,
+                                   s_cap=s_cap or 0)
 
     # the SVD stage once; each solve of the pencil (a deeper exact solve, a
     # top-band redispatch) reuses it
-    comp = mstep.compress_step(beam, noisew, ls, lf, mvt, npol=npol, nl=nl, s_cap=s_cap or 0)
+    comps = _each(compress, mesh, *parts[:-1])
 
     def run(levels, **kw):
-        return mstep.kl_solve_step(comp, sig_levels=levels, sig_k_cap=sig_k_cap, **kw)
+        def solve(comp):
+            res = mstep.kl_solve_step(comp, sig_levels=levels, sig_k_cap=sig_k_cap, **kw)
+            return res, res.evals.cpu().numpy()
+
+        return _each(solve, mesh, comps)
 
     if kl_cut is not None:
         n_chunk = pencil_size(tel) if chunk is None else chunk.fq * chunk.sq
-        res = _run_topband(run, n_chunk, kl_cut, 2 if sig_levels is None else sig_levels)
-        ev = res.evals.cpu().numpy()
+        out = _run_topband(run, n_chunk, kl_cut, 2 if sig_levels is None else sig_levels)
     else:
-        res = run(1 if sig_levels is None else sig_levels)
-        ev = res.evals.cpu().numpy()
-        if sig_levels is None and ev.max() > _SIG1_TOP_BOUND:
-            res = run(2)
-            ev = res.evals.cpu().numpy()
-    fish = None
-    if band_lt is not None:
-        fish = np.zeros((band_lt.shape[0],) * 2, np.complex128)
-        kf = fisher_k(ev, ps_threshold)
-        if kf:
-            fm = mstep.fisher_step(
-                res.evals, res.evecs, res.beam_svd, band_lt,
-                ps_threshold=float(ps_threshold), npol=npol, nl=nl, kf=kf,
-                s_cap=s_cap or 0, f_idx=f_idx,
-            )
-            fish += fm.sum(0).cpu().numpy().astype(np.complex128)
-    return ev, res.nmodes.cpu().numpy(), fish
+        out = run(1 if sig_levels is None else sig_levels)
+        if sig_levels is None and max(ev.max() for _, ev in out) > _SIG1_TOP_BOUND:
+            out = run(2)
+
+    def finish(res_ev, band_lt):
+        res, ev = res_ev
+        fish = None
+        if band_lt is not None:
+            fish = np.zeros((band_lt.shape[0],) * 2, np.complex128)
+            kf = fisher_k(ev, ps_threshold)
+            if kf:
+                fm = mstep.fisher_step(
+                    res.evals, res.evecs, res.beam_svd, band_lt,
+                    ps_threshold=float(ps_threshold), npol=npol, nl=nl, kf=kf,
+                    s_cap=s_cap or 0, f_idx=f_idx,
+                )
+                fish += fm.sum(0).cpu().numpy().astype(np.complex128)
+        return ev, res.nmodes.cpu().numpy(), fish
+
+    done = _each(finish, mesh, out, parts[-1])
+    fish = None if band_lt is None else sum(f for _, _, f in done)
+    return (np.concatenate([d[0] for d in done]), np.concatenate([d[1] for d in done]),
+            fish)

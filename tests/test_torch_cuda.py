@@ -1202,3 +1202,75 @@ def test_sht_refinement_on_the_card(cuda, neg_m):
     for g, w in zip(got, want):
         if w is not None:
             assert float((g.cpu() - w).abs().max()) <= 1e-10 * float(w.abs().max())
+
+
+def test_mesh_of_two_entries_matches_unsharded_batches(cuda):
+    """``product_all_resident(mesh=)`` on a mesh of two entries of the card
+    (two shards, two worker threads) at mbatch 4 against ``mesh=None`` at
+    mbatch 2, sig_levels pinned: each shard runs the batch of one unsharded
+    dispatch, so spectra and SVD mode counts bit for bit, the Fisher within
+    1e-12 of max (summed in another order), every launch count equal
+    (chip_smoke.py's ``[mesh]`` gate (a) at a small cylinder)."""
+    import chip_smoke
+    from driftscan_tpu_torch.parallel import mesh as meshmod
+    from driftscan_tpu_torch.parallel import resident
+
+    tel = cylinder.UnpolarisedCylinderTelescope.from_config(
+        dict(num_freq=4, freq_start=400.0, freq_end=410.0, freq_mode="edge", num_cylinders=2,
+             cylinder_width=3.0, num_feeds=3, feed_spacing=1.0, single_precision=True),
+        device=cuda,
+    )
+    bl, fi = np.arange(tel.npairs), np.arange(tel.nfreq)
+    blg, fig = [x.ravel() for x in np.meshgrid(bl, fi, indexing="ij")]
+    cl_s, cl_n, noisew = chip_smoke.covariances(tel)
+    ls, lf = mstep.prepare_cl_factors(cl_s, cl_n)
+    blt = mstep.band_factor_table(iter(chip_smoke.fisher_bands(tel)), out_dtype=np.float32,
+                                  rank_rtol=1e-9)
+    pos, neg = resident.btm_resident(tel, blg, fig)
+    kw = dict(band_lt=blt, ps_threshold=1e-3, sig_levels=2, bucket=False, max_m=16)
+    runs = []
+    for mesh, mb in ((meshmod.make_mesh([cuda, cuda]), 4), (None, 2)):
+        backend.reset_launch_counts()
+        out = resident.product_all_resident(tel, pos, neg, ls, lf, noisew, mesh=mesh,
+                                            mbatch=mb, **kw)
+        torch.cuda.synchronize()
+        runs.append((out, {k.name: k.launches for k in backend.KERNELS.values()}))
+    ((ev2, nm2, f2), l2), ((ev1, nm1, f1), l1) = runs
+    assert np.array_equal(ev2, ev1) and np.array_equal(nm2, nm1)
+    assert np.abs(f1).max() > 0 and np.abs(f2 - f1).max() <= 1e-12 * np.abs(f1).max()
+    assert l2 == l1 and l1["k13_fisher_cov"] > 0 and l1["k15b_fisher_trace"] > 0
+
+
+# each kernel's wrapper through one of the tests above, on tensors of a
+# second card
+_ON_SECOND_CARD = {
+    "k1k2_beam_vis": lambda d: test_k1k2_beam_vis(d),
+    "k1k2_stokes_vis": lambda d: test_k1k2_stokes_vis(d, {}, 4),
+    "k2_host_vis": lambda d: test_k2_host_vis(d, torch.float32, 1e-5, True, 1000),
+    "k2_host_stokes": lambda d: test_k2_host_stokes(d, torch.float64, 1e-10, False, 4),
+    "k3k5_legendre_sht": lambda d: test_k3k5_legendre_sht(d, torch.complex64),
+    "k14_legendre_synth": lambda d: test_k14_legendre_synth(
+        d, K14_SHAPES[0], True, torch.complex128, 1e-10),
+    "k9_signal_gram": lambda d: test_k9_signal_gram(d, K9_SHAPES[1], torch.complex64),
+    "k13_fisher_cov": lambda d: test_k13_fisher_cov(d, K13_SHAPES[-1], torch.complex64),
+    "k15a_sandwich": lambda d: test_k15a_sandwich_band_form(
+        d, K15A_BAND[4], torch.complex128, 1e-12),
+    "k15b_fisher_trace": lambda d: test_k15b_fisher_trace(d, 65, 1, 3, torch.complex64, 1e-12),
+    "k17_cheb_step": lambda d: test_k17_cheb_step(d, K17_SHAPES[1], False),
+    "probe_double": lambda d: test_probe_double(d),
+    "probe_mm": lambda d: test_probe_mm(d, torch.float32, 1e-5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ON_SECOND_CARD))
+def test_wrappers_launch_on_their_tensors_card(cuda, name):
+    """Every wrapper launches on its tensors' card (``backend.launch``
+    enters it around the C call): the kernel's test on tensors of cuda:1
+    while cuda:0 is the current device, against its plain version there.
+    Skips below two cards."""
+    assert set(_ON_SECOND_CARD) == set(backend.KERNELS)
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: tensors of cuda:1 while cuda:0 is current")
+    with torch.cuda.device(0):
+        _ON_SECOND_CARD[name](torch.device("cuda", 1))
+        assert torch.cuda.current_device() == 0

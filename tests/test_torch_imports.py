@@ -47,6 +47,7 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.ops.projections",
     "driftscan_tpu_torch.ops.sht",
     "driftscan_tpu_torch.parallel.comm",
+    "driftscan_tpu_torch.parallel.mesh",
     "driftscan_tpu_torch.parallel.mstep",
     "driftscan_tpu_torch.parallel.resident",
     "driftscan_tpu_torch.telescope.beamlib",

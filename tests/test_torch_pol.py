@@ -321,8 +321,10 @@ def test_skipped_stokes_components_are_zero(runs, skip, kept):
 def test_pol_unported_options_raise():
     tt = cylinder.PolarisedCylinderTelescope.from_config(dict(CFG, num_freq=1), device="cpu")
     z = torch.zeros((1, 4, 2, 2), dtype=torch.complex128)
-    # the top-band engine is ported (tests/test_torch_topband_resident.py)
-    with pytest.raises(NotImplementedError):
+    # the top-band engine and device meshes are ported
+    # (tests/test_torch_topband_resident.py, tests/test_torch_mesh_pipeline.py);
+    # a mesh that is not a Mesh raises
+    with pytest.raises(TypeError, match="Mesh"):
         resident.product_all_resident(tt, z, z, None, None, None, mesh=object())
     with pytest.raises(ValueError):
         kernels.bank_stokes_maps(*(torch.zeros(1),) * 7, pxarea=1.0, npol=5)

@@ -367,19 +367,26 @@ def test_doublekl_factored_batched(nc1):
 
 def test_topband_dispatchers_name_their_roadmap_line():
     """The top-band dispatchers are ported: each returns its per-m
-    certificate (their parity is in tests/test_torch_topband*.py); a device
-    mesh still names its ROADMAP line.  The ``gram`` engine runs through
+    certificate (their parity is in tests/test_torch_topband*.py).  Device
+    meshes are ported (tests/test_torch_mesh_pipeline.py): a ``mesh`` that
+    is not a ``Mesh`` raises TypeError, and a one-entry mesh takes the
+    unsharded path, bit for bit.  The ``gram`` engine runs through
     ``kl_factored_batched`` as in the JAX package."""
+    from driftscan_tpu_torch.parallel import mesh as meshmod
+
     bsvd, ls, lf = _factor_inputs(24)
     lf = lf * 1e-3
+    one = meshmod.make_mesh(["cpu"])
     for fn, kw in ((TP.kl_factored_batched_topband, {}),
                    (TP.doublekl_factored_batched_topband, dict(fg_threshold=5.0))):
         out = fn(bsvd, ls, lf, cut=1e-3, device="cpu", **kw)
         ok = out[-1]
         assert ok.dtype == torch.bool and ok.shape == (bsvd.shape[0],)
         assert out[0].shape == (bsvd.shape[0], bsvd.shape[1] * bsvd.shape[2])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+        with pytest.raises(TypeError, match="Mesh"):
             fn(bsvd, ls, lf, cut=1e-3, device="cpu", mesh=object())
+        for a, b in zip(out, fn(bsvd, ls, lf, cut=1e-3, device="cpu", mesh=one, **kw)):
+            assert torch.equal(a, b)
     ev, _ = TP.kl_factored_batched(bsvd, ls, lf, method="gram", device="cpu")
     jev, _ = JP.kl_factored_batched(bsvd, ls, lf, method="gram")
     _close(ev, np.asarray(jev), 1e-10)

@@ -106,6 +106,8 @@ def test_fisher_matches(runs):
 def test_unported_options_raise():
     tt = cylinder.UnpolarisedCylinderTelescope.from_config(CFG, device="cpu")
     z = torch.zeros((1, 1, 2, 2), dtype=torch.complex128)
-    # the top-band engine is ported (tests/test_torch_topband_resident.py)
-    with pytest.raises(NotImplementedError):
+    # the top-band engine and device meshes are ported
+    # (tests/test_torch_topband_resident.py, tests/test_torch_mesh_pipeline.py);
+    # a mesh that is not a Mesh raises
+    with pytest.raises(TypeError, match="Mesh"):
         resident.product_all_resident(tt, z, z, None, None, None, mesh=object())
