@@ -37,7 +37,14 @@ script exits non-zero:
    float32 plain version from the float64 truth on the same inputs;
    K3+K5 over an m-window at the ``[ns2 window]`` shape (m 270..314,
    complex64, rel 1e-5), whose columns must equal a full-range call's
-   bit for bit; K17 (the top-band engine's Chebyshev filter step,
+   bit for bit; K4 (the phase stage) at the ``[slice]`` chunk (complex64,
+   m 0..229) and ``[pol]``'s (B = units x 4 Stokes, m 0..120), the ``[dish]`` chunk (complex128, m 0..494), the ``[ns2
+   window]`` shape (m 270..314, its columns bitwise a full-range call's)
+   and ns1b's (nside 1024, m 0..32; in ``[ns1b window]``), rel 1e-5 in
+   complex64 and 1e-12 in complex128, bitwise repeats, the kernel and the
+   plain version against a complex128 plain of the same inputs printed;
+   K4's inverse at K14's timestream shape, real and complex forms, both
+   types; K17 (the top-band engine's Chebyshev filter step,
    complex128) at the slice's shape (M 8, n 352, K 352, k 44) and at
    ns2's full size (M 1, n 3200, K 3200, k 400): V_out within 1e-12 of
    its max, the running scale within 1e-13 rel, bitwise repeats, the
@@ -259,6 +266,8 @@ RESTRICTED_PARAMS = dict(BENCH_PARAMS, beam_type="gaussian")
 RESTRICTED_POL_PARAMS = dict(POL_PARAMS, beam_type="box")
 # the beam and visibility-map kernels: one of them serves each path
 MAP_KERNELS = ("k1k2_beam_vis", "k1k2_stokes_vis", "k2_host_vis", "k2_host_stokes")
+# the forward SHT's two stages: the phase stage (K4) and the Legendre stage
+SHT_STAGES = ("k4_phase", "k3k5_legendre_sht")
 PS_THRESHOLD = 0.1  # bench's KL retention cut for the Fisher
 # The polarised telescope's KL spectrum tops at 6.42e-5 (m = 6), in the JAX
 # package as in the port: its product step on the same BTM tables gives the
@@ -369,8 +378,8 @@ MP_MC_SAMPLES = 500
 MP_TIMEOUT_S = 600
 # [timestream]'s output maps at the input sky's nside over this
 TS_MAP_NSIDE_DIV = 2
-FILE_PATH_KERNELS = ["k1k2_beam_vis", "k3k5_legendre_sht", "k9_signal_gram", "k15a_sandwich",
-                     "k15b_fisher_trace"]
+FILE_PATH_KERNELS = ["k1k2_beam_vis", "k4_phase", "k3k5_legendre_sht", "k9_signal_gram",
+                     "k15a_sandwich", "k15b_fisher_trace"]
 NBANDS = 4  # Fisher bands of every path: edges linspace(0.02, 0.25, 5)
 # [gram engine]: the JAX package's gram depths (fg 8, sig 5, band_rel 1e-1)
 # over the slice's first GRAM_CHUNKS m-chunks of CPU_CHECK_M m (depth cut:
@@ -707,6 +716,10 @@ def kernel_phases(tel, ptel):
         G = crandn((B, nm, g.nring))
         keep("k3k5_legendre_sht", k3k5_compare(F, G, g, sub_lmax, 1e-4, f"B {B}"))
         del F, G
+        # K4 on that chunk's padded maps, the full m range
+        maps = phase_maps(B, ns, torch.complex64, SEED + 11)
+        keep("k4_phase", k4_compare(maps, ns, nm, "[pol] chunk" if pol else "[slice] chunk"))
+        del maps
 
         # K9: an m-batch of sky->SVD beams (8, F, S, npol, nl) and a signal
         # factor as wide as the path's (npol 4 is off the polarised path,
@@ -744,6 +757,7 @@ def kernel_phases(tel, ptel):
             keep("k15b_fisher_trace", trace_compare(n, rng))
             trace_compare(n, rng, dtype=torch.complex64, M=8)
     keep("k14_legendre_synth", k14_compare(tel, rng))
+    keep("k4_phase_inv", k4_inv_compare(tel))
     n = resident.pencil_size(tel)
     k, K = k17_shape(n)
     keep("k17_cheb_step", k17_compare(8, n, K, k, rng, "slice"))
@@ -918,8 +932,8 @@ def k3k5_compare(F, G, g, lmax, rtol, what, tag="kernels", reps=5, m_lo=0):
 
 
 def k3k5_dish_compare(dtel, rng):
-    """K3+K5 at the ``[dish]`` path's first BTM chunk: complex128, its
-    largest band limit (494) on the rings of nside 512."""
+    """K3+K5 and K4 at the ``[dish]`` path's first BTM chunk: complex128,
+    its largest band limit (494) on the rings of nside 512."""
     from driftscan_tpu_torch import backend
     from driftscan_tpu_torch.ops import healpix
 
@@ -932,6 +946,9 @@ def k3k5_dish_compare(dtel, rng):
     G = _crandn(rng, (B, nm, g.nring), dtype, dtel.device)
     k3k5_compare(F, G, g, sub_lmax, 1e-10, f"[dish] chunk: B {B}", tag="host kernels", reps=3)
     legendre_table_lib.cache_clear()  # its float64 table is ~4 GB
+    del F, G
+    maps = phase_maps(B, ns, dtype, SEED + 12)
+    k4_compare(maps, ns, nm, "[dish] chunk", tag="host kernels", reps=3)
 
 
 def k3k5_window_compare(ntel, rng):
@@ -965,6 +982,143 @@ def k3k5_window_compare(ntel, rng):
         f"{'bitwise equal' if same else 'differ from'} the full-range call's")
     if not same:
         raise AssertionError("k3k5_legendre_sht: a window's columns differ from the full range's")
+    return rec
+
+
+def phase_maps(B, nside, dtype, seed):
+    """Seeded padded maps (B, nring, maxlen) of ``dtype`` on the card,
+    padding slots zero, from a generator on the card (ns1b's are 8.6 GB)."""
+    import torch
+
+    from driftscan_tpu_torch.ops import healpix
+
+    g = healpix.ring_geometry(nside)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    x = torch.randn((B, g.nring, g.maxlen, 2), generator=gen, dtype=rdt, device="cuda")
+    x *= torch.as_tensor(g.mask, dtype=rdt, device="cuda")[..., None]
+    return torch.view_as_complex(x)
+
+
+def k4_compare(maps, nside, nm, what, m0=0, tag="kernels", reps=5):
+    """K4 (the phase stage) against its plain version (one FFT a ring
+    length) on padded maps (B, nring, maxlen) for m = m0 .. m0 + nm - 1:
+    max error (rel 1e-5 in complex64, 1e-12 in complex128), a bitwise
+    repeat, kernel and plain ms; library none (no one PyTorch call projects
+    onto a set of m).  Bound: the maps' B x npix pixels read once (not the
+    padding slots, which the kernel never reads), F and G written once, beside 8 flops a (unit, pixel, m) at the card's peak for the type
+    (3xTF32 at 495 / 3 TFLOP/s for complex64, float64 at 67); the bound on
+    the CUDA cores the kernel runs them on is printed beside it.  In
+    complex64 the kernel and the plain version are also held against a
+    complex128 plain of the same inputs (printed)."""
+    import torch
+
+    from driftscan_tpu_torch.ops import healpix, sht
+
+    g = healpix.ring_geometry(nside)
+    B = maps.shape[0]
+    c128 = maps.dtype == torch.complex128
+    flops = 8.0 * B * g.npix * nm
+    moved = (B * g.npix + 2 * B * nm * g.nring) * maps.element_size()
+    cores = bound(moved, [(flops, F64_CUDA_CORE_FLOPS if c128 else F32_FLOPS)])[0]
+    log(f"[{tag}] k4_phase ({what}): {flops:.4e} flops, {moved / 1e9:.4f} GB; the bound on "
+        f"the CUDA cores ({'34 TFLOP/s float64' if c128 else '67 TFLOP/s float32'}) "
+        f"{cores:.4f} ms")
+    rec = compare(
+        f"k4_phase ({what}, nside {nside}, m {m0}..{m0 + nm - 1}, B {B}, {maps.dtype})",
+        lambda: sht.phase_stage(maps, nside, nm, m0),
+        lambda: sht.phase_stage_ref(maps, nside, nm, m0),
+        rtol=1e-12 if c128 else 1e-5, reps=reps, tag=tag, bitwise=True,
+        work=(moved, [(flops, F64_FLOPS if c128 else GRAM_FLOPS)]),
+    )
+    if not c128:
+        truth = sht.phase_stage_ref(maps.to(torch.complex128), nside, nm, m0)
+        errs = []
+        for fn in (sht.phase_stage, sht.phase_stage_ref):
+            out = fn(maps, nside, nm, m0)
+            errs.append(max(float((o.to(torch.complex128) - t).abs().max())
+                            for o, t in zip(out, truth)))
+            del out
+        scale = max(float(t.abs().max()) for t in truth)
+        del truth
+        log(f"[{tag}] k4_phase ({what}): max error against the complex128 plain of the same "
+            f"inputs: kernel {errs[0]:.6e}, plain {errs[1]:.6e} (max|F| {scale:.6e})")
+    return rec
+
+
+def k4_window_compare(ntel):
+    """K4 over the ``[ns2 window]`` m-window at that path's shape (its
+    largest nside's first chunk, B = units x 4 Stokes, complex64)
+    (:func:`k4_compare`), then the same call's columns against a full-range
+    call's (m 0..lmax) on the same maps, which must be bitwise equal."""
+    import torch
+
+    from driftscan_tpu_torch.ops import sht
+
+    ns, blc, _, sub_lmax = first_chunk(ntel)
+    B = len(blc) * ntel._npol_transform
+    m0, m1 = NS2_WINDOW
+    maps = phase_maps(B, ns, torch.complex64, SEED + 9)
+    rec = k4_compare(maps, ns, m1 - m0, "[ns2 window]", m0=m0)
+    win = sht.phase_stage(maps, ns, m1 - m0, m0)
+    full = sht.phase_stage(maps, ns, sub_lmax + 1)
+    same = all(torch.equal(w, f[:, m0:m1]) for w, f in zip(win, full))
+    log(f"[kernels] k4_phase window m {m0}..{m1 - 1}: columns "
+        f"{'bitwise equal' if same else 'differ from'} the full-range call's (m 0..{sub_lmax})")
+    if not same:
+        raise AssertionError("k4_phase: a window's columns differ from the full range's")
+    return rec
+
+
+def k4_inv_compare(tel, tag="kernels"):
+    """K4's inverse against its plain version (an ``index_add_`` fold and
+    one inverse FFT a ring length) at K14's timestream shape (B = nfreq x
+    npol, m 0..lmax, the rings of the nside of the telescope's BTM), in
+    complex64 and complex128 (recorded: the real form), real and complex
+    forms: max error (rel 1e-5, 1e-12), a bitwise repeat, kernel and plain
+    ms; library none.  Bound: T+ (and T-) read once, the maps written once,
+    beside 4 flops a (unit, pixel, m) in the real form and 8 in the complex
+    form at the card's peak for the type; in complex64 the kernel and the
+    plain version against a complex128 plain of the same inputs (printed)."""
+    import torch
+
+    from driftscan_tpu_torch.ops import healpix, sht
+
+    nside = tel._nside_for(tel.lmax)
+    g = healpix.ring_geometry(nside)
+    B, nm = tel.nfreq * tel.num_pol_sky, tel.lmax + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rec = None
+    for dtype in (torch.complex64, torch.complex128):
+        c128 = dtype == torch.complex128
+        rdt = torch.float64 if c128 else torch.float32
+        tp, tn = (torch.view_as_complex(torch.randn((B, nm, g.nring, 2), generator=gen,
+                                                    dtype=rdt, device="cuda"))
+                  for _ in range(2))
+        for form, neg in (("real", None), ("complex", tn)):
+            real = neg is None
+            flops = (4.0 if real else 8.0) * B * g.npix * nm
+            moved = nbytes(tp, *(() if real else (neg,)))
+            moved += B * g.nring * g.maxlen * (tp.element_size() // (2 if real else 1))
+            what = f"{form} form, B {B}, nside {nside}, m 0..{nm - 1}, {dtype}"
+            r = compare(
+                f"k4_phase_inv ({what})",
+                lambda: sht.phase_stage_inv(tp, neg, nside, real),
+                lambda: sht.phase_stage_inv_ref(tp, neg, nside, real),
+                rtol=1e-12 if c128 else 1e-5, reps=5, tag=tag, bitwise=True,
+                work=(moved, [(flops, F64_FLOPS if c128 else GRAM_FLOPS)]),
+            )
+            if c128 and real:
+                rec = r
+            if not c128:
+                wide = [None if x is None else x.to(torch.complex128) for x in (tp, neg)]
+                truth = sht.phase_stage_inv_ref(*wide, nside, real)
+                errs = [float((fn(tp, neg, nside, real).to(truth.dtype) - truth).abs().max())
+                        for fn in (sht.phase_stage_inv, sht.phase_stage_inv_ref)]
+                log(f"[{tag}] k4_phase_inv ({what}): max error against the complex128 plain of "
+                    f"the same inputs: kernel {errs[0]:.6e}, plain {errs[1]:.6e} (max "
+                    f"{float(truth.abs().max()):.6e})")
+                del wide, truth
     return rec
 
 
@@ -1274,7 +1428,8 @@ def path_kernels(tel, ls_width):
 
     n = resident.pencil_size(tel)
     width = (tel.lmax + 1) * ls_width
-    names = [map_kernel(tel), "k3k5_legendre_sht", "k13_fisher_cov", "k15b_fisher_trace"]
+    names = [map_kernel(tel), "k4_phase", "k3k5_legendre_sht", "k13_fisher_cov",
+             "k15b_fisher_trace"]
     if mstep.uses_compact_signal(n, width):
         names.append("k9_signal_gram")
     return names, n, width
@@ -1601,7 +1756,7 @@ def ns2_window_phase(ntel, tag="ns2 window"):
     if not np.abs(fisher - fisher.conj().T).max() <= 1e-4 * fscale:
         raise AssertionError(f"{tag}: Fisher matrix not Hermitian")
     log(f"[{tag}] Fisher max |F| {fscale:.6e} (zero when no mode passes {PS_THRESHOLD:g})")
-    names = [map_kernel(ntel), "k3k5_legendre_sht"]
+    names = [map_kernel(ntel), "k4_phase", "k3k5_legendre_sht"]
     nl = ntel.lmax + 1
     if any(mstep.uses_compact_signal(c.fq * c.sq, nl * ls.shape[-1]) for c in chunks):
         names.append("k9_signal_gram")
@@ -1817,7 +1972,8 @@ def ns2_retained_phase(ntel, tag="ns2 retained", nm=NS2_RETAINED_M, ntb=NS2_RETA
     if not (fscale > 0 and np.abs(fisher - fisher.conj().T).max() <= 1e-4 * fscale):
         raise AssertionError(f"{tag}: Fisher zero or not Hermitian (max|F| {fscale:.3e})")
     log(f"[{tag}] Fisher max |F| {fscale:.6e}, diag {np.round(np.diagonal(fisher).real, 9).tolist()}")
-    names = [map_kernel(ntel), "k3k5_legendre_sht", "k13_fisher_cov", "k15b_fisher_trace"]
+    names = [map_kernel(ntel), "k4_phase", "k3k5_legendre_sht", "k13_fisher_cov",
+             "k15b_fisher_trace"]
     if any(mstep.uses_compact_signal(c.fq * c.sq, (ntel.lmax + 1) * ls.shape[-1])
            for c in chunks):
         names.append("k9_signal_gram")
@@ -1934,6 +2090,9 @@ def ns1b_window_phase(tag="ns1b window", run_window=True):
             f"a call; the library's float64 lambda table ({sub_lmax + 1}, {m1 - m0}, "
             f"{g.nring}): {lam_gb:.2f} GiB")
         rec = k3k5_ns1b_compare(tel, np.random.default_rng(SEED + 8))
+        maps = phase_maps(B, ns, torch.complex64, SEED + 13)
+        k4_compare(maps, ns, m1 - m0, "[ns1b window]", m0=m0, reps=3)
+        del maps
         if not run_window:
             return None, rec
         nreal = min(m1, tel.mmax + 1) - m0
@@ -1965,7 +2124,7 @@ def ns1b_window_phase(tag="ns1b window", run_window=True):
         f"({card_line()})")
     if not (np.isfinite(evals).all() and np.isfinite(fisher).all()):
         raise AssertionError(f"{tag}: non-finite spectra or Fisher")
-    require_launched(tag, launches, [map_kernel(tel), "k3k5_legendre_sht"])
+    require_launched(tag, launches, [map_kernel(tel), "k4_phase", "k3k5_legendre_sht"])
     require_map_kernel(tag, tel, launches)
     record_compare(tag, evals, nmodes, fisher, NS1B_RECORD)
     del pos, neg
@@ -1988,7 +2147,7 @@ def oldcylinder_phase(tag="oldcylinder"):
     log(f"[{tag}] {type(tel).__module__}.{type(tel).__name__}: bank beams "
         f"{tel._bank_beams_apply()}, map kernel {map_kernel(tel)}")
     launches, required, _, run = path_phase(tag, tel)
-    require_launched(tag, launches, ["k2_host_stokes", "k3k5_legendre_sht"])
+    require_launched(tag, launches, ["k2_host_stokes", "k4_phase", "k3k5_legendre_sht"])
     del run
     return launches, required
 
@@ -2262,8 +2421,7 @@ def quicklook_phase(tel, slice_run, tag="quicklook"):
     t_q = time.time() - t
     launches = launch_counts()
     required, _, _ = path_kernels(tel, ls.shape[-1])
-    require_launched(tag, launches, [k for k in required if k != map_kernel(tel)
-                                     and k != "k3k5_legendre_sht"])
+    require_launched(tag, launches, [k for k in required if k not in SHT_STAGES + (map_kernel(tel),)])
     log(f"[{tag}] product_all_resident(sig_k_cap={QUICKLOOK_CAP}) over {nm} m: {t_q:.4f} s, "
         f"m-modes/s {nm / t_q:.4f} (product step with the fused Fisher; [slice]'s exact "
         f"{nm / slice_run['t_product']:.4f}); m-chunks: {describe_chunks(chunks)}; "
@@ -2309,7 +2467,7 @@ def whiten_phase(tel, slice_run, tag="whiten"):
         iter(fisher_bands(tel)), out_dtype=np.float32, rank_rtol=1e-9
     )
     required, _, _ = path_kernels(tel, ls.shape[-1])
-    required = [k for k in required if k != map_kernel(tel) and k != "k3k5_legendre_sht"]
+    required = [k for k in required if k not in SHT_STAGES + (map_kernel(tel),)]
     kw = dict(band_lt=band_lt, ps_threshold=PS_THRESHOLD, max_m=WHITEN_M)
     torch.cuda.synchronize()
     t = time.time()
@@ -2576,12 +2734,14 @@ def sht_iters_phase(tag="sht iters", device="cuda"):
                       for g, w in zip(steps[k_cpu], want) if w is not None)
         t_cpu = time.time() - t
         log(f"[{tag}] {form}: B {maps.shape[0]}, nside {nside}, lmax {lmax}, iters {iters}: "
-            f"{dt:.4f} s; K3+K5 {launches['k3k5_legendre_sht']}, K14 "
-            f"{launches['k14_legendre_synth']} launches; map residual rel by step "
+            f"{dt:.4f} s; K4 {launches['k4_phase']}, K3+K5 {launches['k3k5_legendre_sht']}, K14 "
+            f"{launches['k14_legendre_synth']}, K4 inverse {launches['k4_phase_inv']} launches; "
+            f"map residual rel by step "
             f"{[f'{r:.3e}' for r in resid]}"
             + (f"; alm card vs cpu after {k_cpu} step {err:.3e} of max (tol 1e-10; cpu "
                f"{t_cpu:.2f} s)" if form == "real" else ""))
-        if launches["k3k5_legendre_sht"] != iters + 1 or launches["k14_legendre_synth"] != iters:
+        if (launches["k3k5_legendre_sht"] != iters + 1 or launches["k4_phase"] != iters + 1
+                or launches["k14_legendre_synth"] != iters or launches["k4_phase_inv"] != iters):
             raise AssertionError(f"{tag} {form}: launches {launches}")
         if not all(b < a for a, b in zip(resid, resid[1:])):
             raise AssertionError(f"{tag} {form}: the residual did not fall at every step {resid}")
@@ -2826,9 +2986,7 @@ def products_phase(slice_run, outdir):
         os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(outdir) for f in fs
     )
     log(f"[{tag}] {len(files)} product files open ({size / 2**20:.1f} MiB on disk)")
-    require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht",
-                                     "k9_signal_gram", "k15a_sandwich",
-                                     "k15b_fisher_trace"])
+    require_launched(tag, launches, FILE_PATH_KERNELS)
 
     # spectra and Fisher: finite, symmetric, positive diagonal
     ev_file = kl.evals_all()
@@ -3190,7 +3348,8 @@ def timestream_phase(outdir, m):
         f"pipeline wall {wall:.4f} s  {stages}"
     )
     log(f"[{tag}] launches {launches}")
-    require_launched(tag, launches, ["k14_legendre_synth", "k3k5_legendre_sht"])
+    require_launched(tag, launches, ["k14_legendre_synth", "k4_phase_inv", "k4_phase",
+                                     "k3k5_legendre_sht"])
     t_checks = time.time()
 
     # every file exists and opens
@@ -3415,7 +3574,8 @@ def chunked_phase(outdir, workdir):
     if not (pol["never"].beamtransfer.num_chunks or 0) > 1:
         raise AssertionError(f"{tag}: the polarised BTM took {pol['never'].beamtransfer.num_chunks} "
                              "chunks, expected several")
-    require_launched(f"{tag} pol", pol_launches["never"], ["k1k2_stokes_vis", "k3k5_legendre_sht"])
+    require_launched(f"{tag} pol", pol_launches["never"], ["k1k2_stokes_vis", "k4_phase",
+                                                           "k3k5_legendre_sht"])
     same, err = beam_files_equal(f"{tag} pol", pol["never"], pol["always"])
     log(f"[{tag}] polarised beam.hdf5, chunked vs resident: "
         f"{'bitwise equal' if same else 'differ'} (max {err:.3e} of max |BTM|; tol 1e-6)")
@@ -3811,7 +3971,7 @@ def chunked_128_phase(workdir):
     if bt.num_chunks != CHUNKED_128_CHUNKS or bt._mem_beam is not None or bt._use_resident():
         raise AssertionError(f"{tag}: route {bt.num_chunks} chunks, resident tables "
                              f"{bt._mem_beam is not None}; expected chunked in {CHUNKED_128_CHUNKS}")
-    require_launched(tag, launches, ["k1k2_beam_vis", "k3k5_legendre_sht"])
+    require_launched(tag, launches, ["k1k2_beam_vis", "k4_phase", "k3k5_legendre_sht"])
 
     cpu = cylinder.UnpolarisedCylinderTelescope.from_config(params, device="cpu")
     blen = np.hypot(tel.baselines[:, 0], tel.baselines[:, 1])
@@ -4478,7 +4638,8 @@ def example_phase(workdir):
         launches = launch_counts()
         log(f"[{tag}] runpipeline run_config {wall:.4f} s  "
             f"{'  '.join(f't_{k} {v:.4f} s' for k, v in pm.timings.items())}  launches {launches}")
-        require_launched(tag, launches, ["k3k5_legendre_sht", "k14_legendre_synth"])
+        require_launched(tag, launches, ["k4_phase", "k3k5_legendre_sht", "k14_legendre_synth",
+                                         "k4_phase_inv"])
         for k, v in launches.items():
             if v:
                 counted[k] = counted.get(k, 0) + v
@@ -4597,6 +4758,7 @@ def main():
         {"restricted": rtel, "restricted pol": rptel, "dish": dtel}))
     k3k5_dish_compare(dtel, np.random.default_rng(SEED + 3))
     k3k5_window_compare(ntel, np.random.default_rng(SEED + 4))
+    k4_window_compare(ntel)
     n2 = resident.pencil_size(ntel)
     k17_compare(1, n2, k17_shape(n2)[1], k17_shape(n2)[0], np.random.default_rng(SEED + 5),
                 "ns2 full size")

@@ -7,12 +7,14 @@ through ``btm_resident(m_range=(M0, M1))`` (default ``chip_smoke.NS2_WINDOW``):
 one pass to warm up, one timed pass (host clock, synchronised), then a
 pass with the card synchronised around each stage of every SHT call: the
 beams and visibility maps (``_beam_map_batch``: the beam gather and
-K1+K2), the phase stage (``sht.phase_stage``: a cuFFT a group of rings of
-equal length, then the window's gather) and the Legendre stage
+K1+K2), the phase stage (``sht.phase_stage``: K4, one launch a call; a
+cuFFT a group of rings of equal length and the window's gather before
+it was ported) and the Legendre stage
 (``sht.legendre_contract``, K3+K5), printing each stage's seconds, its
 share of the pass and the number of calls; for the phase stage (K4 of the
-port's kernel table) also the bytes it must move (each call's padded maps
-read once, its F and G written once) and their time at 3.35 TB/s, its
+port's kernel table) also the bytes it must move (each call's map pixels
+read once, not the padding slots, which K4 never reads; its F and G
+written once) and their time at 3.35 TB/s, its
 bound.  Prints the card's name and power limit first.
 """
 
@@ -29,7 +31,7 @@ def main():
 
     import chip_smoke as cs
     from driftscan_tpu_torch import backend
-    from driftscan_tpu_torch.ops import sht
+    from driftscan_tpu_torch.ops import healpix, sht
     from driftscan_tpu_torch.parallel import resident
     from driftscan_tpu_torch.telescope import cylinder
 
@@ -61,7 +63,9 @@ def main():
             spent[label] = spent.get(label, 0.0) + time.time() - t
             calls[label] = calls.get(label, 0) + 1
             if name == "phase_stage":
-                moved[label] = moved.get(label, 0) + cs.nbytes(a[0], *out)
+                pixels = a[0].shape[0] * healpix.ring_geometry(a[1]).npix
+                moved[label] = (moved.get(label, 0) + pixels * a[0].element_size()
+                                + cs.nbytes(*out))
             return out
         return wrapper, fn
 

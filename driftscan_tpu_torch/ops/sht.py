@@ -2,10 +2,16 @@
 
 Port of ``driftscan_tpu/ops/sht.py``, the forward transform (analysis):
 
-* phase stage (K4) — ``F_m(r) = sum_j f(r, j) e^{-i m phi_rj}`` and its
-  ``+m`` partner ``G_m(r)``, from one ``torch.fft`` per group of rings of
-  equal length: ring r holds N_r pixels at ``phi_rj = phi0_r + 2 pi j / N_r``,
-  so ``F_m(r) = e^{-i m phi0_r} X_r[m mod N_r]`` and
+* phase stage (K4) -- ``F_m(r) = sum_j f(r, j) e^{-i m phi_rj}`` and its
+  ``+m`` partner ``G_m(r)`` for the requested m only.
+  :func:`phase_stage` runs it as one hand-written CUDA kernel, a projection
+  onto those m (the JAX package's algorithm): the rings that share a length
+  and an azimuth offset (a polar cap's pair, one parity of the belt) share
+  one table of cos / sin(m phi), generated on the card, and each group is
+  one product on the CUDA cores.  :func:`phase_stage_ref` is the plain
+  version: one ``torch.fft`` per group of rings of equal length, ring r
+  holding N_r pixels at ``phi_rj = phi0_r + 2 pi j / N_r``, so
+  ``F_m(r) = e^{-i m phi0_r} X_r[m mod N_r]`` and
   ``G_m(r) = e^{+i m phi0_r} X_r[-m mod N_r]`` with X_r the ring's DFT.
   In the polar caps N_r < m: the bin wraps, the phi0 phase uses the true m;
 * Legendre stage (K3+K5) — ``a[b, l, m] = Omega_pix sum_r lambda_lm(theta_r)
@@ -24,12 +30,15 @@ and the inverse transform (synthesis):
   hand-written CUDA kernel that generates lambda on the fly;
   :func:`legendre_synth_ref` is the plain version (a lambda table and one
   contraction);
-* phase stage (K4's inverse) -- ring r's spectrum ``S_r[k] = sum_{m = k
-  mod N_r} w_m T+_m(r) e^{+i m phi0_r}`` (plus ``T-_m(r) e^{-i m phi0_r}``
-  at ``k = -m mod N_r``) is folded with ``index_add_`` (in the polar caps
-  several m share a bin), then ``f(r, j) = N_r ifft(S_r)[j]`` per group of
-  rings of equal length; the real form has ``w_0 = 1``, ``w_{m>0} = 2`` and
-  keeps the real part.
+* phase stage (K4's inverse) -- ``f(r, j) = sum_m w_m T+_m(r) e^{+i m
+  phi_rj}`` (plus ``T-_m(r) e^{-i m phi_rj}``); the real form has
+  ``w_0 = 1``, ``w_{m>0} = 2`` and keeps the real part.
+  :func:`phase_stage_inv` runs it as one hand-written CUDA kernel on the
+  same ring groups; :func:`phase_stage_inv_ref` is the plain version: ring
+  r's spectrum ``S_r[k] = sum_{m = k mod N_r} w_m T+_m(r) e^{+i m phi0_r}``
+  (plus ``T-_m(r) e^{-i m phi0_r}`` at ``k = -m mod N_r``) folded with
+  ``index_add_`` (in the polar caps several m share a bin), then
+  ``f(r, j) = N_r ifft(S_r)[j]`` per group of rings of equal length.
 
 Compact RING maps enter and leave through :func:`pad_map` and
 :func:`unpad_map`; :func:`analysis_maps` is the JAX package's ``analysis``
@@ -64,6 +73,18 @@ K14 = backend.register(
     "k14_legendre_synth",
     "driftscan_tpu_torch/csrc/legendre_synth.cu",
     "driftscan_tpu/ops/sht.py:474 + driftscan_tpu/ops/sht.py:535 (+ :80)",
+)
+
+K4 = backend.register(
+    "k4_phase",
+    "driftscan_tpu_torch/csrc/phase_stage.cu",
+    "driftscan_tpu/ops/sht.py:433-446 + :664-727",
+)
+
+K4_INV = backend.register(
+    "k4_phase_inv",
+    "driftscan_tpu_torch/csrc/phase_stage.cu",
+    "driftscan_tpu/ops/sht.py:506-519 + :563-577 + :809",
 )
 
 # Rescaling bounds of the Legendre recurrence (the JAX package's constants).
@@ -300,9 +321,91 @@ def _cmul(a, b):
     return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
 
 
+# The tiles of csrc/phase_stage.cu: rows (unit, ring) a block of the
+# forward kernel (FR there) and of the inverse (IR)
+PHASE_ROWS = 64
+PHASE_INV_ROWS = 32
+
+
+@functools.lru_cache(maxsize=32)
+def phase_groups(nside: int) -> np.ndarray:
+    """The rings of ``nside`` that share one phase table, (ngroups, 5)
+    int32 rows (N, h, rings, first ring, ring stride), largest N first:
+    the rings of N pixels at phi_j = pi (2 j + h) / N (a polar cap's pair
+    i and 4 nside - i; each parity of the equatorial belt), evenly spaced
+    from the first.  Every ring lies in one group."""
+    g = ring_geometry(nside)
+    h = np.rint(g.phi0 * g.nphi / np.pi).astype(np.int64)
+    rows = []
+    for n, hh in sorted(set(zip(g.nphi.tolist(), h.tolist())), reverse=True):
+        rings = np.nonzero((g.nphi == n) & (h == hh))[0]
+        stride = int(rings[1] - rings[0]) if len(rings) > 1 else 1
+        if np.any(np.diff(rings) != stride):
+            raise AssertionError(f"nside {nside}: the rings of N {n}, h {hh} are not evenly spaced")
+        rows.append((n, hh, len(rings), int(rings[0]), stride))
+    return np.asarray(rows, dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def phase_tiles(nside: int, B: int, rows: int) -> np.ndarray:
+    """The row tiles of one phase-stage launch, (ntiles, 2) int32 (group of
+    :func:`phase_groups`, first row): each group's B x rings rows (row q is
+    unit q // rings on the group's (q % rings)-th ring) in tiles of
+    ``rows``, the groups in their order (the longest rings first)."""
+    nr = phase_groups(nside)[:, 2]
+    tiles = [(gi, r0) for gi, n in enumerate(nr.tolist()) for r0 in range(0, B * n, rows)]
+    return np.asarray(tiles, dtype=np.int32).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_launch_tables(nside: int, B: int, rows: int, device: torch.device):
+    """(groups, tiles) of :func:`phase_groups` and :func:`phase_tiles` on
+    ``device``, uploaded once per (nside, B, rows)."""
+    return (torch.as_tensor(phase_groups(nside), device=device),
+            torch.as_tensor(phase_tiles(nside, B, rows), device=device))
+
+
 def phase_stage(padded, nside: int, nm: int, m0: int = 0):
-    """(F, G), each (B, nm, nring) complex, from (B, nring, maxlen) maps;
-    row j holds m = m0 + j."""
+    """Phase stage of the analysis (K4).
+
+    (F, G), each (B, nm, nring) complex, from (B, nring, maxlen) maps (the
+    padding slots are not read); row j holds m = m0 + j:
+    ``F[b, j, r] = sum_{i < N_r} padded[b, r, i] e^{-i m phi_ri}`` and G
+    with ``e^{+i m phi_ri}``.  Each column is computed by itself, so a
+    window's columns equal the full range's bit for bit.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel.
+    """
+    if not backend.on_cuda(padded):
+        return phase_stage_ref(padded, nside, nm, m0)
+    g = ring_geometry(nside)
+    B = padded.shape[0]
+    backend.require(padded, "padded", dtype=(torch.complex64, torch.complex128),
+                    shape=(B, g.nring, g.maxlen))
+    if m0 < 0 or nm < 0:
+        raise ValueError(f"invalid m range: m0={m0}, nm={nm}")
+    dev = padded.device
+    # the kernel writes every entry
+    F = torch.empty((B, nm, g.nring), dtype=padded.dtype, device=dev)
+    G = torch.empty_like(F)
+    if F.numel() == 0:
+        return F, G
+    groups, tiles = _phase_launch_tables(nside, B, PHASE_ROWS, dev)
+    fn = K4.entry(
+        "phase_fwd_c64" if padded.dtype == torch.complex64 else "phase_fwd_c128",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p],
+    )
+    backend.launch(
+        K4, fn, dev,
+        padded.data_ptr(), groups.data_ptr(), tiles.data_ptr(), tiles.shape[0], F.data_ptr(),
+        G.data_ptr(), B, g.nring, g.maxlen, m0, nm, PHASE_ROWS,
+    )
+    return F, G
+
+
+def phase_stage_ref(padded, nside: int, nm: int, m0: int = 0):
+    """Plain PyTorch version of :func:`phase_stage`: one FFT per group of
+    rings of equal length, then the m's bins and their phi0 phases."""
     g = ring_geometry(nside)
     B = padded.shape[0]
     groups, kpos, kneg, shift = _phase_tables(nside, m0 + nm, padded.dtype, padded.device, m0)
@@ -600,7 +703,53 @@ def legendre_synth(pos, neg, cos_t, sin_t):
 
 
 def phase_stage_inv(tpos, tneg, nside: int, real: bool):
-    """Padded maps (B, nring, maxlen) from the Legendre stage's outputs.
+    """Phase stage of the synthesis (K4's inverse).
+
+    Padded maps (B, nring, maxlen) from the Legendre stage's outputs tpos,
+    tneg (B, nm, nring) complex for m = 0 .. nm - 1: ``f[b, r, j] = sum_m
+    w_m tpos[b, m, r] e^{+i m phi_rj} (+ tneg[b, m, r] e^{-i m phi_rj})``,
+    padding slots zero.  ``real``: w_0 = 1, w_{m>0} = 2 and the real part,
+    for a real field, which has no negative block (tneg None); else w = 1,
+    complex maps and a negative block (tneg given).  Any other pairing
+    raises ValueError on either device.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel.
+    """
+    if real and tneg is not None:
+        raise ValueError("the real form takes no negative-m block")
+    if not real and tneg is None:
+        raise ValueError("the complex form needs its negative-m block")
+    args = (tpos,) if tneg is None else (tpos, tneg)
+    if not backend.on_cuda(*args):
+        return phase_stage_inv_ref(tpos, tneg, nside, real)
+    g = ring_geometry(nside)
+    B, nm, _ = tpos.shape
+    backend.require(tpos, "tpos", dtype=(torch.complex64, torch.complex128),
+                    shape=(B, nm, g.nring))
+    if tneg is not None:
+        backend.require(tneg, "tneg", dtype=tpos.dtype, shape=tpos.shape)
+    dev = tpos.device
+    dtype = backend.real_dtype(tpos.dtype) if real else tpos.dtype
+    # the kernel writes every entry, the padding slots as zeros
+    out = torch.empty((B, g.nring, g.maxlen), dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    groups, tiles = _phase_launch_tables(nside, B, PHASE_INV_ROWS, dev)
+    fn = K4_INV.entry(
+        "phase_inv_c64" if tpos.dtype == torch.complex64 else "phase_inv_c128",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p],
+    )
+    backend.launch(
+        K4_INV, fn, dev,
+        tpos.data_ptr(), None if tneg is None else tneg.data_ptr(), groups.data_ptr(),
+        tiles.data_ptr(), tiles.shape[0], out.data_ptr(), B, g.nring, g.maxlen, nm,
+        PHASE_INV_ROWS, int(real),
+    )
+    return out
+
+
+def phase_stage_inv_ref(tpos, tneg, nside: int, real: bool):
+    """Plain PyTorch version of :func:`phase_stage_inv`.
 
     Ring r's spectrum S_r[k] = sum_{m = k mod N_r} w_m T+_m(r) e^{+i m
     phi0_r} (+ T-_m(r) e^{-i m phi0_r} at k = -m mod N_r) is folded with

@@ -485,10 +485,78 @@ def test_k14_legendre_synth_edges(cuda, shape, neg, dtype, rtol):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# (nside, B, m0, nm): one unit, units that fill a row tile (64) or spill
+# past it, the full range at 3 nside (the cap rings' m past N_r), windows
+# past the caps' N_r, one m, nside 1024's 4,096-pixel belt (and 2,047-pixel
+# pairs) at ns1b's window
+K4_SHAPES = [
+    (4, 1, 0, 12), (16, 3, 0, 48), (16, 64, 5, 23), (32, 5, 100, 7), (8, 70, 29, 1),
+    (64, 2, 0, 192), (1024, 2, 0, 33),
+]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.complex64, 1e-5), (torch.complex128, 1e-12)])
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k4_phase(cuda, shape, dtype, rtol):
+    """K4 against its plain version (the FFT route), two launches bitwise
+    equal."""
+    nside, B, m0, nm = shape
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(nside + B + m0)
+    mask = torch.as_tensor(g.mask, device=cuda)
+    maps = (_crandn(rng, (B, g.nring, g.maxlen), cuda) * mask).to(dtype)
+    fn = lambda: sht.phase_stage(maps, nside, nm, m0)
+    _check(sht.K4, fn, lambda: sht.phase_stage_ref(maps, nside, nm, m0), rtol)
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nside,B,window", [(16, 3, (40, 49)), (64, 16, (60, 121)),
+                                            (512, 2, (270, 315))])
+def test_k4_phase_window(cuda, nside, B, window, dtype):
+    """K4 over an m-window: every column bitwise the full-range call's on
+    the same maps (ns2's window at nside 512 among them)."""
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(nside + B)
+    maps = _crandn(rng, (B, g.nring, g.maxlen), cuda).to(dtype)
+    m0, m1 = window
+    full = sht.phase_stage(maps, nside, m1)
+    win = sht.phase_stage(maps, nside, m1 - m0, m0)
+    torch.cuda.synchronize()
+    for w, f in zip(win, full):
+        assert torch.equal(w, f[:, m0:m1])
+
+
+# (nside, B, nm): one unit, a row tile (32) and past it, nm up to 3 nside
+# and past it (caps' bins fold), the timestream's shape (nside 256, B 8,
+# lmax 229)
+K4_INV_SHAPES = [(4, 1, 12), (16, 3, 48), (16, 33, 70), (32, 2, 20), (256, 8, 230)]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.complex64, 1e-5), (torch.complex128, 1e-12)])
+@pytest.mark.parametrize("real", [True, False], ids=["real", "complex"])
+@pytest.mark.parametrize("shape", K4_INV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k4_phase_inv(cuda, shape, real, dtype, rtol):
+    """K4's inverse against its plain version, real and complex forms, the
+    padding slots zero, two launches bitwise equal."""
+    nside, B, nm = shape
+    g = healpix.ring_geometry(nside)
+    rng = np.random.default_rng(nside + B + nm)
+    tp = _crandn(rng, (B, nm, g.nring), cuda).to(dtype)
+    tn = None if real else _crandn(rng, (B, nm, g.nring), cuda).to(dtype)
+    fn = lambda: sht.phase_stage_inv(tp, tn, nside, real)
+    _check(sht.K4_INV, fn, lambda: sht.phase_stage_inv_ref(tp, tn, nside, real), rtol)
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert not a[:, torch.as_tensor(g.mask, device=cuda) == 0].any()
+
+
 @pytest.mark.parametrize("neg", [False, True], ids=["real", "complex"])
 def test_synthesis_on_the_card(cuda, neg):
-    """The whole inverse SHT (K14 and the inverse phase stage, whose
-    index_add_ sums in no fixed order on the card) against the CPU."""
+    """The whole inverse SHT (K14 and K4's inverse) against the CPU."""
     lmax, nside = 47, 16
     rng = np.random.default_rng(3)
     pos = _crandn(rng, (2, 3, lmax + 1, lmax + 1), torch.device("cpu")).to(torch.complex128)
@@ -497,9 +565,9 @@ def test_synthesis_on_the_card(cuda, neg):
         fn = lambda p, n: sht.synthesis_complex(p, n, nside)
     else:
         fn = lambda p, n: sht.synthesis_real(p, nside)
-    before = sht.K14.launches
+    before = sht.K14.launches, sht.K4_INV.launches
     got = fn(pos.to(cuda), nalm.to(cuda)).cpu()
-    assert sht.K14.launches == before + 1
+    assert (sht.K14.launches, sht.K4_INV.launches) == (before[0] + 1, before[1] + 1)
     want = fn(pos, nalm)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
@@ -1251,6 +1319,9 @@ _ON_SECOND_CARD = {
     "k3k5_legendre_sht": lambda d: test_k3k5_legendre_sht(d, torch.complex64),
     "k14_legendre_synth": lambda d: test_k14_legendre_synth(
         d, K14_SHAPES[0], True, torch.complex128, 1e-10),
+    "k4_phase": lambda d: test_k4_phase(d, K4_SHAPES[1], torch.complex64, 1e-5),
+    "k4_phase_inv": lambda d: test_k4_phase_inv(d, K4_INV_SHAPES[1], False, torch.complex128,
+                                                1e-12),
     "k9_signal_gram": lambda d: test_k9_signal_gram(d, K9_SHAPES[1], torch.complex64),
     "k13_fisher_cov": lambda d: test_k13_fisher_cov(d, K13_SHAPES[-1], torch.complex64),
     "k15a_sandwich": lambda d: test_k15a_sandwich_band_form(
