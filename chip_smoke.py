@@ -41,10 +41,11 @@ script exits non-zero:
    m 0..229) and ``[pol]``'s (B = units x 4 Stokes, m 0..120), the ``[dish]`` chunk (complex128, m 0..494), the ``[ns2
    window]`` shape (m 270..314, its columns bitwise a full-range call's)
    and ns1b's (nside 1024, m 0..32; in ``[ns1b window]``), rel 1e-5 in
-   complex64 and 1e-12 in complex128, bitwise repeats, the kernel and the
-   plain version against a complex128 plain of the same inputs printed;
-   K4's inverse at K14's timestream shape, real and complex forms, both
-   types; K17 (the top-band engine's Chebyshev filter step,
+   complex64 and 1e-12 in complex128, bitwise repeats, and in complex64
+   the kernel no farther than 1.25x the plain version from a complex128
+   plain of the same inputs (both errors and the limit printed); K4's
+   inverse at K14's timestream shape, real and complex forms, both types,
+   with the same gates; K17 (the top-band engine's Chebyshev filter step,
    complex128) at the slice's shape (M 8, n 352, K 352, k 44) and at
    ns2's full size (M 1, n 3200, K 3200, k 400): V_out within 1e-12 of
    its max, the running scale within 1e-13 rel, bitwise repeats, the
@@ -266,6 +267,10 @@ RESTRICTED_PARAMS = dict(BENCH_PARAMS, beam_type="gaussian")
 RESTRICTED_POL_PARAMS = dict(POL_PARAMS, beam_type="box")
 # the beam and visibility-map kernels: one of them serves each path
 MAP_KERNELS = ("k1k2_beam_vis", "k1k2_stokes_vis", "k2_host_vis", "k2_host_stokes")
+# K4 and its inverse in complex64: the kernel's largest error from a
+# complex128 plain of the same inputs, at most this many times the plain
+# complex64 route's (the FFT's)
+K4_TRUTH_RATIO = 1.25
 # the forward SHT's two stages: the phase stage (K4) and the Legendre stage
 SHT_STAGES = ("k4_phase", "k3k5_legendre_sht")
 PS_THRESHOLD = 0.1  # bench's KL retention cut for the Fisher
@@ -1006,11 +1011,13 @@ def k4_compare(maps, nside, nm, what, m0=0, tag="kernels", reps=5):
     max error (rel 1e-5 in complex64, 1e-12 in complex128), a bitwise
     repeat, kernel and plain ms; library none (no one PyTorch call projects
     onto a set of m).  Bound: the maps' B x npix pixels read once (not the
-    padding slots, which the kernel never reads), F and G written once, beside 8 flops a (unit, pixel, m) at the card's peak for the type
-    (3xTF32 at 495 / 3 TFLOP/s for complex64, float64 at 67); the bound on
-    the CUDA cores the kernel runs them on is printed beside it.  In
-    complex64 the kernel and the plain version are also held against a
-    complex128 plain of the same inputs (printed)."""
+    padding slots, which the kernel never reads), F and G written once,
+    beside 8 flops a (unit, pixel, m) at the card's peak for the type
+    (3xTF32 at 495 / 3 TFLOP/s for complex64, float64 at 67); the same
+    flops' bound on the CUDA cores is printed beside it, with the tile of
+    ``sht.phase_plan``.  In complex64 the kernel and the plain version are
+    also held against a complex128 plain of the same inputs: the kernel's
+    error may be at most ``K4_TRUTH_RATIO`` times the plain version's."""
     import torch
 
     from driftscan_tpu_torch.ops import healpix, sht
@@ -1021,9 +1028,11 @@ def k4_compare(maps, nside, nm, what, m0=0, tag="kernels", reps=5):
     flops = 8.0 * B * g.npix * nm
     moved = (B * g.npix + 2 * B * nm * g.nring) * maps.element_size()
     cores = bound(moved, [(flops, F64_CUDA_CORE_FLOPS if c128 else F32_FLOPS)])[0]
+    plan = sht.phase_plan(nside, B, nm, maps.dtype)
     log(f"[{tag}] k4_phase ({what}): {flops:.4e} flops, {moved / 1e9:.4f} GB; the bound on "
         f"the CUDA cores ({'34 TFLOP/s float64' if c128 else '67 TFLOP/s float32'}) "
-        f"{cores:.4f} ms")
+        f"{cores:.4f} ms; plan {plan.rows} rows x {plan.cols} m a tile, {plan.tiles} m "
+        f"tiles, {plan.stages} stages, {plan.smem} B shared")
     rec = compare(
         f"k4_phase ({what}, nside {nside}, m {m0}..{m0 + nm - 1}, B {B}, {maps.dtype})",
         lambda: sht.phase_stage(maps, nside, nm, m0),
@@ -1041,8 +1050,13 @@ def k4_compare(maps, nside, nm, what, m0=0, tag="kernels", reps=5):
             del out
         scale = max(float(t.abs().max()) for t in truth)
         del truth
+        limit = K4_TRUTH_RATIO * errs[1]
         log(f"[{tag}] k4_phase ({what}): max error against the complex128 plain of the same "
-            f"inputs: kernel {errs[0]:.6e}, plain {errs[1]:.6e} (max|F| {scale:.6e})")
+            f"inputs: kernel {errs[0]:.6e}, plain {errs[1]:.6e}, limit {limit:.6e} "
+            f"({K4_TRUTH_RATIO} x plain) (max|F| {scale:.6e})")
+        if not errs[0] <= limit:
+            raise AssertionError(f"k4_phase ({what}): {errs[0]:.3e} from the complex128 truth, "
+                                 f"past {K4_TRUTH_RATIO} x the plain route's {errs[1]:.3e}")
     return rec
 
 
@@ -1079,7 +1093,8 @@ def k4_inv_compare(tel, tag="kernels"):
     ms; library none.  Bound: T+ (and T-) read once, the maps written once,
     beside 4 flops a (unit, pixel, m) in the real form and 8 in the complex
     form at the card's peak for the type; in complex64 the kernel and the
-    plain version against a complex128 plain of the same inputs (printed)."""
+    plain version against a complex128 plain of the same inputs, the
+    kernel's error at most ``K4_TRUTH_RATIO`` times the plain version's."""
     import torch
 
     from driftscan_tpu_torch.ops import healpix, sht
@@ -1101,6 +1116,9 @@ def k4_inv_compare(tel, tag="kernels"):
             moved = nbytes(tp, *(() if real else (neg,)))
             moved += B * g.nring * g.maxlen * (tp.element_size() // (2 if real else 1))
             what = f"{form} form, B {B}, nside {nside}, m 0..{nm - 1}, {dtype}"
+            plan = sht.phase_plan(nside, B, nm, dtype, inverse=True, real=real)
+            log(f"[{tag}] k4_phase_inv ({what}): plan {plan.rows} rows x {plan.cols} pixels a "
+                f"tile, {plan.stages} stages, {plan.smem} B shared")
             r = compare(
                 f"k4_phase_inv ({what})",
                 lambda: sht.phase_stage_inv(tp, neg, nside, real),
@@ -1115,10 +1133,16 @@ def k4_inv_compare(tel, tag="kernels"):
                 truth = sht.phase_stage_inv_ref(*wide, nside, real)
                 errs = [float((fn(tp, neg, nside, real).to(truth.dtype) - truth).abs().max())
                         for fn in (sht.phase_stage_inv, sht.phase_stage_inv_ref)]
+                limit = K4_TRUTH_RATIO * errs[1]
                 log(f"[{tag}] k4_phase_inv ({what}): max error against the complex128 plain of "
-                    f"the same inputs: kernel {errs[0]:.6e}, plain {errs[1]:.6e} (max "
+                    f"the same inputs: kernel {errs[0]:.6e}, plain {errs[1]:.6e}, limit "
+                    f"{limit:.6e} ({K4_TRUTH_RATIO} x plain) (max "
                     f"{float(truth.abs().max()):.6e})")
                 del wide, truth
+                if not errs[0] <= limit:
+                    raise AssertionError(
+                        f"k4_phase_inv ({what}): {errs[0]:.3e} from the complex128 truth, past "
+                        f"{K4_TRUTH_RATIO} x the plain route's {errs[1]:.3e}")
     return rec
 
 

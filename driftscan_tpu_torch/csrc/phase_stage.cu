@@ -19,126 +19,144 @@
 // pixels at phi_rj = pi (2 j + h_r) / N_r, h_r in {0, 1}.
 //
 // As in the JAX package, the stage is a projection onto the requested m
-// only, not an FFT: the rings that share N and h (a polar cap's pair i and
-// 4 nside - i, or one parity of the equatorial belt, whose 2 nside + 1
-// rings of 4 nside pixels alternate h = 1, 0) share one table of
-// cos / sin(m phi_j), so each group of rings is one real product,
-// rows (unit, ring) x pixels times pixels x m (forward) or rows x m times
-// m x pixels (inverse), with the table generated in shared memory a tile
-// at a time and shared by every row of the tile.  The angle is reduced in
-// integers as the JAX package's _phase_angle_tables (sht.py:211) does,
-// t = m (2 j + h) mod 2 N exactly (the first product of a thread in 64
-// bits, then steps of an exact modular add), and evaluated as
-// sincospi(t / N) in the table's type: the true m in the polar caps, where
-// m exceeds N_r, and full accuracy at any m.
+// only, not an FFT.  The rings that share N and h (a polar cap's pair i and
+// 4 nside - i, or one parity of the equatorial belt) share one table, so
+// each group of rings is one real product:
+//   forward  (rows (unit, ring) x {re, im}) x pixels  times  pixels x
+//            (m x {cos, sin}): P = sum f cos, Q = sum f sin, F = P - iQ,
+//            G = P + iQ;
+//   inverse  (rows x {re, im}) x (m x {cos, sin})  times  (m x {cos, sin})
+//            x pixels, the coefficients with w_m applied and the sign of
+//            the sine folded in (A = T+ + T-, D = T+ - T-: re = A_re cos -
+//            D_im sin, im = A_im cos + D_re sin).
+// Every angle is pi t / N with t reduced exactly in unsigned integers mod
+// 2N (the JAX package's _phase_angle_tables, sht.py:211): the true m in the
+// polar caps, where m exceeds N_r, and full accuracy at any m.  Its cosine
+// and sine are read from the group's half-wave table cos(pi u / N), u = 0
+// .. N, one cospi an entry a block (sin(pi t / N) = cos(pi (t - N/2) / N),
+// cos(pi t / N) = cos(pi (2N - t) / N): exact index maps), so each value is
+// a function of (t, N) alone.
 //
-// Forward: a block owns FR rows of one group and FM m; it walks the
-// group's pixels in stages of JC (32 complex64, 16 complex128): the
-// stage's maps (rows x JC, each row a coalesced run of the ring) and its
-// table (JC x FM) go to shared memory, then every thread adds its 4 rows x
-// 2 m of P = sum f cos and Q = sum f sin by fused multiply-adds on the
-// CUDA cores (F = P - iQ, G = P + iQ); in float32 each stage is summed from
-// zero and then added to the running total, which keeps the result no
-// farther from the float64 truth than the FFT route's.  Each output (b, m,
-// r) is summed over j = 0 .. N_r - 1 in the same order whatever block or
-// column computes it, so a window's columns equal the full range's bit for
-// bit and two launches give the same bits; no atomics.  Inverse: a block
-// owns IR rows and IJ pixels and walks m in stages of MC (float32 staged
-// the same way); every thread adds its 2 rows x 4 pixels over m = 0 ..
-// nm - 1 in order.  A warp whose rows all lie past the group's, or whose m
-// (pixels) all lie past the call's (the ring's), skips the arithmetic.
-// One launch a call, the tile list (group, first row) made by the wrapper
-// (ops/sht.py phase_tiles).
+// What bounds it on an H100 (PERF.md has each shape's numbers): the
+// product's 8 flops a (unit, pixel, m) (4 in the inverse's real form) on
+// the tensor cores -- 3xTF32 at 495 / 3 TFLOP/s in complex64, float64 at
+// 67 TFLOP/s in complex128 -- where nm is large ([slice] and [pol] chunks,
+// [dish], the timestream's inverse); the maps read once, F and G written
+// once, at 3.35 TB/s where nm is small (the [ns2 window], ns1b).
 //
-// What bounds it on an H100: at the path's shapes, operations -- 8 real
-// flops a (unit, pixel, m) (4 in the inverse's real form) on the float32
-// (float64) CUDA cores, beside one sincospi a (m, pixel, group) and row
-// tile; the maps are read once per m tile (the m tiles of a row tile run
-// side by side, so the repeats come from L2).  The bytes (maps read once,
-// F and G written once) bound it where nm is small.  The design keeps the
-// arithmetic on the CUDA cores in the input's type; measured at 0.15-0.19
-// of the card's bound (PERF.md), with the belt's product on the tensor
-// cores (3xTF32, float64 mma.sync) and a per-group sincos table as the
-// next steps.
+// The forward's design:
+//   * the pixels in stages of JC = 32: with j = jl + JC s, e^{-i m phi_j} =
+//     e^{-i pi m (2 jl + h) / N} e^{-i pi m 2 JC s / N}, so a block's (pixel
+//     x m) table is one JC x COLS tile, made once (one cospi a (u, group)
+//     into the half-wave table, the tile's entries gathered from it), and
+//     each stage's sums (P, Q) are turned by the stage's angle on the CUDA
+//     cores.  Complex64 sums each stage from zero and adds the turned stage
+//     sum to the running total (the turn of (m, s) read from the half-wave
+//     table, so no angle error compounds); complex128 walks the stages from
+//     the last and turns the running total by the one step e^{-i pi m 2 JC
+//     / N} before each (Horner; its float64 error grows by ~1e-16 a stage);
+//   * complex64 on the tensor cores' full rate: warpgroup products (wgmma
+//     m64nNk8 tf32, N = 2 COLS up to 128; tma_ring.cuh), 3xTF32 (each
+//     operand split into tf32 big + small: small.big + big.small +
+//     big.big), A -- a warp's 8 rows x {re, im} -- split in registers from
+//     the staged maps, B -- the table tile, cos and sin interleaved along N
+//     -- stored once a block as big and small K-major planes in the
+//     128-byte swizzle.  A stage's twelve products start from a zero
+//     accumulator, its eight small products first (the tensor cores add
+//     with truncation: the big sum meets four adds), and the turned stage
+//     sum joins the float32 running total on the CUDA cores, which keeps
+//     the result no farther from the complex128 truth than the FFT
+//     route's;
+//   * complex128 on the float64 mma.sync m16n8k4 (IEEE products and sums;
+//     wgmma has no float64), a warp 16 rows x 4 NT m;
+//   * a ring of NSTAGE (plan: 2-4) shared-memory stages of the maps filled
+//     by 16-byte cp.async, NSTAGE - 1 stages ahead of the products, one
+//     barrier a stage; the staged rows and the float64 table rows are
+//     padded (4 pixels; 4 entries), so that neither the copies nor the
+//     fragment loads meet a bank conflict;
+//   * a thread's accumulators hold (P re, Q re, P im, Q im) of one (row, m)
+//     (the wgmma and mma.sync fragments agree), so the turns, F and G are
+//     formed in registers;
+//   * the tile from a per-call plan (ops/sht.py phase_plan): rows a block
+//     32 or 64 in complex64 (one or two warpgroups), 16, 32 or 64 in
+//     complex128 (the caps' 2B-row groups fill them), m a tile 8 NT (NT =
+//     1..8: up to 64 m in one tile, nm above that split evenly into
+//     multiples of 8, so ns1b's 33 m take 40 columns and the maps are read
+//     once).  The m tiles of a row tile are neighbours in the grid, so the
+//     maps come from device memory about once.
+// The inverse walks m in stages of MC (32 complex64, 16 complex128) and
+// gathers each stage's (m x pixel) table tile from the half-wave table
+// (kept as table entries, split into tf32 big + small once) into a second
+// double-buffered tile, once for every row of the block (turning the stage
+// sums instead, as the forward does, would need the imaginary part of the
+// real form's stage sums: twice its products); its products run on 3xTF32
+// mma.sync m16n8k8 (complex64: each 8-deep step from zero, added to the
+// stage sum on the CUDA cores) or the float64 mma.sync; it tiles 32 WR
+// (real) or 16 WR (complex) rows x 32 or 64 pixels.
+// Each output is summed over j (over m in the inverse) in the same order
+// whatever tile or column computes it (the stages depend on N and the type
+// alone, not on the plan; a tensor-core element's result depends only on
+// its row, its column and its sum; each table entry and turn on (t, N)
+// alone), so a window's columns equal the full range's bit for bit; no
+// atomics and no split over the pixels (or over m in the inverse), so two
+// launches give the same bits.  One launch a call.
+//
+// ptxas -v (sm_90a; experiments/k4_turns.py prints its lines), registers
+// a thread, no spills in any instantiation:
+//   phase_fwd_tf32<NQ>, NQ = 1..8:  72  98 125 120 154 154 168 202
+//   phase_fwd_f64<NT>,  NT = 1..8:  96 128 120 116 140 166 188 212
+//   phase_inv_kernel<float>  real 167 (32 pixels) 249 (64), complex 159 245
+//   phase_inv_kernel<double> real  96 (32 pixels) 128 (64), complex 110 126
 //
 // Plain versions: driftscan_tpu_torch.ops.sht.phase_stage_ref and
 // phase_stage_inv_ref (one FFT a ring length, the JAX package's bins).
 
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <stdint.h>
+
+#include "mma_tiles.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
-template <typename T> struct cpx_of;
-template <> struct cpx_of<float> { using type = float2; };
-template <> struct cpx_of<double> { using type = double2; };
-template <typename T> using cpx = typename cpx_of<T>::type;
+constexpr int GF = 5;        // a group row: N, h, rings, first ring, ring stride
+constexpr int MT = 2;        // mma row tiles a warp (mma.sync kernels)
+constexpr int WC = 2;        // warps along the columns (m forward, pixels inverse)
+constexpr int MAX_THREADS = 256;
+constexpr size_t MAX_SMEM = 232448;
+constexpr int JC = 32;       // pixels a forward stage, both types
 
-constexpr int THREADS = 256;
-constexpr int GF = 5;  // a group row: N, h, rings, first ring, ring stride
+// per type: the depth of one mma.sync (pixels forward; 4 m x {cos, sin} or
+// 2 m x {cos, sin} inverse) and the m of an inverse stage (MC).  The stages
+// fix the order of every sum: they do not depend on the plan.
+template <typename T> struct Prec;
+template <> struct Prec<float> {
+  static constexpr int KS = 8, MC = 32;
+  using C2 = float2;
+  using E = uint2;  // a table value as tf32 (big, small)
+};
+template <> struct Prec<double> {
+  static constexpr int KS = 4, MC = 16;
+  using C2 = double2;
+  using E = double;
+};
 
-// forward: FR rows x FM m a block; a thread 4 rows x 2 m, a warp 16 x 16,
-// the 8 warps 4 (rows) x 2 (m)
-constexpr int FR = 64;  // PHASE_ROWS in ops/sht.py
-constexpr int FM = 32;
-constexpr int FTR = 4;
-constexpr int FTM = 2;
-// inverse: IR rows x IJ pixels a block; a thread 2 rows x 4 pixels, a warp
-// 16 x 16, the 8 warps 2 (rows) x 4 (pixels)
-constexpr int IR = 32;  // PHASE_INV_ROWS in ops/sht.py
-constexpr int IJ = 64;
-constexpr int ITR = 2;
-constexpr int ITJ = 4;
-static_assert((FR / FTR) * (FM / FTM) == THREADS && FR / FTR == 16 && FM / FTM == 16,
-              "the forward's warps are 4 x 2 tiles of 16 rows x 16 m");
-static_assert((IR / ITR) * (IJ / ITJ) == THREADS && IR == 32 && IJ / ITJ == 16 && ITJ == 4,
-              "the inverse's warps are 2 x 4 tiles of 16 rows x 16 pixels");
+__device__ __forceinline__ uint2 entry_of(float, double v) {
+  uint32_t big, small;
+  mma::tf32_split((float)v, big, small);
+  return make_uint2(big, small);
+}
+__device__ __forceinline__ double entry_of(double, double v) { return v; }
 
-// pixels (forward) or m (inverse) a stage
-template <typename T> struct Depth { static constexpr int v = 32; };
-template <> struct Depth<double> { static constexpr int v = 16; };
-// float32 sums each stage from zero and adds it to the running total (a
-// running float32 sum of 4 nside terms lands ~4x farther from the float64
-// truth than the FFT route; staged, no farther)
-template <typename T> struct Staged { static constexpr bool v = true; };
-template <> struct Staged<double> { static constexpr bool v = false; };
-// blocks an SM the registers must leave room for
-constexpr int FWD_BLOCKS = 2;
-constexpr int INV_BLOCKS = 3;
-
-__device__ __forceinline__ void sin_cos_pi(float x, float* s, float* c) { sincospif(x, s, c); }
-__device__ __forceinline__ void sin_cos_pi(double x, double* s, double* c) { sincospi(x, s, c); }
-
-__device__ __forceinline__ void ld2(const float* p, float (&v)[2]) {
-  const float2 a = *reinterpret_cast<const float2*>(p);
-  v[0] = a.x; v[1] = a.y;
-}
-__device__ __forceinline__ void ld2(const double* p, double (&v)[2]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  v[0] = a.x; v[1] = a.y;
-}
-__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void ld4(const double* p, double (&v)[4]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void st2(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ void st2(double* p, const double (&v)[2]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
-__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void st4(double* p, const double (&v)[4]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
-}
+// IEEE operations the compiler may not contract or reorder: the turns give
+// the same bits in every instantiation
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // (a + b) mod n for a, b < n <= 2^31
 __device__ __forceinline__ unsigned add_mod(unsigned a, unsigned b, unsigned n) {
@@ -146,7 +164,31 @@ __device__ __forceinline__ unsigned add_mod(unsigned a, unsigned b, unsigned n) 
   return s >= n ? s - n : s;
 }
 
-// row q of a group: unit q / rings and the group's (q % rings)-th ring
+// The ring's angle table: cos(pi t / N) and sin(pi t / N), 0 <= t < 2N, from
+// the half-wave table hw[a] = cos(pi a / N), a = 0 .. N.
+struct Angles {
+  unsigned N, n2, half, q3;
+  __device__ Angles(int n) : N(n), n2(2u * n), half(n / 2), q3(3u * (n / 2)) {}
+  __device__ __forceinline__ unsigned fold(unsigned t) const { return t <= N ? t : n2 - t; }
+  __device__ __forceinline__ unsigned cos_at(unsigned t) const { return fold(t); }
+  __device__ __forceinline__ unsigned sin_at(unsigned t) const {
+    return fold(t >= half ? t - half : t + q3);
+  }
+  // m k mod 2N, exactly, for k <= 2 JC + 1 (2N k < 2^32 up to nside 2^20)
+  __device__ __forceinline__ unsigned angle(unsigned m, unsigned k) const {
+    return (m % n2) * k % n2;
+  }
+};
+
+// the half-wave table of a group of N-pixel rings as table entries, one
+// cospi an entry
+template <typename T>
+__device__ __forceinline__ void fill_half_wave(typename Prec<T>::E* hw, int N) {
+  for (int u = threadIdx.x; u <= N; u += blockDim.x)
+    hw[u] = entry_of(T(0), cospi((double)u / (double)N));
+}
+
+// row q of a group: unit q / rings on the group's (q % rings)-th ring
 struct Row {
   int b, ring;
 };
@@ -155,180 +197,408 @@ __device__ __forceinline__ Row group_row(int q, int nr, int first, int stride) {
   return {b, first + (q - b * nr) * stride};
 }
 
+__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// dynamic shared memory of a launch (ops/sht.py phase_plan repeats it).
+// complex64 forward: 1024 bytes of alignment slack, the table's big and
+// small planes (2 cols rows of 128 bytes each), the turns of two stages,
+// the half-wave table, the ring's stages, the rows' map offsets
+constexpr size_t fwd32_smem(int rows, int cols, int maxlen, int nstage) {
+  return 1024 + 2 * (size_t)(2 * cols) * 128 + 16 * (size_t)cols +
+         align16((size_t)(maxlen + 1) * 4) + (size_t)nstage * rows * (JC + 4) * 8 +
+         8 * (size_t)rows;
+}
+// complex128 forward: the half-wave table, the ring's stages, the table
+// tile (padded rows), the one-step turns, the rows' map offsets
+constexpr size_t fwd64_smem(int rows, int cols, int maxlen, int nstage) {
+  return align16((size_t)(maxlen + 1) * 8) + (size_t)nstage * rows * (JC + 4) * 16 +
+         (size_t)JC * (2 * cols + 4) * 8 + 16 * (size_t)cols + 8 * (size_t)rows;
+}
+// inverse: the half-wave table as entries, the ring's stages, two table
+// tiles
 template <typename T>
-__global__ void __launch_bounds__(THREADS, FWD_BLOCKS)
-    phase_fwd_kernel(const cpx<T>* __restrict__ maps, const int* __restrict__ groups,
-                     const int2* __restrict__ tiles, cpx<T>* __restrict__ F,
-                     cpx<T>* __restrict__ G, int B, int nring, int maxlen, int m0, int nm,
-                     int nmt) {
-  constexpr int JC = Depth<T>::v;
-  constexpr int XP = FR + 4;                 // padded row of the staged maps (16-byte rows)
-  constexpr int XLOADS = FR * JC / THREADS;  // staged map elements a thread
-  constexpr int XROWS = THREADS / JC;        // rows a pass of the block
-  constexpr int TLOADS = JC * FM / THREADS;  // table entries a thread
-  constexpr int TSTEP = THREADS / FM;        // pixels between a thread's entries
-  __shared__ __align__(16) T xr[JC][XP];
-  __shared__ __align__(16) T xi[JC][XP];
-  __shared__ __align__(16) T cs[JC][FM];
-  __shared__ __align__(16) T sn[JC][FM];
+constexpr size_t inv_smem(int rows, int pix, int maxlen, int nstage, bool real) {
+  return align16((size_t)(maxlen + 1) * 8) +
+         (size_t)nstage * (real ? 1 : 2) * rows * (Prec<T>::MC + 4) *
+             sizeof(typename Prec<T>::C2) +
+         2 * (size_t)Prec<T>::MC * (pix + (sizeof(T) == 4 ? 2 : 4)) * 16;
+}
+
+__device__ __forceinline__ void wait_ring(int nstage) {
+  // at most nstage - 2 groups in flight: the stage about to be read landed
+  if (nstage >= 4) mma::cp_async_wait<2>();
+  else if (nstage == 3) mma::cp_async_wait<1>();
+  else mma::cp_async_wait<0>();
+}
+
+// (P, Q) turned by the angle (c, s): (c P - s Q, s P + c Q)
+template <typename T>
+__device__ __forceinline__ void turn(T& p, T& q, T c, T s) {
+  const T p2 = fma_rn(c, p, mul_rn(-s, q));
+  q = fma_rn(s, p, mul_rn(c, q));
+  p = p2;
+}
+
+// ------------------------------------------------------------- forward
+//
+// Both forward kernels: the block's rows (unit, ring) of one group (a row
+// tile of ops/sht.py phase_tiles) and COLS m (one m tile), the pixels in
+// stages of JC through a ring of NSTAGE shared-memory stages.  The maps of
+// row r sit at rowoff[r] (-1 past the group's rows); a stage is rows x JC
+// complex pixels, 16-byte copies, pixels past N filled with zeros.
+template <typename C2>
+struct Staging {
+  static constexpr int XP = JC + 4;                 // padded staged row, complex pixels
+  static constexpr int PPC = 16 / (int)sizeof(C2);  // pixels a 16-byte copy
+  static constexpr int CPR = JC / PPC;              // copies a staged row
+  const C2* maps;
+  const long long* rowoff;
+  C2* xs;
+  int rows, nstage, nst, N;
+  bool reverse;  // ring slot k holds stage nst - 1 - k
+
+  // rowoff for the block's rows (one thread a row)
+  __device__ static void offsets(long long* rowoff, int rows, int row0, int nrows, int nr,
+                                 int first, int stride, int nring, int maxlen) {
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      const int q = row0 + r;
+      long long o = -1;
+      if (q < nrows) {
+        const Row w = group_row(q, nr, first, stride);
+        o = ((long long)w.b * nring + w.ring) * maxlen;
+      }
+      rowoff[r] = o;
+    }
+  }
+  // issue stage k's copies (a committed group, empty past the last stage)
+  __device__ __forceinline__ void copy(int k) const {
+    if (k < nst) {
+      C2* dst = xs + (size_t)(k % nstage) * rows * XP;
+      const int j0 = (reverse ? nst - 1 - k : k) * JC;
+      for (int e = threadIdx.x; e < rows * CPR; e += blockDim.x) {
+        const int r = e / CPR, j = (e % CPR) * PPC;
+        const long long o = rowoff[r];
+        const bool ok = o >= 0 && j0 + j < N;
+        mma::cp_async<16>(dst + r * XP + j, ok ? maps + o + j0 + j : maps, ok);
+      }
+    }
+    mma::cp_async_commit();
+  }
+  __device__ __forceinline__ const C2* stage(int k) const {
+    return xs + (size_t)(k % nstage) * rows * XP;
+  }
+};
+
+// Complex64: a block of 128 WG threads owns 32 WG rows (warpgroup wg rows
+// 32 wg .. 32 wg + 31, warp w of it 8 rows: its m16n8k8 fragment's rows g
+// and g + 8 are row 8 w + g's re and im) x COLS = 8 NQ m, the product's N =
+// 2 COLS columns (m, cos) and (m, sin) interleaved.
+template <int NQ>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    phase_fwd_tf32(const float2* __restrict__ maps, const int* __restrict__ groups,
+                   const int2* __restrict__ tiles, float2* __restrict__ F,
+                   float2* __restrict__ G, int B, int nring, int maxlen, int m0, int nm, int nmt,
+                   int rows, int nstage) {
+  constexpr int COLS = 8 * NQ, N = 2 * COLS;  // m a tile; the product's columns
+  constexpr int PLANE = N * 128;              // a K-major plane: N rows of JC tf32
+  using St = Staging<float2>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
 
   const int2 tile = tiles[blockIdx.x / nmt];
-  const int col0 = (blockIdx.x % nmt) * FM;  // the tile's first column (m = m0 + col0)
+  const int col0 = (blockIdx.x % nmt) * COLS;
+  const int* gr = groups + GF * tile.x;
+  const int Nr = gr[0], h = gr[1], nr = gr[2], first = gr[3], stride = gr[4];
+  const int nrows = B * nr, row0 = tile.y;
+  const int nst = (Nr + JC - 1) / JC;
+
+  unsigned char* big = smem;
+  unsigned char* small = smem + PLANE;
+  float* tw = reinterpret_cast<float*>(smem + 2 * PLANE);  // [2][COLS][cos, sin]
+  float* hw = tw + 4 * COLS;
+  float2* xs = reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(hw) +
+                                         align16((size_t)(maxlen + 1) * 4));
+  long long* rowoff = reinterpret_cast<long long*>(xs + (size_t)nstage * rows * St::XP);
+
+  St::offsets(rowoff, rows, row0, nrows, nr, first, stride, nring, maxlen);
+  __syncthreads();
+  const St ring{maps, rowoff, xs, rows, nstage, nst, Nr, false};
+  // the first NSTAGE - 1 stages go out before the tables are made
+  for (int k = 0; k < nstage - 1; ++k) ring.copy(k);
+
+  for (int u = tid; u <= Nr; u += nthr) hw[u] = (float)cospi((double)u / (double)Nr);
+  const Angles ang(Nr);
+  __syncthreads();  // the half-wave table is whole
+
+  // the table tile: column 2c (2c + 1) of pixel jl is cos (sin) (pi m (2 jl
+  // + h) / N), m = m0 + col0 + c, split into the big and small planes
+  for (int e = tid; e < COLS * JC; e += nthr) {
+    const int c = e / JC, jl = e % JC;
+    const unsigned a = ang.angle((unsigned)(m0 + col0 + c), 2u * jl + h);
+    const float v[2] = {hw[ang.cos_at(a)], hw[ang.sin_at(a)]};
+#pragma unroll
+    for (int cs = 0; cs < 2; ++cs) {
+      uint32_t vb, vs;
+      mma::tf32_split(v[cs], vb, vs);
+      const uint32_t o = ring::sw128((uint32_t)(2 * c + cs) * 128 + jl * 4);
+      *reinterpret_cast<uint32_t*>(big + o) = vb;
+      *reinterpret_cast<uint32_t*>(small + o) = vs;
+    }
+  }
+  // the turn of column tid: its step dt = m 2 JC mod 2N and the running
+  // angle tc = s dt of the stage it writes next; stage 0's is (1, 0)
+  unsigned dt = 0, tc = 0;
+  if (tid < COLS) {
+    dt = ang.angle((unsigned)(m0 + col0 + tid), 2u * JC);
+    tw[2 * tid] = hw[ang.cos_at(0)];
+    tw[2 * tid + 1] = hw[ang.sin_at(0)];
+  }
+  ring::fence_async_smem();  // the planes, written here, are read by wgmma
+
+  const bool active = row0 + 32 * wg < nrows;
+  const uint64_t dbig = ring::desc_sw128(big, 0, 1024);
+  const uint64_t dsmall = ring::desc_sw128(small, 0, 1024);
+
+  // acc[4q + r]: the stage's (P re, Q re, P im, Q im) of row 32 wg + 8 w + g,
+  // m col0 + 4q + t (the wgmma fragment: rows g, g + 8; columns 2t, 2t + 1
+  // of each 8); sum the running total
+  float acc[N / 2], sum[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) acc[j] = sum[j] = 0.f;
+
+  for (int s = 0; s < nst; ++s) {
+    wait_ring(nstage);
+    __syncthreads();  // stage s landed; every warp past stage s - 1
+    ring.copy(s + nstage - 1);
+    // the turns of stage s + 1 into the slot stage s - 1 read
+    if (tid < COLS && s + 1 < nst) {
+      tc = add_mod(tc, dt, ang.n2);
+      float* p = tw + ((s + 1) & 1) * 2 * COLS + 2 * tid;
+      p[0] = hw[ang.cos_at(tc)];
+      p[1] = hw[ang.sin_at(tc)];
+    }
+    if (!active) continue;
+    // A: the warp's 16 rows (8 rows' re and im) at pixels kk + t and kk + t
+    // + 4 of each 8-deep step, split into tf32 big and small
+    const float2* xt = ring.stage(s) + (32 * wg + 8 * w + g) * St::XP + t;
+    uint32_t ab[JC / 8][4], as[JC / 8][4];
+#pragma unroll
+    for (int k = 0; k < JC / 8; ++k) {
+      const float2 v0 = xt[8 * k], v1 = xt[8 * k + 4];
+      mma::tf32_split(v0.x, ab[k][0], as[k][0]);
+      mma::tf32_split(v0.y, ab[k][1], as[k][1]);
+      mma::tf32_split(v1.x, ab[k][2], as[k][2]);
+      mma::tf32_split(v1.y, ab[k][3], as[k][3]);
+    }
+    // the stage's twelve products from a zero accumulator: the eight small
+    // ones first, so that the truncating adds meet the big sum only in the
+    // last four; nothing touches acc while they are in flight
+    ring::fence_operand(acc);
+    ring::wg_fence();
+#pragma unroll
+    for (int k = 0; k < JC / 8; ++k) {
+      ring::wgmma_tf32<N>(acc, as[k], dbig + 2 * k, k > 0);
+      ring::wgmma_tf32<N>(acc, ab[k], dsmall + 2 * k, 1);
+    }
+#pragma unroll
+    for (int k = 0; k < JC / 8; ++k) ring::wgmma_tf32<N>(acc, ab[k], dbig + 2 * k, 1);
+    ring::wg_commit();
+    ring::wg_wait<0>();
+    ring::fence_operand(acc);
+    const float* tws = tw + (s & 1) * 2 * COLS;
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q) {
+      const float zc = tws[2 * (4 * q + t)], zs = tws[2 * (4 * q + t) + 1];
+      turn(acc[4 * q], acc[4 * q + 1], zc, zs);
+      turn(acc[4 * q + 2], acc[4 * q + 3], zc, zs);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[4 * q + r] = add_rn(sum[4 * q + r], acc[4 * q + r]);
+    }
+  }
+  mma::cp_async_wait<0>();
+  const int qrow = row0 + 32 * wg + 8 * w + g;
+  if (!active || qrow >= nrows) return;
+  const Row rw = group_row(qrow, nr, first, stride);
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q) {
+    const int col = col0 + 4 * q + t;
+    if (col >= nm) continue;
+    const size_t o = ((size_t)rw.b * nm + col) * nring + rw.ring;
+    const float pr = sum[4 * q], qr = sum[4 * q + 1], pi = sum[4 * q + 2], qi = sum[4 * q + 3];
+    F[o] = make_float2(pr + qi, pi - qr);
+    G[o] = make_float2(pr - qi, pi + qr);
+  }
+}
+
+// Complex128: a block owns R = 16 WR rows x COLS = 8 NT m: WR x 2 warps, a
+// warp MT = 2 row tiles (8 rows, re and im) x NT column tiles (4 m, cos and
+// sin) of mma.sync m16n8k4.  It walks the stages from the last (Horner).
+template <int NT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    phase_fwd_f64(const double2* __restrict__ maps, const int* __restrict__ groups,
+                  const int2* __restrict__ tiles, double2* __restrict__ F,
+                  double2* __restrict__ G, int B, int nring, int maxlen, int m0, int nm, int nmt,
+                  int rows, int nstage) {
+  constexpr int KS = 4;                       // pixels an mma
+  constexpr int COLS = WC * 4 * NT;           // m a tile
+  constexpr int TQ = 2 * COLS + 4;            // padded table row, entries
+  using St = Staging<double2>;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int nthr = blockDim.x;  // 4 rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+
+  const int2 tile = tiles[blockIdx.x / nmt];
+  const int col0 = (blockIdx.x % nmt) * COLS;
   const int* gr = groups + GF * tile.x;
   const int N = gr[0], h = gr[1], nr = gr[2], first = gr[3], stride = gr[4];
-  const int nrows = B * nr;
-  const int row0 = tile.y;
+  const int nrows = B * nr, row0 = tile.y;
+  const int nst = (N + JC - 1) / JC;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp >> 1, wm = warp & 1;
-  const int rl = wr * 16 + (lane >> 3) * FTR;  // the thread's first row in the tile
-  const int ml = wm * 16 + (lane & 7) * FTM;   // its first column in the tile
-  const bool active = row0 + wr * 16 < nrows && col0 + wm * 16 < nm;
+  double* hw = reinterpret_cast<double*>(smem);
+  double2* xs = reinterpret_cast<double2*>(smem + align16((size_t)(maxlen + 1) * 8));
+  double* tb = reinterpret_cast<double*>(xs + (size_t)nstage * rows * St::XP);
+  double* tw = tb + JC * TQ;  // [COLS][cos, sin] of the one step
+  long long* rowoff = reinterpret_cast<long long*>(tw + 2 * COLS);
 
-  // the rows this thread stages: element e = tid + THREADS k is row
-  // e / JC, pixel e % JC of the stage
-  const int xj = tid % JC;
-  long long xoff[XLOADS];
-#pragma unroll
-  for (int k = 0; k < XLOADS; ++k) {
-    const int q = row0 + tid / JC + XROWS * k;
-    if (q < nrows) {
-      const Row w = group_row(q, nr, first, stride);
-      xoff[k] = ((long long)w.b * nring + w.ring) * maxlen + xj;
-    } else {
-      xoff[k] = -1;
-    }
+  St::offsets(rowoff, rows, row0, nrows, nr, first, stride, nring, maxlen);
+  __syncthreads();
+  const St ring{maps, rowoff, xs, rows, nstage, nst, N, true};
+  for (int k = 0; k < nstage - 1; ++k) ring.copy(k);
+
+  for (int u = tid; u <= N; u += nthr) hw[u] = cospi((double)u / (double)N);
+  const Angles ang(N);
+  __syncthreads();  // the half-wave table is whole
+
+  // the table tile: (jl, 2c) and (jl, 2c + 1) hold cos, sin (pi m (2 jl +
+  // h) / N), m = m0 + col0 + c
+  for (int e = tid; e < JC * COLS; e += nthr) {
+    const int jl = e / COLS, c = e % COLS;
+    const unsigned a = ang.angle((unsigned)(m0 + col0 + c), 2u * jl + h);
+    *reinterpret_cast<double2*>(tb + jl * TQ + 2 * c) =
+        make_double2(hw[ang.cos_at(a)], hw[ang.sin_at(a)]);
+  }
+  // the one step of column tid: pi m 2 JC / N
+  if (tid < COLS) {
+    const unsigned a = ang.angle((unsigned)(m0 + col0 + tid), 2u * JC);
+    tw[2 * tid] = hw[ang.cos_at(a)];
+    tw[2 * tid + 1] = hw[ang.sin_at(a)];
   }
 
-  // the table entries this thread makes: column tm, pixels tj + TSTEP k;
-  // t = m (2 j + h) mod 2N, stepped exactly in unsigned integers
-  const int tm = tid % FM, tj = tid / FM;
-  const unsigned n2 = 2u * (unsigned)N;
-  const unsigned mm = (unsigned)(((long long)m0 + col0 + tm) % n2);
-  const unsigned tstep = (unsigned)((2ull * TSTEP * mm) % n2);
-  const unsigned sstep = (unsigned)((2ull * JC * mm) % n2);
-  unsigned tbase = (unsigned)(((unsigned long long)mm * (2u * tj + (unsigned)h)) % n2);
-  const T nf = T(N);
+  const int wrow = wr * 8 * MT;        // the warp's first row in the tile
+  const int wcol = wc * 8 * NT;        // its first real column (2 a m)
+  const bool active = row0 + wrow < nrows && col0 + wc * 4 * NT < nm;
 
-  // the sums (P re, P im, Q re, Q im) of each (row, m); acc the stage's
-  // (float32) or the running sum (float64)
-  T acc[4][FTR][FTM], sum[4][FTR][FTM];
+  // (P re, Q re, P im, Q im) of (row wrow + 8a + g, m col0 + wcol / 2 + 4c
+  // + t): the running total
+  double sum[MT][NT][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int a = 0; a < MT; ++a)
 #pragma unroll
-    for (int i = 0; i < FTR; ++i)
+    for (int c = 0; c < NT; ++c)
 #pragma unroll
-      for (int k = 0; k < FTM; ++k) {
-        acc[c][i][k] = T(0);
-        if constexpr (Staged<T>::v) sum[c][i][k] = T(0);
-      }
-  T (&fin)[4][FTR][FTM] = Staged<T>::v ? sum : acc;
+      for (int r = 0; r < 4; ++r) sum[a][c][r] = 0.0;
 
-  for (int j0 = 0; j0 < N; j0 += JC) {
+  const double* tt = tb + t * TQ + wcol + g;
+  for (int s = 0; s < nst; ++s) {
+    wait_ring(nstage);
+    __syncthreads();  // stage s landed; every warp past stage s - 1
+    ring.copy(s + nstage - 1);
+    if (!active) continue;
+    if (s > 0) {
 #pragma unroll
-    for (int k = 0; k < XLOADS; ++k) {
-      const int rr = tid / JC + XROWS * k;
-      cpx<T> v;
-      v.x = T(0);
-      v.y = T(0);
-      if (xoff[k] >= 0 && j0 + xj < N) v = maps[xoff[k] + j0];
-      xr[xj][rr] = v.x;
-      xi[xj][rr] = v.y;
-    }
-    unsigned t = tbase;
+      for (int c = 0; c < NT; ++c) {
+        const int mc = wc * 4 * NT + 4 * c + t;
+        const double zc = tw[2 * mc], zs = tw[2 * mc + 1];
 #pragma unroll
-    for (int k = 0; k < TLOADS; ++k) {
-      const int jj = tj + TSTEP * k;
-      T s = T(0), c = T(0);
-      if (j0 + jj < N) sin_cos_pi(T(t) / nf, &s, &c);
-      cs[jj][tm] = c;
-      sn[jj][tm] = s;
-      t = add_mod(t, tstep, n2);
-    }
-    tbase = add_mod(tbase, sstep, n2);
-    __syncthreads();
-    if (active) {
-#pragma unroll 8
-      for (int jj = 0; jj < JC; ++jj) {
-        T ar[FTR], ai[FTR], c[FTM], s[FTM];
-        ld4(&xr[jj][rl], ar);
-        ld4(&xi[jj][rl], ai);
-        ld2(&cs[jj][ml], c);
-        ld2(&sn[jj][ml], s);
-#pragma unroll
-        for (int i = 0; i < FTR; ++i)
-#pragma unroll
-          for (int k = 0; k < FTM; ++k) {
-            acc[0][i][k] = fma(ar[i], c[k], acc[0][i][k]);
-            acc[1][i][k] = fma(ai[i], c[k], acc[1][i][k]);
-            acc[2][i][k] = fma(ar[i], s[k], acc[2][i][k]);
-            acc[3][i][k] = fma(ai[i], s[k], acc[3][i][k]);
-          }
-      }
-      if constexpr (Staged<T>::v) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int i = 0; i < FTR; ++i)
-#pragma unroll
-            for (int k = 0; k < FTM; ++k) {
-              sum[c][i][k] += acc[c][i][k];
-              acc[c][i][k] = T(0);
-            }
+        for (int a = 0; a < MT; ++a) {
+          turn(sum[a][c][0], sum[a][c][1], zc, zs);
+          turn(sum[a][c][2], sum[a][c][3], zc, zs);
+        }
       }
     }
-    __syncthreads();
+    const double2* xt = ring.stage(s) + (wrow + g) * St::XP + t;
+#pragma unroll
+    for (int kk = 0; kk < JC; kk += KS) {
+      double2 av[MT];
+#pragma unroll
+      for (int a = 0; a < MT; ++a) av[a] = xt[a * 8 * St::XP + kk];
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        const double b = tt[kk * TQ + 8 * c];
+#pragma unroll
+        for (int a = 0; a < MT; ++a) mma::dmma_16x8x4(sum[a][c], av[a].x, av[a].y, b);
+      }
+    }
   }
+  mma::cp_async_wait<0>();
   if (!active) return;
 #pragma unroll
-  for (int i = 0; i < FTR; ++i) {
-    const int q = row0 + rl + i;
+  for (int a = 0; a < MT; ++a) {
+    const int q = row0 + wrow + 8 * a + g;
     if (q >= nrows) continue;
     const Row w = group_row(q, nr, first, stride);
 #pragma unroll
-    for (int k = 0; k < FTM; ++k) {
-      const int col = col0 + ml + k;
+    for (int c = 0; c < NT; ++c) {
+      const int col = col0 + wcol / 2 + 4 * c + t;
       if (col >= nm) continue;
       const size_t o = ((size_t)w.b * nm + col) * nring + w.ring;
-      const T pr = fin[0][i][k], pi = fin[1][i][k], qr = fin[2][i][k], qi = fin[3][i][k];
-      cpx<T> f, g;
-      f.x = pr + qi;
-      f.y = pi - qr;
-      g.x = pr - qi;
-      g.y = pi + qr;
-      F[o] = f;
-      G[o] = g;
+      const double pr = sum[a][c][0], qr = sum[a][c][1], pi = sum[a][c][2],
+                   qi = sum[a][c][3];
+      F[o] = make_double2(pr + qi, pi - qr);
+      G[o] = make_double2(pr - qi, pi + qr);
     }
   }
 }
 
-template <typename T, bool REAL>
-__global__ void __launch_bounds__(THREADS, INV_BLOCKS)
-    phase_inv_kernel(const cpx<T>* __restrict__ tpos, const cpx<T>* __restrict__ tneg,
-                     const int* __restrict__ groups, const int2* __restrict__ tiles,
-                     T* __restrict__ out, int B, int nring, int maxlen, int nm, int njt) {
-  constexpr int MC = Depth<T>::v;
-  constexpr int CW = REAL ? 2 : 4;           // (w T re, w T im) or (A re, A im, D re, D im)
-  constexpr int CLOADS = MC * IR / THREADS;  // coefficient entries a thread
-  constexpr int CSTEP = THREADS / IR;        // m between them
-  constexpr int TLOADS = MC * IJ / THREADS;  // table entries a thread
-  constexpr int TSTEP = THREADS / IJ;        // m between them
-  constexpr int OW = REAL ? 1 : 2;           // T values an output element
-  __shared__ __align__(16) T co[MC][IR][CW];
-  __shared__ __align__(16) T cs[MC][IJ];
-  __shared__ __align__(16) T sn[MC][IJ];
+// ------------------------------------------------------------- inverse
+//
+// A block owns R rows of one group (16 a row tile of the real form, 8 of
+// the complex, where the tile's rows g and g + 8 are a row's re and im) x
+// PIX = 16 NT pixels: WR x 2 warps, a warp MT = 2 row tiles x NT column
+// tiles (8 pixels).  It walks m in stages of MC.
+template <typename T, bool REAL, int NT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    phase_inv_kernel(const typename Prec<T>::C2* __restrict__ tpos,
+                     const typename Prec<T>::C2* __restrict__ tneg, const int* __restrict__ groups,
+                     const int2* __restrict__ tiles, T* __restrict__ out, int B, int nring,
+                     int maxlen, int nm, int njt, int rows, int nstage) {
+  using C2 = typename Prec<T>::C2;
+  using E = typename Prec<T>::E;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int KS = Prec<T>::KS, MC = Prec<T>::MC;
+  constexpr int KM = KS / 2;                  // m an mma step
+  constexpr int RPT = REAL ? 16 : 8;          // rows a row tile
+  constexpr int NA = REAL ? 1 : 2;            // coefficient arrays
+  constexpr int MP = MC + 4;                  // padded staged row, coefficients
+  constexpr int PIX = WC * NT * 8;            // pixels a tile
+  constexpr int PP = PIX + (F32 ? 2 : 4);     // padded table row, (cos, sin) pairs
+  constexpr int CPT = RPT * MT * MC * NA / 64;  // copies a thread: R MC NA / (64 WR)
+  constexpr int OW = REAL ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
 
   const int2 tile = tiles[blockIdx.x / njt];
-  const int j0 = (blockIdx.x % njt) * IJ;
+  const int j0 = (blockIdx.x % njt) * PIX;
   const int* gr = groups + GF * tile.x;
   const int N = gr[0], h = gr[1], nr = gr[2], first = gr[3], stride = gr[4];
-  const int nrows = B * nr;
-  const int row0 = tile.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nrows = B * nr, row0 = tile.y;
 
   if (j0 >= N) {  // padding slots only
-    for (int e = tid; e < IR * IJ; e += THREADS) {
-      const int q = row0 + e / IJ, j = j0 + e % IJ;
+    for (int e = tid; e < rows * PIX; e += nthr) {
+      const int q = row0 + e / PIX, j = j0 + e % PIX;
       if (q >= nrows || j >= maxlen) continue;
       const Row w = group_row(q, nr, first, stride);
       T* o = out + (((size_t)w.b * nring + w.ring) * maxlen + j) * OW;
@@ -337,191 +607,313 @@ __global__ void __launch_bounds__(THREADS, INV_BLOCKS)
     }
     return;
   }
+  const int nst = (nm + MC - 1) / MC;
 
-  const int wr = warp >> 2, wj = warp & 3;
-  const int rl = wr * 16 + (lane >> 2) * ITR;  // the thread's first row in the tile
-  const int jl = wj * 16 + (lane & 3) * ITJ;   // its first pixel in the tile
-  const bool active = row0 + wr * 16 < nrows && j0 + wj * 16 < N;
+  E* hw = reinterpret_cast<E*>(smem);
+  C2* co = reinterpret_cast<C2*>(smem + align16((size_t)(maxlen + 1) * 8));
+  const int cstage = NA * rows * MP;
+  E* tb = reinterpret_cast<E*>(co + (size_t)nstage * cstage);  // pairs: 2 entries each
 
-  // the coefficient row this thread stages (row tid % IR, m tid / IR +
-  // CSTEP k of a stage)
-  const int cr = tid % IR, cm = tid / IR;
+  // the coefficient copies of this thread: row tid % R (the thread count is
+  // a multiple of R), m and array stepping with k
+  const int crow = tid % rows;
   long long coff = -1;
-  if (row0 + cr < nrows) {
-    const Row w = group_row(row0 + cr, nr, first, stride);
+  if (row0 + crow < nrows) {
+    const Row w = group_row(row0 + crow, nr, first, stride);
     coff = (long long)w.b * nm * nring + w.ring;
   }
-
-  // the table entries this thread makes: pixel ej, m em + TSTEP k;
-  // t = m (2 j + h) mod 2N, stepped exactly in unsigned integers
-  const int ej = tid % IJ, em = tid / IJ;
-  const unsigned n2 = 2u * (unsigned)N;
-  const unsigned kj = (unsigned)((2ll * (j0 + ej) + h) % n2);
-  const unsigned tstep = (unsigned)(((unsigned long long)TSTEP * kj) % n2);
-  const unsigned sstep = (unsigned)(((unsigned long long)MC * kj) % n2);
-  unsigned tbase = (unsigned)(((unsigned long long)em * kj) % n2);
-  const T nf = T(N);
-  const bool in_ring = j0 + ej < N;
-
-  // the sums (re, im) of each (row, pixel): acc the stage's (float32) or
-  // the running sum (float64)
-  T acc[2][ITR][ITJ], sum[2][ITR][ITJ];
+  auto stage_copy = [&](int s) {
+    if (s < nst) {
+      C2* dst = co + (size_t)(s % nstage) * cstage + crow * MP;
+      const int mc0 = s * MC;
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
-#pragma unroll
-    for (int i = 0; i < ITR; ++i)
-#pragma unroll
-      for (int k = 0; k < ITJ; ++k) {
-        acc[c][i][k] = T(0);
-        if constexpr (Staged<T>::v) sum[c][i][k] = T(0);
+      for (int k = 0; k < CPT; ++k) {
+        const int e = (tid + nthr * k) / rows;  // array x MC + m
+        const int arr = e / MC, mi = e % MC;
+        const bool ok = coff >= 0 && mc0 + mi < nm;
+        const C2* src = (arr == 0 || REAL) ? tpos : tneg;
+        mma::cp_async<(int)sizeof(C2)>(dst + arr * rows * MP + mi,
+                                  ok ? src + coff + (long long)(mc0 + mi) * nring : tpos, ok);
       }
-  T (&fin)[2][ITR][ITJ] = Staged<T>::v ? sum : acc;
+    }
+    mma::cp_async_commit();
+  };
+  for (int s = 0; s < nstage - 1; ++s) stage_copy(s);
 
-  for (int mc0 = 0; mc0 < nm; mc0 += MC) {
-#pragma unroll
-    for (int k = 0; k < CLOADS; ++k) {
-      const int mi = cm + CSTEP * k, m = mc0 + mi;
-      T v[CW];
-#pragma unroll
-      for (int c = 0; c < CW; ++c) v[c] = T(0);
-      if (coff >= 0 && m < nm) {
-        const cpx<T> p = tpos[coff + (long long)m * nring];
-        if constexpr (REAL) {
-          const T w = m == 0 ? T(1) : T(2);  // exact: the sum keeps its bits
-          v[0] = w * p.x;
-          v[1] = w * p.y;
-        } else {
-          const cpx<T> n = tneg[coff + (long long)m * nring];
-          v[0] = p.x + n.x;
-          v[1] = p.y + n.y;
-          v[2] = p.x - n.x;
-          v[3] = p.y - n.y;
-        }
-      }
-      if constexpr (REAL) st2(&co[mi][cr][0], v);
-      else st4(&co[mi][cr][0], v);
+  fill_half_wave<T>(hw, N);
+  const Angles ang(N);
+
+  // the table entries this thread gathers: pixel jl, m mfirst + mstep k of
+  // each stage; t = m (2 j + h) mod 2N stepped exactly
+  const int jl = tid % PIX, mfirst = tid / PIX, mstep = nthr / PIX;
+  const unsigned n2 = ang.n2;
+  const unsigned kj = (unsigned)((2ll * (j0 + jl) + h) % n2);
+  unsigned tstart = (unsigned)(((unsigned long long)mfirst * kj) % n2);
+  const unsigned tstep = (unsigned)(((unsigned long long)mstep * kj) % n2);
+  const unsigned dstart = (unsigned)(((unsigned long long)MC * kj) % n2);
+  __syncthreads();  // the half-wave table is whole
+
+  auto build = [&](int buf) {
+    E* col = tb + ((size_t)buf * MC * PP + jl) * 2;
+    unsigned tc = tstart;
+    for (int mi = mfirst; mi < MC; mi += mstep) {
+      const E cv = hw[ang.cos_at(tc)], sv = hw[ang.sin_at(tc)];
+      if constexpr (F32)
+        *reinterpret_cast<uint4*>(col + 2 * mi * PP) = make_uint4(cv.x, cv.y, sv.x, sv.y);
+      else
+        *reinterpret_cast<double2*>(col + 2 * mi * PP) = make_double2(cv, sv);
+      tc = add_mod(tc, tstep, n2);
     }
-    unsigned t = tbase;
+    tstart = add_mod(tstart, dstart, n2);
+  };
+  build(0);
+
+  const int wrow = wr * RPT * MT;   // the warp's first row in the tile (REAL) / first unit row
+  const int wpix = wc * 8 * NT;     // its first pixel in the tile
+  const bool active = row0 + (REAL ? wrow : wr * 8 * MT) < nrows && j0 + wpix < N;
+
+  // the (row, pixel) pairs of c0..c3: the running total, st the stage's
+  T sum[MT][NT][4], st[MT][NT][4];
 #pragma unroll
-    for (int k = 0; k < TLOADS; ++k) {
-      const int mi = em + TSTEP * k;
-      T s = T(0), c = T(0);
-      if (in_ring && mc0 + mi < nm) sin_cos_pi(T(t) / nf, &s, &c);
-      cs[mi][ej] = c;
-      sn[mi][ej] = s;
-      t = add_mod(t, tstep, n2);
-    }
-    tbase = add_mod(tbase, sstep, n2);
+  for (int a = 0; a < MT; ++a)
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[a][c][r] = st[a][c][r] = T(0);
+
+  // staged coefficient row of the thread's row tile a (and of row g + 8)
+  const int arow = REAL ? wrow + g : wr * 8 * MT + g;
+  for (int s = 0; s < nst; ++s) {
+    wait_ring(nstage);
     __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int mi = 0; mi < MC; ++mi) {
-        T c[ITJ], s[ITJ];
-        ld4(&cs[mi][jl], c);
-        ld4(&sn[mi][jl], s);
+    stage_copy(s + nstage - 1);
+    if (s + 1 < nst) build((s + 1) & 1);
+    if (!active) continue;
+    const C2* ct = co + (size_t)(s % nstage) * cstage + arow * MP;
+    const E* tt = tb + (size_t)(s & 1) * MC * PP * 2;
+    const int mc0 = s * MC;
 #pragma unroll
-        for (int i = 0; i < ITR; ++i) {
+    for (int mi = 0; mi < MC; mi += KM) {
+      if constexpr (F32) {
+        // k = cs 4 + m: a0 (row g, cos), a1 (row g + 8, cos), a2 (row g,
+        // sin), a3 (row g + 8, sin) of m = mi + t
+        const int m = mi + t;
+        uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+        for (int a = 0; a < MT; ++a) {
+          float v[4];
           if constexpr (REAL) {
-            T v[2];
-            ld2(&co[mi][rl + i][0], v);
-#pragma unroll
-            for (int k = 0; k < ITJ; ++k) {
-              acc[0][i][k] = fma(v[0], c[k], acc[0][i][k]);
-              acc[0][i][k] = fma(-v[1], s[k], acc[0][i][k]);
-            }
+            const float w = mc0 + m == 0 ? 1.f : 2.f;  // exact: the split scales with it
+            const float2 p0 = ct[(16 * a) * MP + m], p1 = ct[(16 * a + 8) * MP + m];
+            v[0] = w * p0.x;
+            v[1] = w * p1.x;
+            v[2] = -w * p0.y;
+            v[3] = -w * p1.y;
           } else {
-            T v[4];
-            ld4(&co[mi][rl + i][0], v);
+            const float2 p = ct[(8 * a) * MP + m], n = ct[rows * MP + (8 * a) * MP + m];
+            v[0] = p.x + n.x;  // A re: re row, cos
+            v[1] = p.y + n.y;  // A im: im row, cos
+            v[2] = n.y - p.y;  // -D im: re row, sin
+            v[3] = p.x - n.x;  // D re: im row, sin
+          }
 #pragma unroll
-            for (int k = 0; k < ITJ; ++k) {
-              acc[0][i][k] = fma(v[0], c[k], acc[0][i][k]);
-              acc[0][i][k] = fma(-v[3], s[k], acc[0][i][k]);
-              acc[1][i][k] = fma(v[1], c[k], acc[1][i][k]);
-              acc[1][i][k] = fma(v[2], s[k], acc[1][i][k]);
-            }
+          for (int r = 0; r < 4; ++r) mma::tf32_split(v[r], ab[a][r], as[a][r]);
+        }
+#pragma unroll
+        for (int c = 0; c < NT; ++c) {
+          const uint4 b = *reinterpret_cast<const uint4*>(tt + ((mi + t) * PP + wpix + 8 * c + g) * 2);
+#pragma unroll
+          for (int a = 0; a < MT; ++a) {
+            float d[4];
+            mma::mma_tf32_16x8x8_zero(d, as[a], b.x, b.z);
+            mma::mma_tf32_16x8x8(d, ab[a], b.y, b.w);
+            mma::mma_tf32_16x8x8(d, ab[a], b.x, b.z);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) st[a][c][r] += d[r];
           }
         }
-      }
-      if constexpr (Staged<T>::v) {
+      } else {
+        // k = cs 2 + m: a0 (row g), a1 (row g + 8) of m = mi + (t & 1),
+        // cos for t < 2, sin after
+        const int m = mi + (t & 1);
+        const bool sn = t >= 2;
+        double a0[MT], a1[MT];
 #pragma unroll
-        for (int c = 0; c < 2; ++c)
+        for (int a = 0; a < MT; ++a) {
+          if constexpr (REAL) {
+            const double w = mc0 + m == 0 ? 1.0 : 2.0;
+            const double2 p0 = ct[(16 * a) * MP + m], p1 = ct[(16 * a + 8) * MP + m];
+            a0[a] = sn ? -w * p0.y : w * p0.x;
+            a1[a] = sn ? -w * p1.y : w * p1.x;
+          } else {
+            const double2 p = ct[(8 * a) * MP + m], n = ct[rows * MP + (8 * a) * MP + m];
+            a0[a] = sn ? n.y - p.y : p.x + n.x;
+            a1[a] = sn ? p.x - n.x : p.y + n.y;
+          }
+        }
 #pragma unroll
-          for (int i = 0; i < ITR; ++i)
+        for (int c = 0; c < NT; ++c) {
+          const double b = tt[(m * PP + wpix + 8 * c + g) * 2 + (sn ? 1 : 0)];
 #pragma unroll
-            for (int k = 0; k < ITJ; ++k) {
-              sum[c][i][k] += acc[c][i][k];
-              acc[c][i][k] = T(0);
-            }
+          for (int a = 0; a < MT; ++a) mma::dmma_16x8x4(sum[a][c], a0[a], a1[a], b);
+        }
       }
     }
-    __syncthreads();
+    if constexpr (F32) {
+#pragma unroll
+      for (int a = 0; a < MT; ++a)
+#pragma unroll
+        for (int c = 0; c < NT; ++c)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            sum[a][c][r] += st[a][c][r];
+            st[a][c][r] = T(0);
+          }
+    }
   }
+  mma::cp_async_wait<0>();
 
-  // every valid (row, pixel) of the tile is written, the ring's padding
-  // slots as zeros (a thread's 4 pixels lie all inside or all past N, a
+  // every valid (row, pixel) of the warp is written, the ring's padding
+  // slots as zeros (a thread's pixel pair lies inside or past N, a
   // multiple of 4)
-  const int j = j0 + jl;
-  if (j >= maxlen) return;
-  const bool inside = j < N;
 #pragma unroll
-  for (int i = 0; i < ITR; ++i) {
-    const int q = row0 + rl + i;
-    if (q >= nrows) continue;
-    const Row w = group_row(q, nr, first, stride);
-    T* o = out + (((size_t)w.b * nring + w.ring) * maxlen + j) * OW;
-    if constexpr (REAL) {
-      T r[4];
+  for (int c = 0; c < NT; ++c) {
+    const int j = j0 + wpix + 8 * c + 2 * t;
+    if (j >= maxlen) continue;
+    const bool inside = j < N;
 #pragma unroll
-      for (int k = 0; k < ITJ; ++k) r[k] = inside ? fin[0][i][k] : T(0);
-      st4(o, r);
-    } else {
+    for (int a = 0; a < MT; ++a) {
+      if constexpr (REAL) {
 #pragma unroll
-      for (int k = 0; k < ITJ; k += 2) {
-        T r[4];
-        r[0] = inside ? fin[0][i][k] : T(0);
-        r[1] = inside ? fin[1][i][k] : T(0);
-        r[2] = inside ? fin[0][i][k + 1] : T(0);
-        r[3] = inside ? fin[1][i][k + 1] : T(0);
-        st4(o + 2 * k, r);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int q = row0 + wrow + 16 * a + 8 * hh + g;
+          if (q >= nrows) continue;
+          const Row w = group_row(q, nr, first, stride);
+          T* o = out + ((size_t)w.b * nring + w.ring) * maxlen + j;
+          C2 v;
+          v.x = inside ? sum[a][c][2 * hh] : T(0);
+          v.y = inside ? sum[a][c][2 * hh + 1] : T(0);
+          *reinterpret_cast<C2*>(o) = v;
+        }
+      } else {
+        const int q = row0 + wr * 8 * MT + 8 * a + g;
+        if (q >= nrows) continue;
+        const Row w = group_row(q, nr, first, stride);
+        C2* o = reinterpret_cast<C2*>(out) + ((size_t)w.b * nring + w.ring) * maxlen + j;
+        C2 v0, v1;
+        v0.x = inside ? sum[a][c][0] : T(0);
+        v0.y = inside ? sum[a][c][2] : T(0);
+        v1.x = inside ? sum[a][c][1] : T(0);
+        v1.y = inside ? sum[a][c][3] : T(0);
+        o[0] = v0;
+        o[1] = v1;
       }
     }
   }
 }
 
-template <typename T>
-int launch_fwd(const void* maps, const int* groups, const int* tiles, int ntiles, void* F,
-               void* G, int B, int nring, int maxlen, int m0, int nm, int rows,
-               cudaStream_t stream) {
-  if (rows != FR || B < 0 || nm < 0 || m0 < 0 || ntiles < 0) return (int)cudaErrorInvalidValue;
-  if (B == 0 || nm == 0 || ntiles == 0) return 0;
-  const int nmt = (nm + FM - 1) / FM;
+// ------------------------------------------------------------- launches
+
+template <int NQ>
+int launch_fwd32_nq(const void* maps, const int* groups, const int* tiles, int ntiles, void* F,
+                    void* G, int B, int nring, int maxlen, int m0, int nm, int rows, int nstage,
+                    cudaStream_t stream) {
+  constexpr auto kernel = phase_fwd_tf32<NQ>;
+  const size_t smem = fwd32_smem(rows, 8 * NQ, maxlen, nstage);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int nmt = (nm + 8 * NQ - 1) / (8 * NQ);
   if ((long long)ntiles * nmt > INT_MAX) return (int)cudaErrorInvalidValue;
-  phase_fwd_kernel<T><<<ntiles * nmt, THREADS, 0, stream>>>(
-      static_cast<const cpx<T>*>(maps), groups, reinterpret_cast<const int2*>(tiles),
-      static_cast<cpx<T>*>(F), static_cast<cpx<T>*>(G), B, nring, maxlen, m0, nm, nmt);
+  cudaError_t e = ring::allow_smem<kernel>(smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<ntiles * nmt, 4 * rows, smem, stream>>>(
+      static_cast<const float2*>(maps), groups, reinterpret_cast<const int2*>(tiles),
+      static_cast<float2*>(F), static_cast<float2*>(G), B, nring, maxlen, m0, nm, nmt, rows,
+      nstage);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_fwd64_nt(const void* maps, const int* groups, const int* tiles, int ntiles, void* F,
+                    void* G, int B, int nring, int maxlen, int m0, int nm, int rows, int nstage,
+                    cudaStream_t stream) {
+  constexpr auto kernel = phase_fwd_f64<NT>;
+  constexpr int COLS = WC * 4 * NT;
+  const size_t smem = fwd64_smem(rows, COLS, maxlen, nstage);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int nmt = (nm + COLS - 1) / COLS;
+  if ((long long)ntiles * nmt > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = ring::allow_smem<kernel>(smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<ntiles * nmt, 4 * rows, smem, stream>>>(
+      static_cast<const double2*>(maps), groups, reinterpret_cast<const int2*>(tiles),
+      static_cast<double2*>(F), static_cast<double2*>(G), B, nring, maxlen, m0, nm, nmt, rows,
+      nstage);
+  return (int)cudaGetLastError();
+}
+
+// rows a tile: 32 or 64 (complex64: one or two warpgroups), 16, 32 or 64
+// (complex128)
+template <bool F32>
+int launch_fwd(const void* maps, const int* groups, const int* tiles, int ntiles, void* F,
+               void* G, int B, int nring, int maxlen, int m0, int nm, int rows, int cols,
+               int nstage, cudaStream_t stream) {
+  const bool rows_ok = F32 ? (rows == 32 || rows == 64) : (rows == 16 || rows == 32 || rows == 64);
+  if (B < 0 || nm < 0 || m0 < 0 || ntiles < 0 || !rows_ok || cols % 8 != 0 || cols < 8 ||
+      cols > 64 || nstage < 2 || nstage > 4)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || nm == 0 || ntiles == 0) return 0;
+#define K4_FWD(K)                                                                           \
+  case K:                                                                                   \
+    return F32 ? launch_fwd32_nq<K>(maps, groups, tiles, ntiles, F, G, B, nring, maxlen, m0, \
+                                    nm, rows, nstage, stream)                               \
+               : launch_fwd64_nt<K>(maps, groups, tiles, ntiles, F, G, B, nring, maxlen, m0, \
+                                    nm, rows, nstage, stream);
+  switch (cols / 8) {
+    K4_FWD(1) K4_FWD(2) K4_FWD(3) K4_FWD(4) K4_FWD(5) K4_FWD(6) K4_FWD(7) K4_FWD(8)
+  }
+#undef K4_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool REAL, int NT>
+int launch_inv_nt(const void* tpos, const void* tneg, const int* groups, const int* tiles,
+                  int ntiles, void* out, int B, int nring, int maxlen, int nm, int rows,
+                  int nstage, cudaStream_t stream) {
+  using C2 = typename Prec<T>::C2;
+  constexpr auto kernel = phase_inv_kernel<T, REAL, NT>;
+  constexpr int PIX = WC * NT * 8;
+  const size_t smem = inv_smem<T>(rows, PIX, maxlen, nstage, REAL);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int njt = (maxlen + PIX - 1) / PIX;
+  if ((long long)ntiles * njt > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = ring::allow_smem<kernel>(smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<ntiles * njt, (REAL ? 2 : 4) * rows, smem, stream>>>(
+      static_cast<const C2*>(tpos), static_cast<const C2*>(tneg), groups,
+      reinterpret_cast<const int2*>(tiles), static_cast<T*>(out), B, nring, maxlen, nm, njt, rows,
+      nstage);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_inv(const void* tpos, const void* tneg, const int* groups, const int* tiles,
-               int ntiles, void* out, int B, int nring, int maxlen, int nm, int rows, int real,
-               cudaStream_t stream) {
-  if (rows != IR || B < 0 || nm < 0 || ntiles < 0 || maxlen % 4 != 0 ||
-      (real != 0) != (tneg == nullptr))
+               int ntiles, void* out, int B, int nring, int maxlen, int nm, int rows, int pix,
+               int nstage, int real, cudaStream_t stream) {
+  const int rpw = real ? 32 : 16;  // rows a warp row
+  if (B < 0 || nm < 0 || ntiles < 0 || maxlen % 4 != 0 || (real != 0) != (tneg == nullptr) ||
+      (rows != rpw && rows != 2 * rpw && rows != 4 * rpw) || (pix != 32 && pix != 64) ||
+      nstage < 2 || nstage > 4)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || ntiles == 0) return 0;
-  const int njt = (maxlen + IJ - 1) / IJ;
-  if ((long long)ntiles * njt > INT_MAX) return (int)cudaErrorInvalidValue;
-  const cpx<T>* p = static_cast<const cpx<T>*>(tpos);
-  const int2* tl = reinterpret_cast<const int2*>(tiles);
   if (real)
-    phase_inv_kernel<T, true><<<ntiles * njt, THREADS, 0, stream>>>(
-        p, nullptr, groups, tl, static_cast<T*>(out), B, nring, maxlen, nm, njt);
-  else
-    phase_inv_kernel<T, false><<<ntiles * njt, THREADS, 0, stream>>>(
-        p, static_cast<const cpx<T>*>(tneg), groups, tl, static_cast<T*>(out), B, nring,
-        maxlen, nm, njt);
-  return (int)cudaGetLastError();
+    return pix == 32 ? launch_inv_nt<T, true, 2>(tpos, tneg, groups, tiles, ntiles, out, B, nring,
+                                                 maxlen, nm, rows, nstage, stream)
+                     : launch_inv_nt<T, true, 4>(tpos, tneg, groups, tiles, ntiles, out, B, nring,
+                                                 maxlen, nm, rows, nstage, stream);
+  return pix == 32 ? launch_inv_nt<T, false, 2>(tpos, tneg, groups, tiles, ntiles, out, B, nring,
+                                                maxlen, nm, rows, nstage, stream)
+                   : launch_inv_nt<T, false, 4>(tpos, tneg, groups, tiles, ntiles, out, B, nring,
+                                                maxlen, nm, rows, nstage, stream);
 }
 
 }  // namespace
@@ -530,37 +922,44 @@ extern "C" {
 
 // maps (B, nring, maxlen) complex, padding slots not read; groups (ngroups,
 // 5) int32 rows (N, h, rings, first ring, ring stride) and tiles (ntiles, 2)
-// int32 (group, first row) of ops/sht.py phase_groups / phase_tiles, rows a
-// tile = FR; F, G (B, nm, nring) complex for m = m0 .. m0 + nm - 1.
+// int32 (group, first row) of ops/sht.py phase_groups / phase_tiles; the
+// plan of ops/sht.py phase_plan: rows a tile (32 or 64 complex64; 16, 32
+// or 64 complex128), m a tile (cols, a multiple of 8 up to 64), ring
+// stages (2..4); F, G (B, nm, nring) complex for m = m0 .. m0 + nm - 1.
+// Returns the first CUDA error
+// (cudaErrorInvalidValue for a plan this library was not built for or
+// past the shared memory).
 int phase_fwd_c64(const void* maps, const int* groups, const int* tiles, int ntiles, void* F,
-                  void* G, int B, int nring, int maxlen, int m0, int nm, int rows,
-                  void* stream) {
-  return launch_fwd<float>(maps, groups, tiles, ntiles, F, G, B, nring, maxlen, m0, nm, rows,
-                           (cudaStream_t)stream);
+                  void* G, int B, int nring, int maxlen, int m0, int nm, int rows, int cols,
+                  int nstage, void* stream) {
+  return launch_fwd<true>(maps, groups, tiles, ntiles, F, G, B, nring, maxlen, m0, nm, rows,
+                          cols, nstage, (cudaStream_t)stream);
 }
 
 int phase_fwd_c128(const void* maps, const int* groups, const int* tiles, int ntiles, void* F,
-                   void* G, int B, int nring, int maxlen, int m0, int nm, int rows,
-                   void* stream) {
-  return launch_fwd<double>(maps, groups, tiles, ntiles, F, G, B, nring, maxlen, m0, nm, rows,
-                            (cudaStream_t)stream);
+                   void* G, int B, int nring, int maxlen, int m0, int nm, int rows, int cols,
+                   int nstage, void* stream) {
+  return launch_fwd<false>(maps, groups, tiles, ntiles, F, G, B, nring, maxlen, m0, nm, rows,
+                           cols, nstage, (cudaStream_t)stream);
 }
 
 // tpos, tneg (B, nm, nring) complex for m = 0 .. nm - 1 (tneg null: the
-// real form); groups and tiles as above, rows a tile = IR; out (B, nring,
-// maxlen), real (real form) or complex, every slot written.
+// real form); groups and tiles as above, the plan's rows a tile (32, 64 or
+// 128 real form; 16, 32 or 64 complex), pixels a tile (32 or 64) and ring
+// stages; out (B, nring, maxlen), real (real form) or complex, every slot
+// written.
 int phase_inv_c64(const void* tpos, const void* tneg, const int* groups, const int* tiles,
-                  int ntiles, void* out, int B, int nring, int maxlen, int nm, int rows,
-                  int real, void* stream) {
+                  int ntiles, void* out, int B, int nring, int maxlen, int nm, int rows, int pix,
+                  int nstage, int real, void* stream) {
   return launch_inv<float>(tpos, tneg, groups, tiles, ntiles, out, B, nring, maxlen, nm, rows,
-                           real, (cudaStream_t)stream);
+                           pix, nstage, real, (cudaStream_t)stream);
 }
 
 int phase_inv_c128(const void* tpos, const void* tneg, const int* groups, const int* tiles,
-                   int ntiles, void* out, int B, int nring, int maxlen, int nm, int rows,
-                   int real, void* stream) {
+                   int ntiles, void* out, int B, int nring, int maxlen, int nm, int rows, int pix,
+                   int nstage, int real, void* stream) {
   return launch_inv<double>(tpos, tneg, groups, tiles, ntiles, out, B, nring, maxlen, nm, rows,
-                            real, (cudaStream_t)stream);
+                            pix, nstage, real, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -166,13 +166,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[NW / 2], uint64_t da, uint
   else wgmma_bf16_n256(d, da, db, 1);
 }
 
-template <int NW>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[NW / 2], const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  if constexpr (NW == 64) wgmma_tf32_n64(d, a, db, scale_d);
-  else wgmma_tf32_n128(d, a, db, scale_d);
-}
-
 // The two consumer warpgroups (barrier 0 is __syncthreads).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");

@@ -321,10 +321,107 @@ def _cmul(a, b):
     return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
 
 
-# The tiles of csrc/phase_stage.cu: rows (unit, ring) a block of the
-# forward kernel (FR there) and of the inverse (IR)
-PHASE_ROWS = 64
-PHASE_INV_ROWS = 32
+# The plan of csrc/phase_stage.cu: its largest m tile (8 NT columns, NT up
+# to 8), its shared memory a block, the pixels of a forward stage and the m
+# of an inverse stage of each type (they fix the order of every sum and do
+# not depend on the plan)
+PHASE_MAX_COLS = 64
+PHASE_SMEM = 232448
+_PHASE_JC = 32
+_PHASE_MC = {torch.complex64: 32, torch.complex128: 16}
+
+
+class PhasePlan(NamedTuple):
+    """The tile of one phase-stage launch (:func:`phase_plan`)."""
+
+    rows: int  # rows (unit, ring) a block: a row tile of phase_tiles
+    cols: int  # forward: m a tile (a multiple of 8); inverse: pixels a tile
+    tiles: int  # forward: m tiles (cols x tiles >= nm); inverse: pixel tiles
+    stages: int  # shared-memory stages of the cp.async ring
+    smem: int  # bytes of dynamic shared memory a block
+
+
+def _m_tiles(nm: int) -> tuple[int, int]:
+    """(cols, tiles) covering nm m: one tile of nm rounded up to a multiple
+    of 8 up to PHASE_MAX_COLS; past it the fewest columns over an even split
+    into 1-3 more tiles than the least (ties: fewer tiles)."""
+    least = -(-nm // PHASE_MAX_COLS)
+    best = None
+    for k in range(least, least + 3):
+        cols = -(-(-(-nm // k)) // 8) * 8
+        if cols > PHASE_MAX_COLS:
+            continue
+        if best is None or k * cols < best[0] * best[1]:
+            best = (k, cols)
+    return best[1], best[0]
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=256)
+def phase_plan(nside: int, B: int, nm: int, dtype: torch.dtype, inverse: bool = False,
+               real: bool = False) -> PhasePlan:
+    """The tile of a K4 (``inverse``: K4's inverse, ``real`` its real form)
+    launch for B units at ``nside`` over nm m, as csrc/phase_stage.cu takes
+    it.  Forward: m tiles of :func:`_m_tiles`; complex64 32 rows (one
+    warpgroup) and 4 ring stages, complex128 16, 32 or 64 rows as the polar
+    caps' 2B-row groups fill them and 3 stages; inverse: 32 (real form) or
+    16 (complex) rows a warp row, 2 or 4 warp rows likewise, pixel tiles
+    of 64 (32 where rings hold at most 32 pixels), 2 ring stages.  Where
+    the shared memory would pass the card's 227 KB the stages drop to 2,
+    then the rows, then the forward's m tile to 32 columns; past that it
+    raises ValueError."""
+    if dtype not in _PHASE_MC:
+        raise TypeError(f"phase stage of {dtype}")
+    c64 = dtype == torch.complex64
+    maxlen = 4 * nside
+    csize = 8 if c64 else 16
+    if not inverse:
+        # complex64: one warpgroup a block, so that several blocks share an
+        # SM; complex128: the warp rows the caps' groups fill
+        per, least, most = (32, 1, 1) if c64 else (16, 1, 4)
+        cols, tiles = _m_tiles(max(nm, 1))
+        stages = 4 if c64 else 3
+    else:
+        per, least, most = (32 if real else 16), 2, 4
+        cols = 64 if maxlen > 32 else 32
+        tiles = -(-maxlen // cols)
+        stages = 2
+    wr = least
+    while wr < most and 2 * B > per * wr:
+        wr *= 2
+
+    def smem(wr, cols, stages):
+        rows = per * wr
+        if not inverse and c64:
+            # alignment slack, the table's big and small planes (2 cols rows
+            # of 128 bytes), two stages' turns, the half-wave table, the
+            # ring, the rows' offsets
+            return (1024 + 2 * 2 * cols * 128 + 16 * cols + _align16((maxlen + 1) * 4)
+                    + stages * rows * (_PHASE_JC + 4) * csize + 8 * rows)
+        if not inverse:
+            # the half-wave table, the ring, the table tile, the turns, the
+            # rows' offsets
+            return (_align16((maxlen + 1) * 8) + stages * rows * (_PHASE_JC + 4) * csize
+                    + _PHASE_JC * (2 * cols + 4) * 8 + 16 * cols + 8 * rows)
+        mc = _PHASE_MC[dtype]
+        pad = 2 if c64 else 4
+        # the half-wave table as entries, the ring, two table tiles
+        return (_align16((maxlen + 1) * 8) + 2 * mc * (cols + pad) * 16
+                + stages * (1 if real else 2) * rows * (mc + 4) * csize)
+
+    while smem(wr, cols, stages) > PHASE_SMEM:
+        if stages > 2:
+            stages -= 1
+        elif wr > 1:
+            wr //= 2
+        elif not inverse and cols > 32:
+            cols, tiles = 32, -(-max(nm, 1) // 32)
+        else:
+            raise ValueError(f"nside {nside}: the phase stage's tables pass the shared memory")
+    return PhasePlan(per * wr, cols, tiles, stages, smem(wr, cols, stages))
 
 
 @functools.lru_cache(maxsize=32)
@@ -389,16 +486,17 @@ def phase_stage(padded, nside: int, nm: int, m0: int = 0):
     G = torch.empty_like(F)
     if F.numel() == 0:
         return F, G
-    groups, tiles = _phase_launch_tables(nside, B, PHASE_ROWS, dev)
+    plan = phase_plan(nside, B, nm, padded.dtype)
+    groups, tiles = _phase_launch_tables(nside, B, plan.rows, dev)
     fn = K4.entry(
         "phase_fwd_c64" if padded.dtype == torch.complex64 else "phase_fwd_c128",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
     )
     backend.launch(
         K4, fn, dev,
         padded.data_ptr(), groups.data_ptr(), tiles.data_ptr(), tiles.shape[0], F.data_ptr(),
-        G.data_ptr(), B, g.nring, g.maxlen, m0, nm, PHASE_ROWS,
+        G.data_ptr(), B, g.nring, g.maxlen, m0, nm, plan.rows, plan.cols, plan.stages,
     )
     return F, G
 
@@ -733,17 +831,18 @@ def phase_stage_inv(tpos, tneg, nside: int, real: bool):
     out = torch.empty((B, g.nring, g.maxlen), dtype=dtype, device=dev)
     if out.numel() == 0:
         return out
-    groups, tiles = _phase_launch_tables(nside, B, PHASE_INV_ROWS, dev)
+    plan = phase_plan(nside, B, nm, tpos.dtype, inverse=True, real=real)
+    groups, tiles = _phase_launch_tables(nside, B, plan.rows, dev)
     fn = K4_INV.entry(
         "phase_inv_c64" if tpos.dtype == torch.complex64 else "phase_inv_c128",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
     )
     backend.launch(
         K4_INV, fn, dev,
         tpos.data_ptr(), None if tneg is None else tneg.data_ptr(), groups.data_ptr(),
         tiles.data_ptr(), tiles.shape[0], out.data_ptr(), B, g.nring, g.maxlen, nm,
-        PHASE_INV_ROWS, int(real),
+        plan.rows, plan.cols, plan.stages, int(real),
     )
     return out
 

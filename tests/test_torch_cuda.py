@@ -488,10 +488,15 @@ def test_k14_legendre_synth_edges(cuda, shape, neg, dtype, rtol):
 # (nside, B, m0, nm): one unit, units that fill a row tile (64) or spill
 # past it, the full range at 3 nside (the cap rings' m past N_r), windows
 # past the caps' N_r, one m, nside 1024's 4,096-pixel belt (and 2,047-pixel
-# pairs) at ns1b's window
+# pairs) at ns1b's window; the plan's edges (ops/sht.py phase_plan): nm 33,
+# 45, 48, 49 (one m past a 48-column tile) and 495 (nine 56-column tiles),
+# each warp-row count (B 1, whose cap groups hold 2 rows; B 12; B 40), and
+# nside 512 in both types
 K4_SHAPES = [
     (4, 1, 0, 12), (16, 3, 0, 48), (16, 64, 5, 23), (32, 5, 100, 7), (8, 70, 29, 1),
     (64, 2, 0, 192), (1024, 2, 0, 33),
+    (64, 3, 0, 33), (64, 12, 270, 45), (32, 40, 7, 48), (128, 1, 0, 49), (256, 2, 0, 495),
+    (512, 3, 300, 49),
 ]
 
 
@@ -512,12 +517,19 @@ def test_k4_phase(cuda, shape, dtype, rtol):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# m-windows whose own plans take every m-tile width (8, 16, ..., 64
+# columns), and whose full ranges take one to three tiles
+K4_WINDOWS = [(16, 3, (40, 49)), (64, 16, (60, 121)), (512, 2, (270, 315)),
+              (64, 3, (5, 6)), (64, 3, (60, 81)), (64, 3, (3, 33)), (64, 3, (100, 137)),
+              (64, 3, (0, 45)), (64, 3, (7, 56)), (64, 3, (130, 190))]
+
+
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-@pytest.mark.parametrize("nside,B,window", [(16, 3, (40, 49)), (64, 16, (60, 121)),
-                                            (512, 2, (270, 315))])
+@pytest.mark.parametrize("nside,B,window", K4_WINDOWS)
 def test_k4_phase_window(cuda, nside, B, window, dtype):
     """K4 over an m-window: every column bitwise the full-range call's on
-    the same maps (ns2's window at nside 512 among them)."""
+    the same maps (ns2's window at nside 512 among them), at every m-tile
+    width of the plan."""
     g = healpix.ring_geometry(nside)
     rng = np.random.default_rng(nside + B)
     maps = _crandn(rng, (B, g.nring, g.maxlen), cuda).to(dtype)
@@ -529,10 +541,12 @@ def test_k4_phase_window(cuda, nside, B, window, dtype):
         assert torch.equal(w, f[:, m0:m1])
 
 
-# (nside, B, nm): one unit, a row tile (32) and past it, nm up to 3 nside
-# and past it (caps' bins fold), the timestream's shape (nside 256, B 8,
-# lmax 229)
-K4_INV_SHAPES = [(4, 1, 12), (16, 3, 48), (16, 33, 70), (32, 2, 20), (256, 8, 230)]
+# (nside, B, nm): one unit, a row tile and past it, nm up to 3 nside and
+# past it (caps' bins fold), the timestream's shape (nside 256, B 8, lmax
+# 229); each warp-row count of the plan (B 12, B 40), nm inside one stage,
+# 32-pixel tiles (nside 8)
+K4_INV_SHAPES = [(4, 1, 12), (16, 3, 48), (16, 33, 70), (32, 2, 20), (256, 8, 230),
+                 (64, 12, 192), (32, 40, 20), (8, 2, 5)]
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.complex64, 1e-5), (torch.complex128, 1e-12)])

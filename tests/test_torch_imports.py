@@ -38,6 +38,8 @@ SLICE_MODULES = [
     "driftscan_tpu_torch.experiments.probe_tiles",
     "driftscan_tpu_torch.experiments.topband_lock",
     "driftscan_tpu_torch.experiments.k17_tiles",
+    "driftscan_tpu_torch.experiments.k4_ablations",
+    "driftscan_tpu_torch.experiments.k4_turns",
     "driftscan_tpu_torch.ops.cheb",
     "driftscan_tpu_torch.ops.fpencil",
     "driftscan_tpu_torch.ops.healpix",

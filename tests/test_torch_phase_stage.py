@@ -123,6 +123,230 @@ def test_phase_tiles_cover_every_row(nside, B, rows):
     assert tiles[:, 0].tolist() == sorted(tiles[:, 0].tolist())
 
 
+# (nside, B, nm) of the paths (the [slice] and [pol] chunks, the [ns2
+# window], [dish], ns1b, the timestream's inverse) and the plan's edges
+PLAN_CASES = [(256, 64, 230), (128, 256, 121), (512, 16, 45), (512, 16, 495), (1024, 64, 33),
+              (256, 8, 230), (4, 1, 12), (16, 3, 48), (64, 12, 49), (32, 40, 7), (8, 70, 1),
+              (64, 3, 57), (2048, 64, 300)]
+TORCH_TYPES = {"c64": torch.complex64, "c128": torch.complex128}
+
+
+@pytest.mark.parametrize("dtype", ["c64", "c128"])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_phase_plan_covers_every_row_and_m_once(case, dtype):
+    """The forward's tiles (row tiles of phase_tiles x m tiles of the plan)
+    take every (group row, m) exactly once; each tile starts inside its
+    group's rows and the call's m; the m tiles are multiples of 8, nm up to
+    64 in one tile with at most 7 padding columns; the shared memory fits
+    the card and the stages are 2-4."""
+    nside, B, nm = case
+    plan = sht.phase_plan(nside, B, nm, TORCH_TYPES[dtype])
+    grp = sht.phase_groups(nside)
+    tiles = sht.phase_tiles(nside, B, plan.rows)
+    assert plan.cols % 8 == 0 and 8 <= plan.cols <= sht.PHASE_MAX_COLS
+    assert plan.cols * plan.tiles >= nm > plan.cols * (plan.tiles - 1)
+    if nm <= sht.PHASE_MAX_COLS:
+        assert plan.tiles == 1 and plan.cols - nm <= 7
+    else:
+        assert plan.cols * plan.tiles - nm < 8 * plan.tiles
+    assert plan.rows in (16, 32, 64) and 2 <= plan.stages <= 4
+    assert plan.smem <= sht.PHASE_SMEM
+    seen = {}
+    for gi, r0 in tiles.tolist():
+        nrows = B * int(grp[gi, 2])
+        assert 0 <= r0 < nrows
+        for k in range(plan.tiles):
+            c0 = k * plan.cols
+            assert c0 < nm
+            for q in range(r0, min(r0 + plan.rows, nrows)):
+                key = (gi, q)
+                seen[key] = seen.get(key, 0) + min(c0 + plan.cols, nm) - c0
+    assert len(seen) == B * healpix.ring_geometry(nside).nring
+    assert set(seen.values()) == {nm}
+
+
+@pytest.mark.parametrize("dtype", ["c64", "c128"])
+@pytest.mark.parametrize("real", [True, False], ids=["real", "complex"])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_inverse_plan_covers_every_row_and_pixel_once(case, real, dtype):
+    """The inverse's tiles (row tiles x pixel tiles) take every (group row,
+    slot) of the padded maps exactly once, each tile starting inside its
+    group's rows and the ring's slots."""
+    nside, B, nm = case
+    plan = sht.phase_plan(nside, B, nm, TORCH_TYPES[dtype], inverse=True, real=real)
+    g = healpix.ring_geometry(nside)
+    per = 32 if real else 16
+    assert plan.rows in (per, 2 * per, 4 * per) and plan.cols in (32, 64)
+    assert plan.cols * plan.tiles >= g.maxlen > plan.cols * (plan.tiles - 1)
+    assert 2 <= plan.stages <= 4 and plan.smem <= sht.PHASE_SMEM
+    grp = sht.phase_groups(nside)
+    rows = 0
+    for gi, r0 in sht.phase_tiles(nside, B, plan.rows).tolist():
+        nrows = B * int(grp[gi, 2])
+        assert 0 <= r0 < nrows
+        rows += min(r0 + plan.rows, nrows) - r0
+    assert rows == B * g.nring
+
+
+def test_the_windows_of_the_card_tests_take_every_tile_width():
+    """tests/test_torch_cuda.py's K4_WINDOWS (m0, m1) at nside 64, B 3 take
+    every m-tile width of the plan, 8 to 64 columns."""
+    windows = [(5, 6), (40, 49), (60, 81), (3, 33), (100, 137), (0, 45), (7, 56), (130, 190)]
+    widths = {sht.phase_plan(64, 3, m1 - m0, torch.complex64).cols for m0, m1 in windows}
+    assert widths == set(range(8, 65, 8))
+
+
+def test_the_plan_refuses_what_the_shared_memory_cannot_hold():
+    """nside 8192's half-wave tables (32,769 entries) pass the shared
+    memory in float64 (the complex128 forward) and as table entries (the
+    inverse): the plan raises rather than launch; the complex64 forward
+    keeps its table in float32 and fits, and nside 4096 fits in every
+    form."""
+    for dtype, inverse in ((torch.complex128, False), (torch.complex64, True),
+                           (torch.complex128, True)):
+        with pytest.raises(ValueError, match="shared memory"):
+            sht.phase_plan(8192, 1, 12, dtype, inverse=inverse)
+    assert sht.phase_plan(8192, 1, 12, torch.complex64).smem <= sht.PHASE_SMEM
+    for dtype in (torch.complex64, torch.complex128):
+        for inverse, real in ((False, False), (True, False), (True, True)):
+            plan = sht.phase_plan(4096, 64, 500, dtype, inverse=inverse, real=real)
+            assert plan.smem <= sht.PHASE_SMEM and plan.stages >= 2
+
+
+def _fold(t, N):
+    return np.where(t <= N, t, 2 * N - t)
+
+
+def _add_mod(a, b, n):
+    s = a + b
+    return np.where(s >= n, s - n, s)
+
+
+def _half_wave(N):
+    """The kernels' half-wave table cos(pi u / N), u = 0 .. N, and its index
+    maps for cos and sin (pi t / N), 0 <= t < 2N."""
+    half = np.cos(np.pi * np.arange(N + 1) / N)
+
+    def cos_sin(t):
+        t = np.asarray(t)
+        sin_idx = _fold(np.where(t >= N // 2, t - N // 2, t + 3 * (N // 2)), N)
+        return half[_fold(t, N)], half[sin_idx]
+
+    return cos_sin
+
+
+@pytest.mark.parametrize("nside", [1, 2, 4, 8, 16, 64])
+def test_the_forward_kernels_angles_are_exact(nside):
+    """A numpy mirror of csrc/phase_stage.cu's forward angle arithmetic: the
+    block's table tile t = (m mod 2N) (2 jl + h) mod 2N and the turn of
+    stage s, s dt with dt = (m mod 2N) 2 JC mod 2N (complex64 steps it by
+    exact modular adds, complex128 raises the one step to the s-th power
+    by its Horner walk), add up to m (2 j + h) mod 2N for every (N, h, m, j)
+    of the rings of ``nside`` at j = jl + JC s (m up to past 4N, any first
+    m), in 32-bit products; the half-wave lookups are cos and sin (pi t / N)
+    to 4e-15 (numpy's own rounding of pi t / N up to 2 pi)."""
+    for N, h, _, _, _ in sht.phase_groups(nside).tolist():
+        n2 = 2 * N
+        cos_sin = _half_wave(N)
+        t = np.arange(n2)
+        c, s = cos_sin(t)
+        assert np.abs(c - np.cos(np.pi * t / N)).max() < 4e-15
+        assert np.abs(s - np.sin(np.pi * t / N)).max() < 4e-15
+        for JC in (32, 16):
+            assert (n2 - 1) * (2 * JC + 1) < 2**32
+            for m0, cols in ((0, 8), (3 * N + 5, 48), (7, 64)):
+                m = (m0 + np.arange(cols)) % n2
+                jl = np.arange(JC)
+                loc = (m[None, :] * (2 * jl[:, None] + h)) % n2
+                dt = (m * 2 * JC) % n2
+                tc = np.zeros_like(dt)
+                for st in range(-(-N // JC)):
+                    j = jl[:, None] + JC * st
+                    want = ((m0 + np.arange(cols))[None, :] * (2 * j + h)) % n2
+                    assert ((loc + tc[None, :]) % n2 == want).all()
+                    assert (tc == (dt * st) % n2).all()
+                    tc = _add_mod(tc, dt, n2)
+
+
+@pytest.mark.parametrize("nside", [2, 8, 32])
+def test_the_forward_kernels_turned_stage_sums_are_the_projection(nside):
+    """The forward kernel's factored sum in float64: each JC-pixel stage
+    projected with the block's one table tile and turned by the stage's
+    angle (complex64's order: stage sums from zero, each turned and added
+    in order) or walked from the last stage, the running total turned by
+    the one step before each (complex128's Horner order), equals the
+    direct projection sum_j f_j e^{-i m phi_j} (F) and e^{+i m phi_j} (G)
+    to 1e-13 of its largest entry, for the rings' own N and h at m past
+    4N."""
+    rng = np.random.default_rng(nside)
+    for N, h, _, _, _ in sht.phase_groups(nside).tolist():
+        cos_sin = _half_wave(N)
+        n2 = 2 * N
+        m = np.arange(0, 4 * N + 9)
+        f = rng.standard_normal(N) + 1j * rng.standard_normal(N)
+        # m phi_j reduced exactly: pi t / N, t = m (2 j + h) mod 2N
+        ang = np.pi * ((m[:, None] * (2 * np.arange(N)[None, :] + h)) % n2) / N
+        want_F = (f[None, :] * np.exp(-1j * ang)).sum(1)
+        want_G = (f[None, :] * np.exp(1j * ang)).sum(1)
+        scale = max(np.abs(want_F).max(), 1.0)
+        for JC in (32, 16):
+            nst = -(-N // JC)
+            x = np.zeros(nst * JC, complex)
+            x[:N] = f
+            jl = np.arange(JC)
+            tc, ts = cos_sin((m[None, :] % n2) * (2 * jl[:, None] + h) % n2)
+            zc, zs = cos_sin((m % n2) * 2 * JC % n2)
+
+            def stage(st):
+                xs = x[st * JC:(st + 1) * JC, None]
+                return (xs * tc).sum(0), (xs * ts).sum(0)  # P, Q (complex rows)
+
+            def turn(p, q, c, s):
+                return c * p - s * q, s * p + c * q
+
+            P = Q = 0
+            for st in range(nst):
+                c, s = cos_sin((m % n2) * 2 * JC * st % n2)
+                p, q = turn(*stage(st), c, s)
+                P, Q = P + p, Q + q
+            P2, Q2 = stage(nst - 1)
+            for st in range(nst - 2, -1, -1):
+                P2, Q2 = turn(P2, Q2, zc, zs)
+                p, q = stage(st)
+                P2, Q2 = P2 + p, Q2 + q
+            for p, q in ((P, Q), (P2, Q2)):
+                assert np.abs((p - 1j * q) - want_F).max() < 1e-13 * scale
+                assert np.abs((p + 1j * q) - want_G).max() < 1e-13 * scale
+
+
+@pytest.mark.parametrize("nside", [1, 2, 4, 8, 16, 64])
+def test_the_inverse_kernels_angle_steps_are_exact(nside):
+    """A numpy mirror of csrc/phase_stage.cu's inverse table gather, thread
+    by thread: pixel jl of the tile, m mfirst + mstep k of each m stage (32
+    in complex64, 16 in complex128), t stepped by exact modular adds across
+    m and stages, reaches t = m (2 j + h) mod 2N for every (N, h, m, j) of
+    the rings of ``nside``."""
+    for N, h, _, _, _ in sht.phase_groups(nside).tolist():
+        n2 = 2 * N
+        for MC in (32, 16):
+            for nthr in (64, 128, 256):
+                tid = np.arange(nthr)
+                pix = 32
+                for j0 in range(0, N, pix):
+                    jl, mfirst, mstep = tid % pix, tid // pix, nthr // pix
+                    kj = (2 * (j0 + jl) + h) % n2
+                    tstart, tstep = (mfirst * kj) % n2, (mstep * kj) % n2
+                    dstart = (MC * kj) % n2
+                    for s in range(3):
+                        tc = tstart
+                        for k in range(-(-MC // mstep)):
+                            m, j = s * MC + mfirst + mstep * k, j0 + jl
+                            ok = mfirst + mstep * k < MC
+                            assert (tc == m * (2 * j + h) % n2)[ok].all()
+                            tc = _add_mod(tc, tstep, n2)
+                        tstart = _add_mod(tstart, dstart, n2)
+
+
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128], ids=["c64", "c128"])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
 def test_phase_stage_matches_jax(case, dtype):
